@@ -1,0 +1,60 @@
+"""Carry ``fab_tpu`` state into the port, from numpy leaves.
+
+- ``from_jax_params``: ``fab_tpu``'s flow pytree ``{"base": ..., "layers": (...)}``
+  -> a state dict for the port's Flow (``flow.load_state_dict(...)``).
+- ``transition_state_from_jax``: the HMC state (epsilons, common_epsilon, mass).
+- ``buffer_state_from_jax``: a ``PrioritisedBufferState``.
+
+Leaves may be numpy arrays or anything ``numpy.asarray`` accepts; every tensor is a
+copy.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from fab_tpu_torch.buffer import PrioritisedBufferState
+
+
+def _tensor(a, device=None) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def from_jax_params(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """Flow state dict from ``fab_tpu``'s flow params (diagonal-Gaussian base,
+    AffineCoupling and LULinear layers)."""
+    state = {
+        "base.loc": _tensor(tree["base"]["loc"], device),
+        "base.log_scale": _tensor(tree["base"]["log_scale"], device),
+    }
+    for i, layer in enumerate(tree["layers"]):
+        prefix = f"bijectors.{i}."
+        if "mlp" in layer:
+            for j, dense in enumerate(layer["mlp"]):
+                state[f"{prefix}mlp.{j}.w"] = _tensor(dense["w"], device)
+                state[f"{prefix}mlp.{j}.b"] = _tensor(dense["b"], device)
+        elif "lower" in layer:
+            for name in ("lower", "upper", "log_s", "sign_s"):
+                state[prefix + name] = _tensor(layer[name], device)
+        else:
+            raise ValueError(f"layer {i}: unknown parameter keys {sorted(layer)}")
+    return state
+
+
+def transition_state_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """HMC adaptation state: {"epsilons", "common_epsilon", "mass"}."""
+    return {k: _tensor(tree[k], device) for k in ("epsilons", "common_epsilon", "mass")}
+
+
+def buffer_state_from_jax(state, device=None) -> PrioritisedBufferState:
+    """The JAX package's ``PrioritisedBufferState`` (``fab_tpu/buffer.py``) (or any 5-tuple in its order)."""
+    x, log_w, log_q_old, cursor, n_added = state
+    return PrioritisedBufferState(
+        x=_tensor(x, device),
+        log_w=_tensor(log_w, device),
+        log_q_old=_tensor(log_q_old, device),
+        cursor=_tensor(np.asarray(cursor, np.int32), device),
+        n_added=_tensor(np.asarray(n_added, np.int32), device),
+    )

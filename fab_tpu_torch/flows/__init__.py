@@ -1,0 +1,16 @@
+from fab_tpu_torch.flows.base import DiagGaussianBase, Flow, flow_log_prob, frozen
+from fab_tpu_torch.flows.coupling import AffineCoupling
+from fab_tpu_torch.flows.factory import make_realnvp
+from fab_tpu_torch.flows.fused import FusedRealNVPFlow
+from fab_tpu_torch.flows.linear import LULinear
+
+__all__ = [
+    "AffineCoupling",
+    "DiagGaussianBase",
+    "Flow",
+    "FusedRealNVPFlow",
+    "LULinear",
+    "flow_log_prob",
+    "frozen",
+    "make_realnvp",
+]

@@ -1,0 +1,128 @@
+"""Flow core: bijector interface, diagonal-Gaussian base, composed Flow
+(``fab_tpu/flows/base.py``).
+
+Direction convention: ``forward`` maps base -> data (sampling); ``inverse`` maps
+data -> base (density evaluation). Parameters live in the modules; state-dict keys
+follow ``fab_tpu``'s pytree (``base.loc``, ``bijectors.<i>.mlp.<j>.w``, ...), see
+``fab_tpu_torch/convert.py``.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from fab_tpu_torch import random
+
+
+class Bijector(nn.Module):
+    """A bijector whose parameters are initialised by ``reset_parameters``."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        raise NotImplementedError
+
+    def forward_and_log_det(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Base -> data. Returns (x, log|det J|) with log-det shaped [B]."""
+        raise NotImplementedError
+
+    def inverse_and_log_det(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Data -> base. Returns (z, log|det J^-1|) with log-det shaped [B]."""
+        raise NotImplementedError
+
+
+class DiagGaussianBase(nn.Module):
+    """Trainable diagonal-Gaussian base distribution (loc, log_scale)."""
+
+    def __init__(self, dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim = dim
+        self.loc = nn.Parameter(torch.zeros((dim,), dtype=dtype, device=device))
+        self.log_scale = nn.Parameter(torch.zeros((dim,), dtype=dtype, device=device))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.loc.zero_()
+            self.log_scale.zero_()
+
+    def sample_and_log_prob(
+        self, n: int, generator: torch.Generator
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        eps = random.normal(generator, (n, self.dim), self.loc.dtype, self.loc.device)
+        z = self.loc + eps * torch.exp(self.log_scale)
+        return z, self._log_prob_from_eps(eps)
+
+    def log_prob(self, z: torch.Tensor) -> torch.Tensor:
+        eps = (z - self.loc) * torch.exp(-self.log_scale)
+        return self._log_prob_from_eps(eps)
+
+    def _log_prob_from_eps(self, eps: torch.Tensor) -> torch.Tensor:
+        log_norm = -0.5 * self.dim * math.log(2 * math.pi) - self.log_scale.sum()
+        return log_norm - 0.5 * (eps**2).sum(-1)
+
+
+class Flow(nn.Module):
+    """A normalizing flow q: trainable diagonal-Gaussian base + chain of bijectors."""
+
+    def __init__(self, dim: int, bijectors: Sequence[Bijector], base: nn.Module):
+        super().__init__()
+        self.dim = dim
+        self.base = base
+        self.bijectors = nn.ModuleList(bijectors)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.base.reset_parameters()
+        for bij in self.bijectors:
+            bij.reset_parameters(generator)
+
+    def forward_and_log_det(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        log_det = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+        for bij in self.bijectors:
+            z, ld = bij.forward_and_log_det(z)
+            log_det = log_det + ld
+        return z, log_det
+
+    def inverse_and_log_det(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        log_det = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for bij in reversed(self.bijectors):
+            x, ld = bij.inverse_and_log_det(x)
+            log_det = log_det + ld
+        return x, log_det
+
+    def sample_and_log_prob(
+        self, n: int, generator: torch.Generator
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        z, log_q = self.base.sample_and_log_prob(n, generator)
+        x, log_det = self.forward_and_log_det(z)
+        return x, log_q - log_det
+
+    def sample(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        return self.sample_and_log_prob(n, generator)[0]
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        z, log_det = self.inverse_and_log_det(x)
+        return self.base.log_prob(z) + log_det
+
+
+def flow_log_prob(flow: Flow, x: torch.Tensor) -> torch.Tensor:
+    """log q(x). Deterministic flows only; stochastic (SNF) flows are not ported."""
+    return flow.log_prob(x)
+
+
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """Turn off parameter gradients inside the block (``stop_gradient`` on params).
+
+    Gradients with respect to the inputs still flow; the previous flags come back
+    on exit.
+    """
+    flags = [(p, p.requires_grad) for p in module.parameters()]
+    for p, _ in flags:
+        p.requires_grad_(False)
+    try:
+        yield module
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)

@@ -1,0 +1,4 @@
+from fab_tpu_torch.targets.double_well import DoubleWellEnergy
+from fab_tpu_torch.targets.many_well import ManyWellEnergy
+
+__all__ = ["DoubleWellEnergy", "ManyWellEnergy"]

@@ -1,0 +1,86 @@
+"""K1 against its plain version on the card. Skipped without a CUDA card: the
+hand-written kernel has no CPU mode. This file imports no JAX, so it also runs on a
+machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu
+"""
+import pytest
+import torch
+
+from fab_tpu_torch.flows import make_realnvp
+from fab_tpu_torch.flows.fused import _stack_params
+from fab_tpu_torch.ops import realnvp_kernel as rk
+
+KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wlin", "lu_ld")
+# (dim, layers, nodes per dim, batch): a small ragged batch and the main path.
+SHAPES = [(8, 3, 4, 100), (32, 10, 10, 2048)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _perturbed_flow(dim, layers, nodes, device, fused=True):
+    gen = torch.Generator(device=device).manual_seed(0)
+    flow = make_realnvp(dim, layers, nodes, fused=fused, generator=gen, device=device)
+    with torch.no_grad():
+        for p in flow.parameters():  # the coupling's last layer starts at zero
+            p.add_(0.005 * torch.randn(p.shape, generator=gen, device=device))
+    return flow
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_k1_kernel_matches_plain_version(card, inverse, shape):
+    dim, layers, nodes, batch = shape
+    flow = _perturbed_flow(dim, layers, nodes, card)
+    x = torch.randn(batch, dim, device=card)
+    before = rk.fused_realnvp_pass.launches
+    with torch.no_grad():
+        s = _stack_params(flow, inverse)
+        args = [s[k] for k in KEYS]
+        y, ld = rk.fused_realnvp_pass(x, *args, inverse)
+        y_ref, ld_ref = rk.fused_realnvp_pass_reference(x, *args, inverse)
+    torch.cuda.synchronize()
+    assert rk.fused_realnvp_pass.launches == before + 1
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    # log_det sums up to 10 layers' f32 terms in another order.
+    torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_fused_flow_launches_k1_on_batched_input(card):
+    """A [n, B, D] input on the card runs through K1 (one launch per pass), not
+    through the plain chain."""
+    fused = _perturbed_flow(8, 3, 4, card)
+    plain = _perturbed_flow(8, 3, 4, card, fused=False)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(3, 40, 8, device=card)
+    before = rk.fused_realnvp_pass.launches
+    with torch.no_grad():
+        y, ld = fused.inverse_and_log_det(x)
+        y_ref, ld_ref = plain.inverse_and_log_det(x)
+    torch.cuda.synchronize()
+    assert rk.fused_realnvp_pass.launches == before + 1
+    assert y.shape == x.shape and ld.shape == x.shape[:-1]
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_k1_gradients_match_plain_flow(card):
+    fused = _perturbed_flow(8, 3, 4, card)
+    plain = _perturbed_flow(8, 3, 4, card, fused=False)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(100, 8, device=card)
+    grads = []
+    for flow in (fused, plain):
+        xg = x.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(flow.log_prob(xg).sum(), [xg, *flow.parameters()]))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -1,0 +1,86 @@
+"""The port stands alone: fab_tpu_torch and chip_smoke.py import neither JAX nor
+fab_tpu, entry points default to the card, and a kernel wrapper never falls back to
+its plain version for a tensor that is not on the CPU."""
+import ast
+import inspect
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from fab_tpu_torch.flows import make_realnvp
+from fab_tpu_torch.ops.realnvp_kernel import fused_realnvp_pass
+from fab_tpu_torch.targets import ManyWellEnergy
+from fab_tpu_torch.train import PrioritisedBufferTrainer
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "fab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN_MODULES = ("jax", "jaxlib", "optax", "fab_tpu", "flax", "haiku")
+FORBIDDEN_TEXT = re.compile(r"import jax|from jax|optax|\bfab_tpu\.")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_or_fab_tpu(path):
+    source = path.read_text()
+    assert not FORBIDDEN_TEXT.search(source), FORBIDDEN_TEXT.search(source).group(0)
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN_MODULES, name
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES
+        if p.parent != ROOT
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN_MODULES!r}]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "entry", [make_realnvp, ManyWellEnergy, PrioritisedBufferTrainer],
+    ids=lambda e: e.__name__,
+)
+def test_entry_points_default_to_the_card(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ManyWellEnergy(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_realnvp(4, n_flow_layers=1, layer_nodes_per_dim=2)
+
+
+def test_wrapper_has_no_fallback_off_the_cpu():
+    """A tensor on another device than the CPU never takes the plain version."""
+    t = lambda *s: torch.empty(s, device="meta")
+    before = fused_realnvp_pass.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_realnvp_pass(
+            t(8, 4), t(1, 2, 8), t(1, 8), t(1, 8, 8), t(1, 8), t(1, 8, 4), t(1, 4),
+            t(1, 4, 4), t(1, 1), inverse=True,
+        )
+    assert fused_realnvp_pass.launches == before

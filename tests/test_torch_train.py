@@ -1,0 +1,258 @@
+"""Parity of the port's target, buffer, guarded update and one full
+prioritised-buffer train step with fab_tpu, on shared inputs and shared noise.
+
+Tolerances: float64 1e-10 for single functions, 1e-8 for the whole step (AIS with
+HMC, a buffer draw and two Adam steps compound summation-order differences);
+float32 1e-5 (relative) for the target.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fab_tpu.buffer import PrioritisedReplayBuffer as JaxBuffer
+from fab_tpu.model import FABModel as JaxFABModel
+from fab_tpu.sampling import HamiltonianMonteCarlo as JaxHMC
+from fab_tpu.targets import ManyWellEnergy as JaxManyWell
+from fab_tpu.train import BufferTrainState as JaxBufferTrainState
+from fab_tpu.train import PrioritisedBufferTrainer as JaxTrainer
+from fab_tpu.train import guarded_update as jax_guarded_update
+from fab_tpu.train import make_optimizer as jax_make_optimizer
+from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+from fab_tpu_torch.convert import (
+    buffer_state_from_jax,
+    from_jax_params,
+    transition_state_from_jax,
+)
+from fab_tpu_torch.flows import make_realnvp as port_make_realnvp
+from fab_tpu_torch.flows.fused import FusedPass, FusedRealNVPFlow
+from fab_tpu_torch.model import FABModel
+from fab_tpu_torch.sampling import HamiltonianMonteCarlo
+from fab_tpu_torch.targets import ManyWellEnergy
+from fab_tpu_torch.train import (
+    BufferTrainState,
+    PrioritisedBufferTrainer,
+    guarded_update,
+    make_optimizer,
+)
+from torch_parity_utils import (
+    NoiseReplay,
+    ais_noise,
+    assert_close,
+    make_flow_pair,
+    to_np,
+)
+
+DT = torch.float64
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_many_well_log_prob_and_grad(dtype):
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    x = np.random.default_rng(5).standard_normal((128, 32)) * 2.0
+    x = x.astype(np.float64 if dtype == torch.float64 else np.float32)
+    with jax.enable_x64(dtype == torch.float64):
+        target_j = JaxManyWell(32)
+        lp_j, g_j = jax.vmap(jax.value_and_grad(lambda xi: target_j.log_prob(xi)))(x)
+        modes_j = np.asarray(target_j.modes_test_set())
+    target = ManyWellEnergy(32, device="cpu")
+    xt = torch.tensor(x, requires_grad=True)
+    lp = target.log_prob(xt)
+    (g,) = torch.autograd.grad(lp.sum(), xt)
+    np.testing.assert_allclose(lp.detach().numpy(), lp_j, rtol=tol, atol=tol)
+    np.testing.assert_allclose(g.numpy(), g_j, rtol=tol, atol=tol)
+    assert target.log_z == pytest.approx(target_j.log_z, rel=1e-12)
+    np.testing.assert_array_equal(target.modes_test_set().numpy(), modes_j)
+
+
+def _random_buffer_inputs(rng, n, dim):
+    x = rng.standard_normal((n, dim))
+    log_w = rng.standard_normal(n) * 3
+    log_w[::7] = np.nan  # non-finite rows must become -inf priorities
+    mask = rng.random(n) > 0.2
+    return x, log_w, rng.standard_normal(n), mask
+
+
+def _assert_buffer(state, state_j, tol):
+    for name, a, b in zip(state._fields, state, state_j):
+        assert_close(a, b, tol, name)
+
+
+def test_buffer_add_sample_adjust_match_fab_tpu(monkeypatch):
+    """Ring add (with wrap-around), shared-Gumbel top-k draw, and adjust."""
+    rng = np.random.default_rng(6)
+    dim, size = 3, 96
+    with jax.enable_x64():
+        buf_j = JaxBuffer(dim=dim, max_length=size, min_sample_length=32)
+        state_j = buf_j.init(jnp.float64)
+        adds = [_random_buffer_inputs(rng, 40, dim) for _ in range(3)]  # wraps
+        for x, lw, lq, m in adds:
+            state_j = buf_j.add(state_j, x, lw, lq, m)
+        key = jax.random.key(3)
+        gumbel = np.asarray(jax.random.gumbel(key, (size,), jnp.float64))
+        xs_j, lws_j, lqs_j, idx_j = buf_j.sample_n_batches(state_j, key, 16, 6)
+        adj = rng.standard_normal(16)
+        adj[2] = np.nan  # killed row
+        lq_new = rng.standard_normal(16)
+        adjusted_j = buf_j.adjust(state_j, adj, lq_new, idx_j[0])
+
+    buf = PrioritisedReplayBuffer(dim=dim, max_length=size, min_sample_length=32)
+    state = buf.init(DT, "cpu")
+    for x, lw, lq, m in adds:
+        state = buf.add(state, *(torch.tensor(a) for a in (x, lw, lq, m)))
+    _assert_buffer(state, to_np(state_j), 0)
+
+    NoiseReplay(monkeypatch, {"gumbel": [gumbel]})
+    xs, lws, lqs, idx = buf.sample_n_batches(state, None, 16, 6)
+    # Only the finite rows are ordered; ties among -inf rows may break differently.
+    n_finite = int(np.isfinite(np.asarray(state_j.log_w)).sum())
+    flat, flat_j = idx.reshape(-1).numpy(), np.asarray(idx_j).reshape(-1)
+    assert 0 < n_finite < 96  # the draw reaches into the -inf rows
+    np.testing.assert_array_equal(flat[:n_finite], flat_j[:n_finite])
+    for a, b in ((xs, xs_j), (lws, lws_j), (lqs, lqs_j)):
+        np.testing.assert_array_equal(
+            a.reshape(96, -1)[:n_finite].numpy(), np.asarray(b).reshape(96, -1)[:n_finite]
+        )
+    adjusted = buf.adjust(state, torch.tensor(adj), torch.tensor(lq_new), idx[0])
+    _assert_buffer(adjusted, to_np(adjusted_j), 1e-12)
+    _assert_buffer(state, to_np(state_j), 0)  # adjust returned a new state
+
+
+def test_guarded_update_matches_jax_optimizer():
+    """Clipped Adam with NaN guard on shared grads: a clipped step, a skipped NaN
+    step (state and count unchanged), then an unclipped step."""
+    rng = np.random.default_rng(8)
+    shapes = [(3, 4), (4,), (2,)]
+    params0 = [rng.standard_normal(s) for s in shapes]
+    grads_seq = [
+        [50.0 * rng.standard_normal(s) for s in shapes],  # above max norm: clipped
+        [np.full(s, np.nan) for s in shapes],  # skipped
+        [0.1 * rng.standard_normal(s) for s in shapes],
+    ]
+    with jax.enable_x64():
+        opt_j = jax_make_optimizer(1e-2, 5.0)
+        p_j = [jnp.asarray(p) for p in params0]
+        s_j = opt_j.init(p_j)
+        applied_j = []
+        for grads in grads_seq:
+            p_j, s_j, gn_j, ok_j = jax_guarded_update(
+                opt_j, [jnp.asarray(g) for g in grads], s_j, p_j, jnp.asarray(1.0)
+            )
+            applied_j.append(bool(ok_j))
+        adam_j = s_j[1][0]
+
+    opt = make_optimizer(1e-2, 5.0)
+    params = [torch.tensor(p) for p in params0]
+    state = opt.init(params)
+    applied = []
+    for grads in grads_seq:
+        state, gn, ok = guarded_update(
+            opt, [torch.tensor(g) for g in grads], state, params, torch.tensor(1.0)
+        )
+        applied.append(bool(ok))
+    assert applied == applied_j == [True, False, True]
+    assert int(state.count) == int(adam_j.count) == 2
+    for a, b in zip(params, p_j):
+        assert_close(a, b, 1e-12)
+    for a, b in zip(state.mu + state.nu, list(adam_j.mu) + list(adam_j.nu)):
+        assert_close(a, b, 1e-12)
+
+
+def test_prioritised_buffer_train_step_matches_fab_tpu(monkeypatch):
+    """One full PrioritisedBufferTrainer step in float64 on shared noise: flow
+    params, optimizer state, HMC state and buffer state agree to 1e-8."""
+    _check_train_step(monkeypatch, fused=False)
+
+
+def test_fused_prioritised_buffer_train_step_matches_fab_tpu(monkeypatch):
+    """The same step with the port's FusedRealNVPFlow (the main path's route: K1
+    passes, recomputed backward, stacked-parameter gradients) against fab_tpu's
+    plain flow, which computes the same function."""
+    _check_train_step(monkeypatch, fused=True)
+
+
+def _check_train_step(monkeypatch, fused):
+    dim, batch, n_dists, n_batches = 4, 64, 2, 2
+    rng = np.random.default_rng(9)
+    hmc_kw = dict(n_ais_intermediate_distributions=n_dists, n_leapfrog=3, epsilon=0.3)
+    with jax.enable_x64():
+        jax_flow, params, flow = make_flow_pair(dim, 2, 2, DT, seed=2)
+        if fused:
+            plain, flow = flow, port_make_realnvp(
+                dim, n_flow_layers=2, layer_nodes_per_dim=2, fused=True, dtype=DT,
+                device="cpu",
+            )
+            flow.load_state_dict(plain.state_dict())
+            assert isinstance(flow, FusedRealNVPFlow)
+        model_j = JaxFABModel.create(
+            jax_flow, JaxManyWell(dim), transition_operator=JaxHMC(**hmc_kw),
+            n_intermediate_distributions=n_dists,
+        )
+        buf_j = JaxBuffer(dim=dim, max_length=512, min_sample_length=128)
+        trainer_j = JaxTrainer(
+            model_j, jax_make_optimizer(1e-2, 100.0), buf_j,
+            n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
+            dtype=jnp.float64,
+        )
+        # A buffer of 192 rows, some dead, from shared numpy data.
+        buffer_j = buf_j.init(jnp.float64)
+        for _ in range(3):
+            x, lw, lq, m = _random_buffer_inputs(rng, batch, dim)
+            buffer_j = buf_j.add(buffer_j, x, lw, lq, m)
+        trans_j = to_np(model_j.ais.transition_operator.init_state(dim, jnp.float64))
+        state_j = JaxBufferTrainState(
+            params={"flow": params, "transition": trans_j},
+            opt_state=trainer_j.optimizer.init(params),
+            buffer_state=buffer_j,
+            step=jnp.zeros((), jnp.int32),
+        )
+        key = jax.random.key(5)
+        key_ais, key_sample = jax.random.split(key)
+        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64)
+        noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, (512,), jnp.float64))]
+        new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key))
+
+    model = FABModel.create(
+        flow, ManyWellEnergy(dim, device="cpu"),
+        transition_operator=HamiltonianMonteCarlo(**hmc_kw),
+        n_intermediate_distributions=n_dists,
+    )
+    trainer = PrioritisedBufferTrainer(
+        model, make_optimizer(1e-2, 100.0),
+        PrioritisedReplayBuffer(dim=dim, max_length=512, min_sample_length=128),
+        n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0, dtype=DT,
+        device="cpu",
+    )
+    state = BufferTrainState(
+        transition_state=transition_state_from_jax(trans_j),
+        opt_state=trainer.optimizer.init(trainer.params),
+        buffer_state=buffer_state_from_jax(to_np(buffer_j)),
+        step=0,
+    )
+    replay = NoiseReplay(monkeypatch, noise)
+    recomputes = FusedPass.recomputes
+    new, info = trainer.train_step(state, None, batch)
+    replay.assert_consumed()
+    # HMC's gradients and the replay steps differentiate through FusedPass.
+    assert (FusedPass.recomputes > recomputes) == fused
+
+    tol = 1e-8
+    expected = from_jax_params(new_j.params["flow"])
+    for name, value in flow.state_dict().items():
+        assert_close(value, expected[name], tol, name)
+    adam_j = new_j.opt_state[1][0]
+    mu_j, nu_j = from_jax_params(adam_j.mu), from_jax_params(adam_j.nu)
+    names = [n for n, p in flow.named_parameters() if p.requires_grad]
+    assert int(new.opt_state.count) == int(adam_j.count)
+    for name, mu, nu in zip(names, new.opt_state.mu, new.opt_state.nu):
+        assert_close(mu, mu_j[name], tol, "mu " + name)
+        assert_close(nu, nu_j[name], tol, "nu " + name)
+    for k in ("epsilons", "common_epsilon", "mass"):
+        assert_close(new.transition_state[k], new_j.params["transition"][k], tol, k)
+    _assert_buffer(new.buffer_state, new_j.buffer_state, tol)
+    for k in ("loss", "grad_norm", "n_valid", "w_adjust_mean", "sampled_log_w_mean",
+              "sampled_log_w_std", "ess_ais"):
+        assert_close(info[k], info_j[k], tol, k)
+    assert bool(info["update_applied"]) and bool(info_j["update_applied"])
+    assert float(info["loss"]) != 0.0 and int(info["n_valid"]) > 0
