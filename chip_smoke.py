@@ -5,27 +5,46 @@
 
 Phases:
   1. Environment: the card's name and power limit, torch and CUDA versions; build
-     every kernel of the main path from the sources in this checkout.
-  2. Each kernel against its plain PyTorch version on the card at main-path shapes,
-     with every parameter perturbed (a fresh coupling's last layer is zero).
-  3. The main path: ManyWell-32 FAB with a prioritised buffer at bench.py's
-     settings (batch 2048; RealNVP 10 x [coupling, width 320; LU]; HMC with 4
-     intermediate distributions, 5 leapfrog steps; buffer 32768 / 8192; 8 replay
-     batches), with the fused flow, so every flow pass runs through K1: init_state,
-     then 5 train steps. Launch counters are zeroed just before and read just after.
-  4. One more step under torch.profiler: device busy share and top device ops.
-  5. Kernel timing with CUDA events at main-path shapes.
+     every kernel from the sources in this checkout (one nvcc per source, started
+     together).
+  2. K1 (fused RealNVP chain) against its plain PyTorch version on the card at
+     ManyWell-32 shapes, with every parameter perturbed (a fresh coupling's last
+     layer is zero).
+  3. ManyWell-32 FAB with a prioritised buffer at bench.py's settings (batch 2048;
+     RealNVP 10 x [coupling, width 320; LU]; HMC with 4 intermediate
+     distributions, 5 leapfrog steps; buffer 32768 / 8192; 8 replay batches), with
+     the fused flow, so every flow pass runs through K1: init_state, then 5 train
+     steps. Launch counters are zeroed just before and read just after.
+  4. One more ManyWell step under torch.profiler; K1 timing with CUDA events.
+  5. K2 (one large-dim affine coupling) against its plain version at LGCP-1600
+     shapes (B=512, D=1600, H=3200, scale cap 5): forward, inverse, round trip, a
+     [4, 128, 1600] input, and gradients through its autograd Function.
+  6. LGCP-1600 FAB with a prioritised buffer at experiments/configs/lgcp.yaml's
+     settings with flow.fused_coupling=true (RealNVP 8 x [coupling, width 3200,
+     scale cap 5; LU]; HMC with 8 intermediate distributions, 5 leapfrog steps,
+     step size 0.2; batch 512; buffer 65536 / 4096; 4 replay batches), f32, at lr
+     1e-5 instead of the config's 1e-4: from a fresh flow, 1e-4 masks every AIS row
+     from the second step on and 3e-5 all but a few (python3 -m
+     fab_tpu_torch.lgcp_lr_sweep).
+     init_state, then 5 train steps, every coupling through K2. Counters are zeroed
+     just before and read just after.
+  7. One more LGCP step under torch.profiler; the trainer's run entry point (2
+     iterations and one dual-target eval, logged to a CSV); K2 timing.
 
 Prints the kernel JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero on any failure, and without a card.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import csv
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Peak rates for the bound: f32 on the CUDA cores and device-memory bandwidth
@@ -35,12 +54,24 @@ PEAKS = {
     "pcie": {"f32_flops": 51e12, "bytes_per_s": 2.0e12},
 }
 
-DIM, LAYERS, NODES_PER_DIM, BATCH = 32, 10, 10, 2048
 N_STEPS = 5
+# ManyWell-32 (bench.py).
+MW_DIM, MW_LAYERS, MW_NODES, MW_BATCH = 32, 10, 10, 2048
+# LGCP-1600 (experiments/configs/lgcp.yaml; lr: see the docstring).
+LG_GRID, LG_LAYERS, LG_NODES, LG_CAP, LG_BATCH = 40, 8, 2, 5.0, 512
+LG_DISTS, LG_LEAPFROG, LG_EPS = 8, 5, 0.2
+LG_BUFFER, LG_BUFFER_MIN, LG_REPLAY, LG_LR = 65536, 4096, 4, 1e-5
 
 
 def _peaks(name: str) -> dict:
     return PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+
+
+def _bound_ms(flops: float, bytes_moved: float, name: str):
+    peaks = _peaks(name)
+    t_ops = flops / peaks["f32_flops"] * 1e3
+    t_bytes = bytes_moved / peaks["bytes_per_s"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def _time_ms(fn, n: int = 50) -> float:
@@ -58,12 +89,11 @@ def _time_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(end) / n
 
 
-def _perturb(flow, generator, scale: float = 0.005) -> None:
-    """Perturb every parameter. Larger scales overflow exp() in a 10-layer chain."""
+def _perturb(module, generator, scale: float) -> None:
     import torch
 
     with torch.no_grad():
-        for p in flow.parameters():
+        for p in module.parameters():
             p.add_(scale * torch.randn(p.shape, generator=generator, device=p.device))
 
 
@@ -71,52 +101,112 @@ def _max_rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
 
 
-def main() -> int:
+def _zero_counts() -> None:
+    from fab_tpu_torch.flows.fused import FusedPass
+    from fab_tpu_torch.ops import coupling_kernel as ck
+    from fab_tpu_torch.ops import realnvp_kernel as rk
+
+    rk.fused_realnvp_pass.launches = 0
+    FusedPass.recomputes = 0
+    ck.fused_coupling_apply.launches = 0
+    ck.FusedCoupling.recomputes = 0
+
+
+def _counts() -> dict:
+    from fab_tpu_torch.flows.fused import FusedPass
+    from fab_tpu_torch.ops import coupling_kernel as ck
+    from fab_tpu_torch.ops import realnvp_kernel as rk
+
+    return {
+        "k1": rk.fused_realnvp_pass.launches, "k1_recomputes": FusedPass.recomputes,
+        "k2": ck.fused_coupling_apply.launches, "k2_recomputes": ck.FusedCoupling.recomputes,
+    }
+
+
+def _train(trainer, gen, batch, card, label):
+    """init_state + N_STEPS train steps with the launch counters read around each;
+    asserts a finite loss and valid rows on every step."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
-    from fab_tpu_torch.flows import make_realnvp
-    from fab_tpu_torch.flows.fused import FusedPass, _stack_params
-    from fab_tpu_torch.model import FABModel
-    from fab_tpu_torch.ops import realnvp_kernel as rk
-    from fab_tpu_torch.sampling import HamiltonianMonteCarlo
-    from fab_tpu_torch.targets import ManyWellEnergy
-    from fab_tpu_torch.train import PrioritisedBufferTrainer, make_optimizer
-
-    # ------------------------------------------------------------ 1. environment
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    print(f"card: {card}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    _zero_counts()
+    torch.cuda.synchronize()
     t0 = time.time()
-    lib_path = rk.build()
-    rk._library()
-    print(f"built K1 ({lib_path.name}) in {time.time() - t0:.2f} s")
-    print(lib_path.with_suffix(".ptxas.txt").read_text().strip())
+    state = trainer.init_state(gen, batch_size=batch)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    init_counts = _counts()
+    step_ms, per_step = [], []
+    for _ in range(N_STEPS):
+        before = _counts()
+        t0 = time.time()
+        state, info = trainer.train_step(state, gen, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in _counts().items()})
+        loss, n_valid = float(info["loss"]), int(info["n_valid"])
+        print(f"{label} step {state.step}: {step_ms[-1]:.1f} ms, replay loss {loss:.4f}, "
+              f"n_valid {n_valid}, ess_ais {float(info['ess_ais']):.4f}, "
+              f"update_applied {bool(info['update_applied'])}")
+        assert math.isfinite(loss), f"{label}: non-finite loss"
+        assert n_valid > 0, f"{label}: no valid AIS row"
+    total = _counts()
+    steady = statistics.median(step_ms[1:])
+    print(f"[{card}] {label} FAB+buffer train step: median {steady:.1f} ms over steps "
+          f"2-{N_STEPS} (all: {', '.join(f'{t:.1f}' for t in step_ms)}), "
+          f"{batch / steady * 1e3:.1f} AIS samples/s; init_state {init_s:.2f} s")
+    return state, info, {"init": init_counts, "per_step": per_step, "total": total,
+                         "steady_ms": steady, "init_s": init_s}
 
-    device = torch.device("cuda")
-    gen = torch.Generator(device=device).manual_seed(0)
 
-    # --------------------------------------- 2. K1 against its plain version
-    fused = make_realnvp(DIM, LAYERS, NODES_PER_DIM, fused=True, generator=gen,
-                        device=device)
-    _perturb(fused, gen)
-    plain = make_realnvp(DIM, LAYERS, NODES_PER_DIM, fused=False, generator=gen,
-                        device=device)
+def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
+    """One more step under torch.profiler: device busy time (device-side events
+    only; one stream, so they do not overlap) against the step, the top device ops,
+    and the share of named groups of ops."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.time()
+        state, _ = trainer.train_step(state, gen, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.time() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_ops = sum(e.count for e in events)
+    assert n_ops > 0, "the profiler saw no device work"
+    print(f"[{card}] {label} profiled step: wall {prof_ms:.1f} ms (profiler on), device "
+          f"busy {busy_ms:.1f} ms ({busy_ms / prof_ms:.1%} of the profiled wall, "
+          f"{busy_ms / steady:.1%} of the median step), {n_ops} device ops")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    for group, words in groups.items():
+        ms = sum(e.self_device_time_total for e in events
+                 if any(w in e.key.lower() for w in words)) / 1e3
+        print(f"    group {group}: {ms:.2f} ms ({ms / busy_ms:.1%} of device busy)")
+    return state, busy_ms / steady
+
+
+# ------------------------------------------------------------------- K1 / ManyWell
+
+
+def check_k1(device, gen):
+    import torch
+
+    from fab_tpu_torch.flows import make_realnvp
+    from fab_tpu_torch.flows.fused import _stack_params
+    from fab_tpu_torch.ops import realnvp_kernel as rk
+
+    # Larger perturbations overflow exp() in a 10-layer chain.
+    fused = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=True, generator=gen,
+                         device=device)
+    _perturb(fused, gen, 0.005)
+    plain = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=False, generator=gen,
+                         device=device)
     plain.load_state_dict(fused.state_dict())
-    x = torch.randn(BATCH, DIM, generator=gen, device=device)
+    x = torch.randn(MW_BATCH, MW_DIM, generator=gen, device=device)
     keys = ("w1", "b1", "w2", "b2", "w3", "b3", "wlin", "lu_ld")
-    operands = {}
-    errors = {}
+    operands, errors = {}, {}
     with torch.no_grad():
         for inverse in (False, True):
             s = _stack_params(fused, inverse)
@@ -142,7 +232,7 @@ def main() -> int:
         print(f"K1 round trip: max|inverse(forward(x)) - x| {float((x_back - x).abs().max()):.3e}")
         # A [n, B, D] input is flattened into one launch, not run through the plain chain.
         before = rk.fused_realnvp_pass.launches
-        x3 = x.reshape(4, BATCH // 4, DIM)
+        x3 = x.reshape(4, MW_BATCH // 4, MW_DIM)
         z3, ld3 = fused.inverse_and_log_det(x3)
         z3_ref, ld3_ref = plain.inverse_and_log_det(x3)
         torch.cuda.synchronize()
@@ -152,8 +242,8 @@ def main() -> int:
         print(f"K1 on a {tuple(x3.shape)} input: one launch, max|z - plain| "
               f"{float((z3 - z3_ref).abs().max()):.3e}")
 
-    cot_y = torch.randn(BATCH, DIM, generator=gen, device=device)
-    cot_ld = torch.randn(BATCH, generator=gen, device=device)
+    cot_y = torch.randn(MW_BATCH, MW_DIM, generator=gen, device=device)
+    cot_ld = torch.randn(MW_BATCH, generator=gen, device=device)
     grads = []
     for flow in (fused, plain):
         xg = x.clone().requires_grad_(True)
@@ -167,10 +257,21 @@ def main() -> int:
     assert grad_err < 1e-4, f"K1 gradients disagree with plain autograd: {grad_err}"
     print(f"K1 gradients (input + {len(grads[0]) - 1} parameters) vs plain autograd: "
           f"max relative error {grad_err:.3e}")
+    return {"x": x, "operands": operands, "errors": errors}
 
-    # ------------------------------------------------------------- 3. main path
-    target = ManyWellEnergy(DIM, device=device)
-    flow = make_realnvp(DIM, LAYERS, NODES_PER_DIM, fused=True, generator=gen,
+
+def manywell_path(device, gen, card):
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.flows import make_realnvp
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import HamiltonianMonteCarlo
+    from fab_tpu_torch.targets import ManyWellEnergy
+    from fab_tpu_torch.train import PrioritisedBufferTrainer, make_optimizer
+
+    import torch
+
+    target = ManyWellEnergy(MW_DIM, device=device)
+    flow = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=True, generator=gen,
                         device=device)
     op = HamiltonianMonteCarlo(
         n_ais_intermediate_distributions=4, n_outer=1, n_leapfrog=5, epsilon=1.0
@@ -180,99 +281,61 @@ def main() -> int:
         loss_type="fab_alpha_div",
     )
     buffer = PrioritisedReplayBuffer(
-        dim=DIM, max_length=BATCH * 16, min_sample_length=BATCH * 4
+        dim=MW_DIM, max_length=MW_BATCH * 16, min_sample_length=MW_BATCH * 4
     )
     trainer = PrioritisedBufferTrainer(
         model, make_optimizer(3e-4, 100.0), buffer, n_batches_buffer_sampling=8,
         w_adjust_max_clip=10.0, device=device,
     )
-
-    rk.fused_realnvp_pass.launches = 0
-    FusedPass.recomputes = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    state = trainer.init_state(gen, batch_size=BATCH)
-    torch.cuda.synchronize()
-    init_s = time.time() - t0
-    init_launches = rk.fused_realnvp_pass.launches
-    assert init_launches == 22 * 4, f"init_state launched K1 {init_launches} times"
-    step_ms, per_step = [], []
-    for _ in range(N_STEPS):
-        before = (rk.fused_realnvp_pass.launches, FusedPass.recomputes)
-        t0 = time.time()
-        state, info = trainer.train_step(state, gen, BATCH)
-        torch.cuda.synchronize()
-        step_ms.append((time.time() - t0) * 1e3)
-        per_step.append((rk.fused_realnvp_pass.launches - before[0],
-                         FusedPass.recomputes - before[1]))
-        loss = float(info["loss"])
-        n_valid = int(info["n_valid"])
-        print(f"step {state.step}: {step_ms[-1]:.1f} ms, replay loss {loss:.4f}, "
-              f"n_valid {n_valid}, ess_ais {float(info['ess_ais']):.4f}, "
-              f"update_applied {bool(info['update_applied'])}")
-        assert math.isfinite(loss), "non-finite loss"
-        assert n_valid > 0, "no valid AIS row"
-    main_launches = rk.fused_realnvp_pass.launches
-    assert all(p == (38, 29) for p in per_step), f"launches/recomputes per step: {per_step}"
-    print(f"main path: K1 launches {main_launches} (init_state {init_launches}, "
-          f"38 per step), backward recomputations {FusedPass.recomputes} (29 per step)")
+    state, _, run = _train(trainer, gen, MW_BATCH, card, "ManyWell-32")
+    init, per_step, total = run["init"], run["per_step"], run["total"]
+    assert init["k1"] == 22 * 4, f"init_state launched K1 {init['k1']} times"
+    assert all((p["k1"], p["k1_recomputes"]) == (38, 29) for p in per_step), (
+        f"K1 launches/recomputes per step: {per_step}"
+    )
+    assert total["k2"] == 0, "K2 is not on the ManyWell path"
+    print(f"ManyWell-32 path: K1 launches {total['k1']} (init_state {init['k1']}, 38 per "
+          f"step), backward recomputations {total['k1_recomputes']} (29 per step)")
 
     # Output check: finite parameters and buffer, and the trained fused flow agrees
     # with the plain Flow holding the same parameters on buffer rows.
     assert all(torch.isfinite(p).all() for p in flow.parameters())
     lw = state.buffer_state.log_w
     assert int(torch.isfinite(lw).sum()) > 0 and not torch.isnan(lw).any()
-    check = make_realnvp(DIM, LAYERS, NODES_PER_DIM, fused=False, generator=gen,
-                        device=device)
+    check = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=False, generator=gen,
+                         device=device)
     check.load_state_dict(flow.state_dict())
     rows = state.buffer_state.x[torch.isfinite(lw)][:256]
     with torch.no_grad():
         lq_fused, lq_plain = flow.log_prob(rows), check.log_prob(rows)
     torch.testing.assert_close(lq_fused, lq_plain, atol=1e-3, rtol=1e-4)
-    steady = statistics.median(step_ms[1:])
-    print(f"[{card}] ManyWell-32 FAB+buffer train step: median {steady:.1f} ms "
-          f"over steps 2-{N_STEPS} (all: {', '.join(f'{t:.1f}' for t in step_ms)}), "
-          f"{BATCH / steady * 1e3:.1f} AIS samples/s; init_state {init_s:.2f} s")
 
-    # -------------------------------------- 4. where one step's time goes
-    # The AIS pass alone (the rest of a step is the buffer and the replay steps),
-    # then one more step under torch.profiler: device busy time is the sum of the
-    # device-side events only (one stream, so they do not overlap; the host ops
-    # that launched them would count the same time twice) against the wall time.
+    # The AIS pass alone (the rest of a step is the buffer and the replay steps).
     torch.cuda.synchronize()
     t0 = time.time()
-    model.ais.sample_and_log_weights(state.transition_state, gen, BATCH, p_target=False,
-                                     tune=False)
+    model.ais.sample_and_log_weights(state.transition_state, gen, MW_BATCH,
+                                     p_target=False, tune=False)
     torch.cuda.synchronize()
     ais_ms = (time.time() - t0) * 1e3
-    print(f"[{card}] AIS pass alone: {ais_ms:.1f} ms ({ais_ms / steady:.1%} of the "
-          f"median step)")
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.time()
-        state, info = trainer.train_step(state, gen, BATCH)
-        torch.cuda.synchronize()
-        prof_step_ms = (time.time() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    n_kernels = sum(e.count for e in events)
-    assert n_kernels > 0, "the profiler saw no device work"
-    print(f"[{card}] profiled step: wall {prof_step_ms:.1f} ms (profiler on), device "
-          f"busy {busy_ms:.1f} ms ({busy_ms / prof_step_ms:.1%} of the profiled wall, "
-          f"{busy_ms / steady:.1%} of the median step), {n_kernels} device ops")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    print(f"[{card}] ManyWell-32 AIS pass alone: {ais_ms:.1f} ms "
+          f"({ais_ms / run['steady_ms']:.1%} of the median step)")
+    _profile_step(trainer, state, gen, MW_BATCH, run["steady_ms"], card, "ManyWell-32",
+                  {"K1": ["realnvp_chain"], "triangular solves": ["trsm"]})
+    return run
 
-    # ---------------------------------------------------------------- 5. timing
+
+def time_k1(k1, name, card):
+    import torch
+
+    from fab_tpu_torch.ops import realnvp_kernel as rk
+
+    x, operands = k1["x"], k1["operands"]
     L, d_cond, H = operands[True][0].shape
-    n_last = 2 * (DIM - d_cond)
-    flops = 2.0 * BATCH * L * (d_cond * H + H * H + H * n_last + DIM * DIM)
-    n_weights = sum(t.numel() for t in operands[True][:-2]) + L * DIM * DIM + L
-    bytes_moved = 4.0 * (2 * BATCH * DIM + BATCH + n_weights)
-    peaks = _peaks(name)
-    t_ops = flops / peaks["f32_flops"] * 1e3
-    t_bytes = bytes_moved / peaks["bytes_per_s"] * 1e3
+    n_last = 2 * (MW_DIM - d_cond)
+    flops = 2.0 * MW_BATCH * L * (d_cond * H + H * H + H * n_last + MW_DIM * MW_DIM)
+    n_weights = sum(t.numel() for t in operands[True][:-2]) + L * MW_DIM * MW_DIM + L
+    bytes_moved = 4.0 * (2 * MW_BATCH * MW_DIM + MW_BATCH + n_weights)
+    bound, bound_by = _bound_ms(flops, bytes_moved, name)
     timing = {}
     for inverse in (False, True):
         args = operands[inverse]
@@ -283,28 +346,337 @@ def main() -> int:
             )
         print(f"[{card}] K1 {'inverse' if inverse else 'forward'}: kernel "
               f"{timing[inverse][0]:.4f} ms, plain {timing[inverse][1]:.4f} ms, "
-              f"bound {max(t_ops, t_bytes):.4f} ms "
+              f"bound {bound:.4f} ms by {bound_by} "
               f"({flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
-    print("library_ms: none - no single PyTorch call computes the fused RealNVP chain")
-    kernels = [{
-        "name": "fused_realnvp_pass",
-        "route": "cuda",
-        "source": "fab_tpu_torch/ops/csrc/realnvp_kernel.cu",
-        "replaces": "fab_tpu/ops/realnvp_kernel.py:134",
-        "launches": main_launches,
-        "max_abs_err": max(e[0] for e in errors.values()),
-        "ms": timing[True][0],
-        "plain_ms": timing[True][1],
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-        "mode": "inverse (37 of the 38 launches per step)",
-        "ms_forward": timing[False][0],
-        "plain_ms_forward": timing[False][1],
-        "max_abs_err_log_det": max(e[1] for e in errors.values()),
-        "step_ms": steady,
-        "samples_per_s": BATCH / steady * 1e3,
-    }]
+    print("K1 library_ms: none - no single PyTorch call computes the fused RealNVP chain")
+    return timing, bound, bound_by
+
+
+# ---------------------------------------------------------------- K2 / LGCP-1600
+
+
+def _lgcp_coupling(device, gen):
+    """One perturbed LGCP-1600 coupling (the padded last layer's pad stays zero)."""
+    import torch
+
+    from fab_tpu_torch.flows import LargeFusedCoupling
+
+    dim = LG_GRID * LG_GRID
+    layer = LargeFusedCoupling(dim, dim * LG_NODES, scale_cap=LG_CAP, device=device)
+    layer.reset_parameters(gen)
+    _perturb(layer, gen, 0.01)  # W3p/b3p start at zero: ~0.01 N(0, 1)
+    with torch.no_grad():
+        layer.mlp[-1].w[:, 2 * layer.d_trans:] = 0.0
+        layer.mlp[-1].b[2 * layer.d_trans:] = 0.0
+    return layer
+
+
+def check_k2(device, gen):
+    import torch
+
+    from fab_tpu_torch.flows import LargeFusedCoupling
+    from fab_tpu_torch.ops import coupling_kernel as ck
+
+    dim = LG_GRID * LG_GRID
+    layer = _lgcp_coupling(device, gen)
+    x = torch.randn(LG_BATCH, dim, generator=gen, device=device)
+    zc, zt = (t.contiguous() for t in layer._split(x))
+    weights = [t for d in layer.mlp for t in (d.w, d.b)]
+    errors = {}
+    with torch.no_grad():
+        for inverse in (False, True):
+            y, ld = ck.fused_coupling_apply(zc, zt, *weights, LG_CAP, inverse)
+            y_ref, ld_ref = ck.fused_coupling_apply_reference(zc, zt, *weights, LG_CAP, inverse)
+            torch.cuda.synchronize()
+            assert torch.isfinite(y_ref).all() and torch.isfinite(ld_ref).all()
+            # y: a 3200-deep f32 product in another order; log_det: 800 f32 terms,
+            # each from such a product, summed in another order.
+            torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(ld, ld_ref, atol=2e-3, rtol=0)
+            mode = "inverse" if inverse else "forward"
+            errors[mode] = (float((y - y_ref).abs().max()), float((ld - ld_ref).abs().max()))
+            print(f"K2 {mode}: max|y - plain| {errors[mode][0]:.3e} (atol=rtol=1e-4), "
+                  f"max|log_det - plain| {errors[mode][1]:.3e} (atol 2e-3)")
+        y, ld_f = layer.forward_and_log_det(x)
+        x_back, ld_i = layer.inverse_and_log_det(y)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(x_back, x, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ld_i, -ld_f, atol=1e-4, rtol=0)
+        print(f"K2 round trip: max|inverse(forward(x)) - x| {float((x_back - x).abs().max()):.3e}")
+        before = ck.fused_coupling_apply.launches
+        x3 = x.reshape(4, LG_BATCH // 4, dim)
+        z3, ld3 = layer.inverse_and_log_det(x3)
+        z3_ref, ld3_ref = super(LargeFusedCoupling, layer).inverse_and_log_det(x3)
+        torch.cuda.synchronize()
+        assert ck.fused_coupling_apply.launches == before + 1
+        torch.testing.assert_close(z3, z3_ref, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ld3, ld3_ref, atol=2e-3, rtol=0)
+        print(f"K2 on a {tuple(x3.shape)} input: one launch, max|z - plain| "
+              f"{float((z3 - z3_ref).abs().max()):.3e}")
+
+    cot = torch.randn(LG_BATCH, dim, generator=gen, device=device)
+    grads = []
+    for inverse_fn in (layer.inverse_and_log_det,
+                       super(LargeFusedCoupling, layer).inverse_and_log_det):
+        xg = x.clone().requires_grad_(True)
+        z, ld = inverse_fn(xg)
+        loss = (z * cot).sum() + ld.sum()
+        grads.append(torch.autograd.grad(loss, [xg, *layer.parameters()]))
+    torch.cuda.synchronize()
+    grad_err = max(_max_rel_err(a, b) for a, b in zip(*grads))
+    # Both backwards are the plain coupling under autograd, on the same inputs.
+    assert grad_err < 1e-4, f"K2 gradients disagree with plain autograd: {grad_err}"
+    pad_grad = float(grads[0][-2][:, 2 * layer.d_trans:].abs().max())
+    assert pad_grad == 0.0, "the padded columns got a gradient"
+    print(f"K2 gradients (input + {len(grads[0]) - 1} parameters) vs plain autograd: "
+          f"max relative error {grad_err:.3e}; padded columns' gradient exactly 0")
+    return {"x": x, "zc": zc, "zt": zt, "weights": weights, "errors": errors}
+
+
+def lgcp_path(device, gen, card, save_path):
+    import torch
+
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.flows import make_realnvp
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import HamiltonianMonteCarlo
+    from fab_tpu_torch.targets import LogGaussianCoxProcess
+    from fab_tpu_torch.train import PrioritisedBufferTrainer, make_optimizer
+
+    dim = LG_GRID * LG_GRID
+    t0 = time.time()
+    target = LogGaussianCoxProcess(grid_size=LG_GRID, device=device)
+    flow = make_realnvp(dim, LG_LAYERS, LG_NODES, scale_cap=LG_CAP, fused_coupling=True,
+                        generator=gen, device=device)
+    model = FABModel.create(
+        flow, target,
+        transition_operator=HamiltonianMonteCarlo(
+            n_ais_intermediate_distributions=LG_DISTS, n_outer=1,
+            n_leapfrog=LG_LEAPFROG, epsilon=LG_EPS, target_p_accept=0.65,
+        ),
+        n_intermediate_distributions=LG_DISTS, alpha=2.0, loss_type="fab_alpha_div",
+    )
+    trainer = PrioritisedBufferTrainer(
+        model, make_optimizer(LG_LR, 100.0),
+        PrioritisedReplayBuffer(dim=dim, max_length=LG_BUFFER, min_sample_length=LG_BUFFER_MIN),
+        n_batches_buffer_sampling=LG_REPLAY, w_adjust_max_clip=10.0,
+        save_path=save_path, device=device,
+    )
+    n_params = sum(p.numel() for p in flow.parameters())
+    print(f"LGCP-1600 set-up (target, {n_params / 1e6:.1f} M flow parameters): "
+          f"{time.time() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    state, _, run = _train(trainer, gen, LG_BATCH, card, "LGCP-1600")
+    init, per_step, total = run["init"], run["per_step"], run["total"]
+    # Per AIS pass: 1 flow sample + 1 initial gradient pass + 8 distributions x 5
+    # leapfrog gradient passes = 42 flow passes, 41 of them differentiated; per
+    # replay batch a probe and a differentiated pass. 8 couplings per pass.
+    ais_passes = LG_BUFFER_MIN // LG_BATCH
+    per_ais = (2 + LG_DISTS * LG_LEAPFROG) * LG_LAYERS
+    per_ais_recompute = (1 + LG_DISTS * LG_LEAPFROG) * LG_LAYERS
+    want_step = (per_ais + 2 * LG_REPLAY * LG_LAYERS,
+                 per_ais_recompute + LG_REPLAY * LG_LAYERS)
+    assert want_step == (400, 360)
+    assert init["k2"] == ais_passes * per_ais == 2688, f"init_state launched K2 {init['k2']} times"
+    assert init["k2_recomputes"] == ais_passes * per_ais_recompute
+    assert all((p["k2"], p["k2_recomputes"]) == want_step for p in per_step), (
+        f"K2 launches/recomputes per step: {per_step}"
+    )
+    assert total["k1"] == 0, "K1 is not on the LGCP path"
+    print(f"LGCP-1600 path: K2 launches {total['k2']} (init_state {init['k2']}, "
+          f"{want_step[0]} per step), backward recomputations {total['k2_recomputes']} "
+          f"(init_state {init['k2_recomputes']}, {want_step[1]} per step); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # Output check: finite parameters and buffer, and the trained flow agrees with
+    # a plain Flow holding the same parameters (last layer unpadded) on buffer rows.
+    assert all(torch.isfinite(p).all() for p in flow.parameters())
+    lw = state.buffer_state.log_w
+    assert int(torch.isfinite(lw).sum()) > 0 and not torch.isnan(lw).any()
+    check = make_realnvp(dim, LG_LAYERS, LG_NODES, scale_cap=LG_CAP, generator=gen,
+                         device=device)
+    check.load_state_dict({
+        k: v[..., : 2 * (dim // 2)] if ".mlp.2." in k else v
+        for k, v in flow.state_dict().items()
+    })
+    rows = state.buffer_state.x[torch.isfinite(lw)][:256]
+    with torch.no_grad():
+        lq, lq_plain = flow.log_prob(rows), check.log_prob(rows)
+    torch.cuda.synchronize()
+    rel = _max_rel_err(lq, lq_plain)
+    print(f"LGCP-1600 trained flow vs plain Flow on {rows.shape[0]} buffer rows: max "
+          f"|log q| {float(lq_plain.abs().max()):.1f}, max relative error {rel:.3e}")
+    # 8 layers of 3200-deep f32 products and 1600-term sums, in another order.
+    assert rel < 1e-4, f"trained flow disagrees with the plain flow: {rel}"
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.ais.sample_and_log_weights(state.transition_state, gen, LG_BATCH,
+                                     p_target=False, tune=False)
+    torch.cuda.synchronize()
+    ais_ms = (time.time() - t0) * 1e3
+    print(f"[{card}] LGCP-1600 AIS pass alone: {ais_ms:.1f} ms "
+          f"({ais_ms / run['steady_ms']:.1%} of the median step)")
+    state, busy = _profile_step(
+        trainer, state, gen, LG_BATCH, run["steady_ms"], card, "LGCP-1600",
+        {"K2": ["dense_relu", "coupling_out", "row_sum"], "triangular solves": ["trsm"],
+         "cuBLAS GEMMs": ["gemm", "cutlass", "sm90_xmma"]},
+    )
+    run["busy"] = busy
+    return trainer, state, run
+
+
+def lgcp_run_entry(trainer, state, gen, card, log_dir):
+    """The run entry point: 2 iterations and one dual-target eval, logged to a CSV."""
+    from fab_tpu_torch.utils.logging import CSVLogger
+
+    path = os.path.join(log_dir, "lgcp_run.csv")
+    trainer.logger = CSVLogger(path)
+    t0 = time.time()
+    trainer.run(gen, n_iterations=2, batch_size=LG_BATCH, eval_batch_size=LG_BATCH,
+                n_eval=1, n_checkpoints=0, state=state)
+    run_s = time.time() - t0
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    eval_rows = [r for r in rows if r.get("eval_ess_ais_min_var_target")]
+    assert len(rows) == 3 and len(eval_rows) == 1, f"unexpected CSV rows: {rows}"
+    shown = {}
+    for key in ("ais_post_mean_field_rmse_p_target", "eval_ess_ais_min_var_target",
+                "eval_ess_ais_p_target", "eval_ess_flow_p_target",
+                "flow_post_mean_field_rmse_p_target"):
+        shown[key] = float(eval_rows[0][key])
+        assert math.isfinite(shown[key]), f"{key} is not finite"
+    print(f"[{card}] LGCP-1600 run(n_iterations=2, n_eval=1, eval_batch_size=512): "
+          f"{run_s:.1f} s, {len(rows)} CSV rows; eval " +
+          ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
+
+
+def time_k2(k2, name, card):
+    import torch
+
+    from fab_tpu_torch.ops import coupling_kernel as ck
+
+    zc, zt, weights = k2["zc"], k2["zt"], k2["weights"]
+    B, dc = zc.shape
+    dt = zt.shape[1]
+    H = weights[0].shape[1]
+    flops = 2.0 * B * (dc * H + H * H + H * 2 * dt)
+    bytes_moved = 4.0 * (B * dc + B * dt + dc * H + H + H * H + H + H * 2 * dt
+                         + 2 * dt + B * dt + B)
+    bound, bound_by = _bound_ms(flops, bytes_moved, name)
+    timing = {}
+    with torch.no_grad():
+        for inverse in (False, True):
+            timing[inverse] = (
+                _time_ms(lambda: ck.fused_coupling_apply(zc, zt, *weights, LG_CAP, inverse)),
+                _time_ms(lambda: ck.fused_coupling_apply_reference(
+                    zc, zt, *weights, LG_CAP, inverse)),
+            )
+            print(f"[{card}] K2 {'inverse' if inverse else 'forward'}: kernel "
+                  f"{timing[inverse][0]:.4f} ms, plain {timing[inverse][1]:.4f} ms, "
+                  f"bound {bound:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
+        w1, w2, w3p = weights[0], weights[2], weights[4][:, : 2 * dt]
+        h1 = torch.relu(zc @ w1)
+        h2 = torch.relu(h1 @ w2)
+        library = _time_ms(lambda: (zc @ w1, h1 @ w2, h2 @ w3p))
+    print(f"[{card}] K2 library_ms {library:.4f}: 3 x cuBLAS f32 GEMM, no epilogue; no "
+          "single call computes K2 (a yardstick only, never called by the port)")
+    return timing, bound, bound_by, library
+
+
+def drive(device, gen, name, card) -> list:
+    """Phases 2-7; returns the kernel records."""
+    # ------------------------------------------------ 2-4. K1 and the ManyWell path
+    k1 = check_k1(device, gen)
+    mw = manywell_path(device, gen, card)
+    k1_timing, k1_bound, k1_bound_by = time_k1(k1, name, card)
+
+    # ------------------------------------------------ 5-7. K2 and the LGCP path
+    k2 = check_k2(device, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, state, lg = lgcp_path(device, gen, card, tmp)
+        lgcp_run_entry(trainer, state, gen, card, tmp)
+    del trainer, state
+    k2_timing, k2_bound, k2_bound_by, k2_library = time_k2(k2, name, card)
+
+    kernels = [
+        {
+            "name": "fused_realnvp_pass",
+            "route": "cuda",
+            "source": "fab_tpu_torch/ops/csrc/realnvp_kernel.cu",
+            "replaces": "fab_tpu/ops/realnvp_kernel.py:134",
+            "launches": mw["total"]["k1"],
+            "max_abs_err": max(e[0] for e in k1["errors"].values()),
+            "ms": k1_timing[True][0],
+            "plain_ms": k1_timing[True][1],
+            "bound_ms": k1_bound,
+            "bound_by": k1_bound_by,
+            "library_ms": None,
+            "mode": "inverse (37 of the 38 launches per ManyWell-32 step)",
+            "ms_forward": k1_timing[False][0],
+            "plain_ms_forward": k1_timing[False][1],
+            "max_abs_err_log_det": max(e[1] for e in k1["errors"].values()),
+            "step_ms": mw["steady_ms"],
+            "samples_per_s": MW_BATCH / mw["steady_ms"] * 1e3,
+        },
+        {
+            "name": "fused_coupling_apply",
+            "route": "cuda",
+            "source": "fab_tpu_torch/ops/csrc/coupling_kernel.cu",
+            "replaces": "fab_tpu/ops/coupling_kernel.py:167",
+            "launches": lg["total"]["k2"],
+            "max_abs_err": max(e[0] for e in k2["errors"].values()),
+            "ms": k2_timing[True][0],
+            "plain_ms": k2_timing[True][1],
+            "bound_ms": k2_bound,
+            "bound_by": k2_bound_by,
+            "library_ms": k2_library,
+            "library": "3 x cuBLAS f32 GEMM, no epilogue; no single call computes K2",
+            "mode": "inverse (392 of the 400 launches per LGCP-1600 step)",
+            "ms_forward": k2_timing[False][0],
+            "plain_ms_forward": k2_timing[False][1],
+            "max_abs_err_log_det": max(e[1] for e in k2["errors"].values()),
+            "step_ms": lg["steady_ms"],
+            "samples_per_s": LG_BATCH / lg["steady_ms"] * 1e3,
+            "device_busy_share": lg["busy"],
+        },
+    ]
+    return kernels
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from fab_tpu_torch.ops import coupling_kernel as ck
+    from fab_tpu_torch.ops import realnvp_kernel as rk
+
+    # ------------------------------------------------------------ 1. environment
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (rk, ck)))
+    rk._library()
+    ck._library()
+    print(f"built K1 and K2 ({', '.join(p.name for p in libs)}) in {time.time() - t0:.2f} s")
+    for path in libs:
+        print(path.with_suffix(".ptxas.txt").read_text().strip())
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(0)
+    kernels = drive(device, gen, name, card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Carry ``fab_tpu`` state into the port, from numpy leaves.
 
 - ``from_jax_params``: ``fab_tpu``'s flow pytree ``{"base": ..., "layers": (...)}``
-  -> a state dict for the port's Flow (``flow.load_state_dict(...)``).
+  -> a state dict for the port's Flow (``flow.load_state_dict(...)``);
+  ``to_jax_params`` is its inverse (numpy leaves), used by checkpoints.
 - ``transition_state_from_jax``: the HMC state (epsilons, common_epsilon, mass).
 - ``buffer_state_from_jax``: a ``PrioritisedBufferState``.
 
@@ -10,7 +11,8 @@ copy.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -41,6 +43,29 @@ def from_jax_params(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor
         else:
             raise ValueError(f"layer {i}: unknown parameter keys {sorted(layer)}")
     return state
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """``fab_tpu``'s flow pytree, with numpy leaves, from a port Flow's state dict:
+    ``{"base": {...}, "layers": ({"mlp": [{"w", "b"}, ...]} | {"lower", ...}, ...)}``."""
+    base, layers = {}, {}
+    for name, value in state.items():
+        leaf = value.detach().cpu().numpy()
+        if name.startswith("base."):
+            base[name[len("base."):]] = leaf
+            continue
+        m = re.fullmatch(r"bijectors\.(\d+)\.(?:mlp\.(\d+)\.)?(\w+)", name)
+        if m is None:
+            raise ValueError(f"unknown state-dict key {name!r}")
+        layer = layers.setdefault(int(m.group(1)), {})
+        if m.group(2) is None:
+            layer[m.group(3)] = leaf
+        else:
+            layer.setdefault("mlp", {}).setdefault(int(m.group(2)), {})[m.group(3)] = leaf
+    for layer in layers.values():
+        if "mlp" in layer:
+            layer["mlp"] = [layer["mlp"][j] for j in sorted(layer["mlp"])]
+    return {"base": base, "layers": tuple(layers[i] for i in sorted(layers))}
 
 
 def transition_state_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:

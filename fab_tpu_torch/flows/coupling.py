@@ -39,12 +39,14 @@ class AffineCoupling(Bijector):
         self.init_mode = init_mode
         d = (dim + 1) // 2
         self.d_cond, self.d_trans = (dim - d, d) if swap else (d, dim - d)
-        self.sizes = (
-            [self.d_cond] + [hidden_units] * n_hidden_layers + [2 * self.d_trans]
-        )
+        self.sizes = [self.d_cond] + [hidden_units] * n_hidden_layers + [self._out_width()]
         self.mlp = nn.ModuleList(
             Dense(i, o, dtype, device) for i, o in zip(self.sizes[:-1], self.sizes[1:])
         )
+
+    def _out_width(self) -> int:
+        """Columns of the conditioner's last layer: (shift, log_scale)."""
+        return 2 * self.d_trans
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         ref = self.mlp[0].w
@@ -70,7 +72,7 @@ class AffineCoupling(Bijector):
 
     def _shift_and_log_scale(self, x_cond: torch.Tensor):
         h = mlp_apply(self.mlp, x_cond)
-        shift, log_scale = h[..., : self.d_trans], h[..., self.d_trans :]
+        shift, log_scale = h[..., : self.d_trans], h[..., self.d_trans : 2 * self.d_trans]
         if self.scale_cap > 0.0:
             log_scale = self.scale_cap * torch.tanh(log_scale / self.scale_cap)
         return shift, log_scale

@@ -70,12 +70,13 @@ class FusedPass(torch.autograd.Function):
 
 
 def fusable_structure(bijectors: Sequence[Bijector]) -> bool:
-    """Strictly alternating plain coupling (2 hidden layers) / LU-linear."""
+    """Strictly alternating plain coupling (2 hidden layers; not the padded
+    LargeFusedCoupling) / LU-linear."""
     if len(bijectors) == 0 or len(bijectors) % 2 != 0:
         return False
     for i, b in enumerate(bijectors):
         if i % 2 == 0 and not (
-            isinstance(b, AffineCoupling)
+            type(b) is AffineCoupling
             and b.n_hidden_layers == 2
             and not b.swap
             and b.scale_cap == 0.0

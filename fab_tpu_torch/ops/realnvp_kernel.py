@@ -12,72 +12,26 @@ PyTorch version, ``fused_realnvp_pass_reference``, only for CPU tensors. The ker
 computes in f32 and casts back, as the TPU kernel does; the plain version computes
 in the input dtype. ``fused_realnvp_pass.launches`` counts kernel launches.
 
-The library is built with ``nvcc`` at first use into ``_build/`` (gitignored) and
-loaded with ``ctypes``.
+The library is built with ``nvcc`` at first use into ``_build/`` (gitignored, see
+``build.py``) and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
 
-_SRC = pathlib.Path(__file__).parent / "csrc" / "realnvp_kernel.cu"
-_BUILD_DIR = pathlib.Path(__file__).parent / "_build"
-_NVCC_FLAGS = [
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-]
+from fab_tpu_torch.ops import build as build_lib
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+SRC = build_lib.CSRC / "realnvp_kernel.cu"
 
 
 def build() -> pathlib.Path:
-    """Compile the kernel library (if its source changed) and return its path.
-
-    The file name carries a hash of the source, so a stale build is never loaded;
-    the compiler's register/shared-memory report goes to ``<lib>.ptxas.txt``.
-    """
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"librealnvp_kernel_{digest}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {_SRC}:\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile the kernel library (if its source changed) and return its path."""
+    return build_lib.build(SRC)
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,7 +9,7 @@ whole pass, so each log q evaluation differentiates with respect to x only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,9 @@ class AISResult(NamedTuple):
     mask: torch.Tensor  # [B] bool, valid rows
     transition_state: Any
     info: Dict[str, Any]
+    # (x, log q) of the flow draw the chain started from, before invalid rows were
+    # zero-filled: evaluation weighs these flow samples without drawing again.
+    flow_sample: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +67,7 @@ class AnnealedImportanceSampler:
         with frozen(flow):
             with torch.no_grad():
                 x, log_q_flow = flow.sample_and_log_prob(batch_size, generator)
+            flow_sample = (x, log_q_flow)
             row_ok = torch.isfinite(x).all(-1) & torch.isfinite(log_q_flow)
             x = torch.where(row_ok[:, None], x, 0.0)
             point = create_point(
@@ -117,4 +121,4 @@ class AnnealedImportanceSampler:
                 k: torch.stack([t[k] for t in t_infos]) for k in t_infos[0]
             },
         }
-        return AISResult(point, log_w, mask, transition_state, info)
+        return AISResult(point, log_w, mask, transition_state, info, flow_sample)

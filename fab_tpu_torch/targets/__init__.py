@@ -1,4 +1,5 @@
 from fab_tpu_torch.targets.double_well import DoubleWellEnergy
+from fab_tpu_torch.targets.lgcp import LogGaussianCoxProcess
 from fab_tpu_torch.targets.many_well import ManyWellEnergy
 
-__all__ = ["DoubleWellEnergy", "ManyWellEnergy"]
+__all__ = ["DoubleWellEnergy", "LogGaussianCoxProcess", "ManyWellEnergy"]

@@ -11,20 +11,28 @@ does not:
   the whole optimizer state, Adam's count included, unchanged. The skip is a
   ``torch.where`` select, so no step waits for the device.
 
-The run loop, evaluation and checkpoints are not ported yet.
+``PrioritisedBufferTrainer.run`` is the training loop with its eval, checkpoint and
+time-limit schedule (``fab_tpu/train.py:247-394``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+import os
+import pathlib
+from time import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from fab_tpu_torch import checkpoint
 from fab_tpu_torch import losses as losses_lib
 from fab_tpu_torch.buffer import PrioritisedBufferState, PrioritisedReplayBuffer
+from fab_tpu_torch.convert import from_jax_params, to_jax_params
 from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import flow_log_prob
-from fab_tpu_torch.model import FABModel
+from fab_tpu_torch.model import FABModel, format_transition_info
+from fab_tpu_torch.utils.logging import ListLogger, Logger
 
 
 class AdamState(NamedTuple):
@@ -83,6 +91,16 @@ def make_optimizer(lr: float, max_gradient_norm: Optional[float] = None) -> Clip
     )
 
 
+def _schedule(n_iterations: int, n_points: Optional[int]) -> set:
+    """Iterations (1-based) of ``n_points`` evals or checkpoints spread over a run."""
+    if not n_points:
+        return set()
+    if n_points == 1:
+        # np.linspace(1, n, 1) == [1]; a single checkpoint/eval belongs at the END.
+        return {n_iterations}
+    return set(np.linspace(1, n_iterations, n_points, dtype=int).tolist())
+
+
 def _all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
@@ -138,6 +156,9 @@ class PrioritisedBufferTrainer:
         buffer: PrioritisedReplayBuffer,
         n_batches_buffer_sampling: int = 2,
         w_adjust_max_clip: Optional[float] = 10.0,
+        logger: Optional[Logger] = None,
+        plotter: Optional[Callable] = None,
+        save_path: str = "",
         dtype=torch.float32,
         device="cuda",
     ):
@@ -147,6 +168,10 @@ class PrioritisedBufferTrainer:
         self.buffer = buffer
         self.n_batches_buffer_sampling = n_batches_buffer_sampling
         self.w_adjust_max_clip = w_adjust_max_clip
+        self.logger = logger if logger is not None else ListLogger()
+        self.plotter = plotter
+        self.plots_dir = os.path.join(save_path, "plots")
+        self.checkpoints_dir = os.path.join(save_path, "model_checkpoints")
         self.dtype = dtype
         self.model.flow.to(device=self.device, dtype=dtype)
 
@@ -246,3 +271,167 @@ class PrioritisedBufferTrainer:
             step=state.step + 1,
         )
         return new_state, info
+
+    # ------------------------------------------------------------ run loop
+
+    def save_checkpoint(self, state: BufferTrainState, i: int) -> None:
+        """``<save_path>/model_checkpoints/iter_<i>/state.pkl``; the flow's
+        parameters in ``fab_tpu``'s pytree layout, Adam's moments keyed by the
+        parameters' names."""
+        names = [n for n, p in self.model.flow.named_parameters() if p.requires_grad]
+        opt = state.opt_state
+        checkpoint.save_checkpoint(
+            os.path.join(self.checkpoints_dir, f"iter_{i}", "state.pkl"),
+            {
+                "params": {
+                    "flow": to_jax_params(self.model.flow.state_dict()),
+                    "transition": dict(state.transition_state),
+                },
+                "opt_state": {
+                    "count": opt.count,
+                    "mu": dict(zip(names, opt.mu)),
+                    "nu": dict(zip(names, opt.nu)),
+                },
+                "buffer_state": state.buffer_state._asdict(),
+                "step": state.step,
+            },
+        )
+
+    def load_state(self, path: str) -> Tuple[BufferTrainState, int]:
+        """Load a checkpoint written by ``save_checkpoint``: the flow's parameters go
+        into the model in place; returns (state, step)."""
+        raw = checkpoint.load_checkpoint(path)
+        tensor = lambda a: torch.as_tensor(a, device=self.device)
+        flow = self.model.flow
+        flow.load_state_dict(from_jax_params(raw["params"]["flow"], self.device))
+        names = [n for n, p in flow.named_parameters() if p.requires_grad]
+        opt = raw["opt_state"]
+        state = BufferTrainState(
+            transition_state={k: tensor(v) for k, v in raw["params"]["transition"].items()},
+            opt_state=AdamState(
+                tensor(opt["count"]),
+                [tensor(opt["mu"][n]) for n in names],
+                [tensor(opt["nu"][n]) for n in names],
+            ),
+            buffer_state=PrioritisedBufferState(
+                **{k: tensor(v) for k, v in raw["buffer_state"].items()}
+            ),
+            step=int(raw["step"]),
+        )
+        return state, state.step
+
+    def perform_eval(
+        self, state: BufferTrainState, generator: torch.Generator, i: int,
+        eval_batch_size: int, batch_size: int,
+    ) -> None:
+        """Evaluate with AIS targeting p, then with the min-variance target
+        (``fab_tpu/train.py:796-816``), and log both under suffixed keys."""
+        info_p = self.model.get_eval_info(
+            state.transition_state, generator, eval_batch_size, batch_size, p_target=True
+        )
+        info_mv = self.model.get_eval_info(
+            state.transition_state, generator, eval_batch_size, batch_size,
+            p_target=False, ais_only=True,
+        )
+        eval_info = {k + "_p_target": v for k, v in info_p.items()}
+        eval_info.update({k + "_min_var_target": v for k, v in info_mv.items()})
+        eval_info["step"] = i
+        self.logger.write(eval_info)
+
+    def _plots(self, state: BufferTrainState, generator: torch.Generator, i: int,
+               save: bool) -> None:
+        """The plotter hook. Plotting is not ported yet, so this does nothing; the
+        plot schedule is kept so that a ported plotter slots in here."""
+
+    def run(
+        self,
+        generator: torch.Generator,
+        n_iterations: int,
+        batch_size: int,
+        eval_batch_size: Optional[int] = None,
+        n_eval: Optional[int] = None,
+        n_plot: Optional[int] = None,
+        n_checkpoints: Optional[int] = None,
+        save: bool = True,
+        tlimit: Optional[float] = None,
+        state: Optional[BufferTrainState] = None,
+        start_iter: int = 0,
+        log_every: int = 1,
+    ) -> BufferTrainState:
+        """Training loop with linspace-scheduled eval/plot/checkpoint and a graceful
+        stop at ``tlimit`` hours (``fab_tpu/train.py:277-394``).
+
+        Steps run in chunks of up to ``log_every`` iterations that stop at every
+        scheduled event; the logger gets the last step of each chunk. Without jit
+        there is nothing to amortise, but the schedule and the log rows stay
+        ``fab_tpu``'s. Without ``state`` the buffer is filled by ``init_state`` with
+        its default batch, as in ``fab_tpu``.
+        """
+        if save:
+            pathlib.Path(self.plots_dir).mkdir(parents=True, exist_ok=True)
+            pathlib.Path(self.checkpoints_dir).mkdir(parents=True, exist_ok=True)
+        checkpoint_iter = _schedule(n_iterations, n_checkpoints)
+        eval_iter = _schedule(n_iterations, n_eval)
+        plot_iter = _schedule(n_iterations, n_plot)
+        if n_eval and eval_batch_size is None:
+            raise ValueError("n_eval needs eval_batch_size")
+        if state is None:
+            state = self.init_state(generator)
+        events = sorted({n_iterations} | checkpoint_iter | eval_iter | plot_iter)
+        n_dists = self.model.ais.n_intermediate_distributions
+        start_time = time()
+        max_it_time = 0.0
+        # The first chunk of each length is left out of the time projection: it
+        # carries one-off costs (the kernels' first build, library handles).
+        warm_ks: set = set()
+        last_progress = 0.0
+
+        i = start_iter
+        while i < n_iterations:
+            it_start = time()
+            next_event = min(e for e in events if e > i)
+            k = max(min(log_every, next_event - i), 1)
+            for _ in range(k):
+                state, info = self.train_step(state, generator, batch_size)
+            i += k
+            host_info = {
+                name: float(v) for name, v in info.items() if name != "transition"
+            }
+            host_info.update(
+                {
+                    name: float(v)
+                    for name, v in format_transition_info(info["transition"], n_dists).items()
+                }
+            )
+            host_info["step"] = i
+            self.logger.write(host_info)
+            if k in warm_ks:
+                max_it_time = max(max_it_time, (time() - it_start) / k)
+            warm_ks.add(k)
+            now = time()
+            if now - last_progress > 60.0:  # at most one progress line a minute
+                last_progress = now
+                parts = [f"iter {i}/{n_iterations}"]
+                for name in ("loss", "ess_ais", "ess_base", "n_valid"):
+                    parts.append(f"{name}={host_info[name]:.4g}")
+                print("  ".join(parts), flush=True)
+            if i in eval_iter:
+                self.perform_eval(state, generator, i, eval_batch_size, batch_size)
+            if i in plot_iter:
+                self._plots(state, generator, i, save)
+            if i in checkpoint_iter and save:
+                self.save_checkpoint(state, i)
+            # Stop early enough that the next chunk, at the measured rate, would not
+            # overshoot; before a rate is known, plain wall-clock checking.
+            if tlimit is not None:
+                hours = (time() - start_time) / 3600
+                if hours + max_it_time * k / 3600 > tlimit:
+                    if save and i not in checkpoint_iter:
+                        self.save_checkpoint(state, i)
+                    if n_eval and i not in eval_iter:
+                        self.perform_eval(state, generator, i, eval_batch_size, batch_size)
+                    self.logger.close()
+                    print(f"Ending training at iteration {i}: tlimit reached.")
+                    return state
+        self.logger.close()
+        return state

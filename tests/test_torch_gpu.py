@@ -1,14 +1,16 @@
-"""K1 against its plain version on the card. Skipped without a CUDA card: the
-hand-written kernel has no CPU mode. This file imports no JAX, so it also runs on a
-machine that has only PyTorch:
+"""K1 and K2 against their plain versions on the card. Skipped without a CUDA
+card: the hand-written kernels have no CPU mode. This file imports no JAX, so it
+also runs on a machine that has only PyTorch (``--noconftest``: tests/conftest.py
+imports JAX):
 
-    python -m pytest tests/test_torch_gpu.py -m gpu
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
 import pytest
 import torch
 
-from fab_tpu_torch.flows import make_realnvp
+from fab_tpu_torch.flows import LargeFusedCoupling, make_realnvp
 from fab_tpu_torch.flows.fused import _stack_params
+from fab_tpu_torch.ops import coupling_kernel as ck
 from fab_tpu_torch.ops import realnvp_kernel as rk
 
 KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wlin", "lu_ld")
@@ -83,4 +85,63 @@ def test_k1_gradients_match_plain_flow(card):
         xg = x.clone().requires_grad_(True)
         grads.append(torch.autograd.grad(flow.log_prob(xg).sum(), [xg, *flow.parameters()]))
     for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _perturbed_coupling(dim, width, device):
+    gen = torch.Generator(device=device).manual_seed(1)
+    layer = LargeFusedCoupling(dim, width, scale_cap=5.0, device=device)
+    layer.reset_parameters(gen)
+    with torch.no_grad():
+        for p in layer.parameters():  # the last layer starts at zero
+            p.add_(0.01 * torch.randn(p.shape, generator=gen, device=device))
+        layer.mlp[-1].w[:, 2 * layer.d_trans:] = 0.0  # the pad stays zero
+        layer.mlp[-1].b[2 * layer.d_trans:] = 0.0
+    return layer
+
+
+# (dim, width, batch): ragged rows, a d_trans that is not a multiple of the
+# 32-column tile, and an odd dim.
+K2_SHAPES = [(256, 256, 100), (250, 384, 64), (7, 128, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_k2_kernel_matches_plain_version(card, inverse, shape):
+    dim, width, batch = shape
+    layer = _perturbed_coupling(dim, width, card)
+    x = torch.randn(batch, dim, device=card)
+    zc, zt = (t.contiguous() for t in layer._split(x))
+    args = [zc, zt] + [t for d in layer.mlp for t in (d.w, d.b)]
+    before = ck.fused_coupling_apply.launches
+    with torch.no_grad():
+        y, ld = ck.fused_coupling_apply(*args, 5.0, inverse)
+        y_ref, ld_ref = ck.fused_coupling_apply_reference(*args, 5.0, inverse)
+    torch.cuda.synchronize()
+    assert ck.fused_coupling_apply.launches == before + 1
+    # A width-deep f32 product and a d_trans-term sum, in another order.
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_large_fused_coupling_launches_k2_on_batched_input(card):
+    """A [n, B, D] input on the card is one K2 launch; values and gradients match
+    the plain coupling with the same parameters."""
+    layer = _perturbed_coupling(256, 256, card)
+    x = torch.randn(3, 40, 256, device=card, requires_grad=True)
+    before = ck.fused_coupling_apply.launches
+    y, ld = layer.inverse_and_log_det(x)
+    assert ck.fused_coupling_apply.launches == before + 1
+    grads = torch.autograd.grad((y**2).sum() + ld.sum(), [x, *layer.parameters()])
+    y_ref, ld_ref = super(LargeFusedCoupling, layer).inverse_and_log_det(x)
+    grads_ref = torch.autograd.grad(
+        (y_ref**2).sum() + ld_ref.sum(), [x, *layer.parameters()]
+    )
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and ld.shape == (3, 40)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+    for a, b in zip(grads, grads_ref):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

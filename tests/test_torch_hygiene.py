@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from fab_tpu_torch.flows import make_realnvp
+from fab_tpu_torch.ops.coupling_kernel import fused_coupling_apply
 from fab_tpu_torch.ops.realnvp_kernel import fused_realnvp_pass
-from fab_tpu_torch.targets import ManyWellEnergy
+from fab_tpu_torch.targets import LogGaussianCoxProcess, ManyWellEnergy
 from fab_tpu_torch.train import PrioritisedBufferTrainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -58,7 +59,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize(
-    "entry", [make_realnvp, ManyWellEnergy, PrioritisedBufferTrainer],
+    "entry", [make_realnvp, ManyWellEnergy, LogGaussianCoxProcess, PrioritisedBufferTrainer],
     ids=lambda e: e.__name__,
 )
 def test_entry_points_default_to_the_card(entry):
@@ -72,6 +73,8 @@ def test_entry_points_raise_without_a_card():
         ManyWellEnergy(4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_realnvp(4, n_flow_layers=1, layer_nodes_per_dim=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LogGaussianCoxProcess(grid_size=4)
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():
@@ -84,3 +87,16 @@ def test_wrapper_has_no_fallback_off_the_cpu():
             t(1, 4, 4), t(1, 1), inverse=True,
         )
     assert fused_realnvp_pass.launches == before
+
+
+def test_coupling_wrapper_has_no_fallback_off_the_cpu():
+    """K2's wrapper: a tensor on another device than the CPU never takes the plain
+    version, and nothing is counted."""
+    t = lambda *s: torch.empty(s, device="meta")
+    before = fused_coupling_apply.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_coupling_apply(
+            t(8, 4), t(8, 4), t(4, 128), t(128), t(128, 128), t(128), t(128, 128),
+            t(128), 5.0, inverse=True,
+        )
+    assert fused_coupling_apply.launches == before

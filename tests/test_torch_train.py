@@ -12,35 +12,23 @@ import pytest
 import torch
 
 from fab_tpu.buffer import PrioritisedReplayBuffer as JaxBuffer
-from fab_tpu.model import FABModel as JaxFABModel
-from fab_tpu.sampling import HamiltonianMonteCarlo as JaxHMC
+from fab_tpu.targets import LogGaussianCoxProcess as JaxLGCP
 from fab_tpu.targets import ManyWellEnergy as JaxManyWell
-from fab_tpu.train import BufferTrainState as JaxBufferTrainState
-from fab_tpu.train import PrioritisedBufferTrainer as JaxTrainer
 from fab_tpu.train import guarded_update as jax_guarded_update
 from fab_tpu.train import make_optimizer as jax_make_optimizer
 from fab_tpu_torch.buffer import PrioritisedReplayBuffer
-from fab_tpu_torch.convert import (
-    buffer_state_from_jax,
-    from_jax_params,
-    transition_state_from_jax,
-)
 from fab_tpu_torch.flows import make_realnvp as port_make_realnvp
 from fab_tpu_torch.flows.fused import FusedPass, FusedRealNVPFlow
-from fab_tpu_torch.model import FABModel
-from fab_tpu_torch.sampling import HamiltonianMonteCarlo
-from fab_tpu_torch.targets import ManyWellEnergy
-from fab_tpu_torch.train import (
-    BufferTrainState,
-    PrioritisedBufferTrainer,
-    guarded_update,
-    make_optimizer,
-)
+from fab_tpu_torch.flows import LargeFusedCoupling
+from fab_tpu_torch.targets import LogGaussianCoxProcess, ManyWellEnergy
+from fab_tpu_torch.train import guarded_update, make_optimizer
 from torch_parity_utils import (
     NoiseReplay,
-    ais_noise,
+    assert_buffer,
     assert_close,
+    check_train_step,
     make_flow_pair,
+    random_buffer_inputs,
     to_np,
 )
 
@@ -66,19 +54,6 @@ def test_many_well_log_prob_and_grad(dtype):
     np.testing.assert_array_equal(target.modes_test_set().numpy(), modes_j)
 
 
-def _random_buffer_inputs(rng, n, dim):
-    x = rng.standard_normal((n, dim))
-    log_w = rng.standard_normal(n) * 3
-    log_w[::7] = np.nan  # non-finite rows must become -inf priorities
-    mask = rng.random(n) > 0.2
-    return x, log_w, rng.standard_normal(n), mask
-
-
-def _assert_buffer(state, state_j, tol):
-    for name, a, b in zip(state._fields, state, state_j):
-        assert_close(a, b, tol, name)
-
-
 def test_buffer_add_sample_adjust_match_fab_tpu(monkeypatch):
     """Ring add (with wrap-around), shared-Gumbel top-k draw, and adjust."""
     rng = np.random.default_rng(6)
@@ -86,7 +61,7 @@ def test_buffer_add_sample_adjust_match_fab_tpu(monkeypatch):
     with jax.enable_x64():
         buf_j = JaxBuffer(dim=dim, max_length=size, min_sample_length=32)
         state_j = buf_j.init(jnp.float64)
-        adds = [_random_buffer_inputs(rng, 40, dim) for _ in range(3)]  # wraps
+        adds = [random_buffer_inputs(rng, 40, dim) for _ in range(3)]  # wraps
         for x, lw, lq, m in adds:
             state_j = buf_j.add(state_j, x, lw, lq, m)
         key = jax.random.key(3)
@@ -101,7 +76,7 @@ def test_buffer_add_sample_adjust_match_fab_tpu(monkeypatch):
     state = buf.init(DT, "cpu")
     for x, lw, lq, m in adds:
         state = buf.add(state, *(torch.tensor(a) for a in (x, lw, lq, m)))
-    _assert_buffer(state, to_np(state_j), 0)
+    assert_buffer(state, to_np(state_j), 0)
 
     NoiseReplay(monkeypatch, {"gumbel": [gumbel]})
     xs, lws, lqs, idx = buf.sample_n_batches(state, None, 16, 6)
@@ -115,8 +90,8 @@ def test_buffer_add_sample_adjust_match_fab_tpu(monkeypatch):
             a.reshape(96, -1)[:n_finite].numpy(), np.asarray(b).reshape(96, -1)[:n_finite]
         )
     adjusted = buf.adjust(state, torch.tensor(adj), torch.tensor(lq_new), idx[0])
-    _assert_buffer(adjusted, to_np(adjusted_j), 1e-12)
-    _assert_buffer(state, to_np(state_j), 0)  # adjust returned a new state
+    assert_buffer(adjusted, to_np(adjusted_j), 1e-12)
+    assert_buffer(state, to_np(state_j), 0)  # adjust returned a new state
 
 
 def test_guarded_update_matches_jax_optimizer():
@@ -172,87 +147,43 @@ def test_fused_prioritised_buffer_train_step_matches_fab_tpu(monkeypatch):
     _check_train_step(monkeypatch, fused=True)
 
 
+def test_lgcp_fused_coupling_train_step_matches_fab_tpu(monkeypatch):
+    """The same step on a small LGCP (grid 8, 2 layers of width 128, scale cap 5,
+    2 distributions, batch 32) with the fused_coupling flow. In f64 both packages
+    take LargeFusedCoupling's plain path over the padded last layer."""
+    dim, batch, n_dists = 64, 32, 2
+    hmc_kw = dict(n_ais_intermediate_distributions=n_dists, n_leapfrog=3, epsilon=0.1)
+    with jax.enable_x64():
+        flow_pair = make_flow_pair(dim, 2, 2, DT, seed=4, scale_cap=5.0,
+                                   fused_coupling=True)
+        target_j = JaxLGCP(grid_size=8, dtype=jnp.float64)
+    assert isinstance(flow_pair[2].bijectors[0], LargeFusedCoupling)
+    assert flow_pair[2].bijectors[0].mlp[-1].w.shape == (128, 128)
+    check_train_step(
+        monkeypatch, flow_pair,
+        (target_j, LogGaussianCoxProcess(grid_size=8, dtype=DT, device="cpu")),
+        dim, batch, n_dists, n_batches=2, hmc_kw=hmc_kw,
+    )
+
+
 def _check_train_step(monkeypatch, fused):
-    dim, batch, n_dists, n_batches = 4, 64, 2, 2
-    rng = np.random.default_rng(9)
+    dim, batch, n_dists = 4, 64, 2
     hmc_kw = dict(n_ais_intermediate_distributions=n_dists, n_leapfrog=3, epsilon=0.3)
     with jax.enable_x64():
         jax_flow, params, flow = make_flow_pair(dim, 2, 2, DT, seed=2)
-        if fused:
-            plain, flow = flow, port_make_realnvp(
-                dim, n_flow_layers=2, layer_nodes_per_dim=2, fused=True, dtype=DT,
-                device="cpu",
-            )
-            flow.load_state_dict(plain.state_dict())
-            assert isinstance(flow, FusedRealNVPFlow)
-        model_j = JaxFABModel.create(
-            jax_flow, JaxManyWell(dim), transition_operator=JaxHMC(**hmc_kw),
-            n_intermediate_distributions=n_dists,
+        target_j = JaxManyWell(dim)
+    if fused:
+        plain, flow = flow, port_make_realnvp(
+            dim, n_flow_layers=2, layer_nodes_per_dim=2, fused=True, dtype=DT,
+            device="cpu",
         )
-        buf_j = JaxBuffer(dim=dim, max_length=512, min_sample_length=128)
-        trainer_j = JaxTrainer(
-            model_j, jax_make_optimizer(1e-2, 100.0), buf_j,
-            n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
-            dtype=jnp.float64,
-        )
-        # A buffer of 192 rows, some dead, from shared numpy data.
-        buffer_j = buf_j.init(jnp.float64)
-        for _ in range(3):
-            x, lw, lq, m = _random_buffer_inputs(rng, batch, dim)
-            buffer_j = buf_j.add(buffer_j, x, lw, lq, m)
-        trans_j = to_np(model_j.ais.transition_operator.init_state(dim, jnp.float64))
-        state_j = JaxBufferTrainState(
-            params={"flow": params, "transition": trans_j},
-            opt_state=trainer_j.optimizer.init(params),
-            buffer_state=buffer_j,
-            step=jnp.zeros((), jnp.int32),
-        )
-        key = jax.random.key(5)
-        key_ais, key_sample = jax.random.split(key)
-        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64)
-        noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, (512,), jnp.float64))]
-        new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key))
-
-    model = FABModel.create(
-        flow, ManyWellEnergy(dim, device="cpu"),
-        transition_operator=HamiltonianMonteCarlo(**hmc_kw),
-        n_intermediate_distributions=n_dists,
-    )
-    trainer = PrioritisedBufferTrainer(
-        model, make_optimizer(1e-2, 100.0),
-        PrioritisedReplayBuffer(dim=dim, max_length=512, min_sample_length=128),
-        n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0, dtype=DT,
-        device="cpu",
-    )
-    state = BufferTrainState(
-        transition_state=transition_state_from_jax(trans_j),
-        opt_state=trainer.optimizer.init(trainer.params),
-        buffer_state=buffer_state_from_jax(to_np(buffer_j)),
-        step=0,
-    )
-    replay = NoiseReplay(monkeypatch, noise)
+        flow.load_state_dict(plain.state_dict())
+        assert isinstance(flow, FusedRealNVPFlow)
     recomputes = FusedPass.recomputes
-    new, info = trainer.train_step(state, None, batch)
-    replay.assert_consumed()
+    check_train_step(
+        monkeypatch, (jax_flow, params, flow),
+        (target_j, ManyWellEnergy(dim, device="cpu")),
+        dim, batch, n_dists, n_batches=2, hmc_kw=hmc_kw,
+    )
     # HMC's gradients and the replay steps differentiate through FusedPass.
     assert (FusedPass.recomputes > recomputes) == fused
-
-    tol = 1e-8
-    expected = from_jax_params(new_j.params["flow"])
-    for name, value in flow.state_dict().items():
-        assert_close(value, expected[name], tol, name)
-    adam_j = new_j.opt_state[1][0]
-    mu_j, nu_j = from_jax_params(adam_j.mu), from_jax_params(adam_j.nu)
-    names = [n for n, p in flow.named_parameters() if p.requires_grad]
-    assert int(new.opt_state.count) == int(adam_j.count)
-    for name, mu, nu in zip(names, new.opt_state.mu, new.opt_state.nu):
-        assert_close(mu, mu_j[name], tol, "mu " + name)
-        assert_close(nu, nu_j[name], tol, "nu " + name)
-    for k in ("epsilons", "common_epsilon", "mass"):
-        assert_close(new.transition_state[k], new_j.params["transition"][k], tol, k)
-    _assert_buffer(new.buffer_state, new_j.buffer_state, tol)
-    for k in ("loss", "grad_norm", "n_valid", "w_adjust_mean", "sampled_log_w_mean",
-              "sampled_log_w_std", "ess_ais"):
-        assert_close(info[k], info_j[k], tol, k)
-    assert bool(info["update_applied"]) and bool(info_j["update_applied"])
-    assert float(info["loss"]) != 0.0 and int(info["n_valid"]) > 0

@@ -10,9 +10,23 @@ import numpy as np
 import torch
 
 import fab_tpu_torch.random as port_random
+from fab_tpu.buffer import PrioritisedReplayBuffer as JaxBuffer
 from fab_tpu.flows import make_realnvp as jax_make_realnvp
-from fab_tpu_torch.convert import from_jax_params
+from fab_tpu.model import FABModel as JaxFABModel
+from fab_tpu.sampling import HamiltonianMonteCarlo as JaxHMC
+from fab_tpu.train import BufferTrainState as JaxBufferTrainState
+from fab_tpu.train import PrioritisedBufferTrainer as JaxTrainer
+from fab_tpu.train import make_optimizer as jax_make_optimizer
+from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+from fab_tpu_torch.convert import (
+    buffer_state_from_jax,
+    from_jax_params,
+    transition_state_from_jax,
+)
 from fab_tpu_torch.flows import make_realnvp as port_make_realnvp
+from fab_tpu_torch.model import FABModel
+from fab_tpu_torch.sampling import HamiltonianMonteCarlo
+from fab_tpu_torch.train import BufferTrainState, PrioritisedBufferTrainer, make_optimizer
 
 JAX_DTYPE = {torch.float32: jnp.float32, torch.float64: jnp.float64}
 NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -40,19 +54,21 @@ def perturbed_jax_flow_params(flow, seed: int, dtype, scale: float = 0.05):
     return jax.tree_util.tree_map_with_path(perturb, params)
 
 
-def make_flow_pair(dim, n_layers, nodes_per_dim, torch_dtype, seed=0, fused=False):
+def make_flow_pair(dim, n_layers, nodes_per_dim, torch_dtype, seed=0, fused=False,
+                   **flow_kw):
     """(jax flow, jax params as numpy, port flow with the same params) on the CPU.
 
-    Call under ``jax.enable_x64()`` for float64.
+    ``flow_kw`` (``scale_cap``, ``fused_coupling``) goes to both factories. Call
+    under ``jax.enable_x64()`` for float64.
     """
     jax_flow = jax_make_realnvp(
         dim, n_flow_layers=n_layers, layer_nodes_per_dim=nodes_per_dim,
-        act_norm=False, fused=fused,
+        act_norm=False, fused=fused, **flow_kw,
     )
     params = to_np(perturbed_jax_flow_params(jax_flow, seed, JAX_DTYPE[torch_dtype]))
     port_flow = port_make_realnvp(
         dim, n_flow_layers=n_layers, layer_nodes_per_dim=nodes_per_dim, fused=fused,
-        dtype=torch_dtype, device="cpu",
+        dtype=torch_dtype, device="cpu", **flow_kw,
     )
     port_flow.load_state_dict(from_jax_params(params))
     return jax_flow, params, port_flow
@@ -112,3 +128,107 @@ def assert_close(actual, expected, tol, what=""):
         atol=tol,
         err_msg=what,
     )
+
+
+def assert_close_to_scale(actual, expected, tol, what=""):
+    """|actual - expected| <= tol * max(max|expected|, 1): for float32 results whose
+    rounding error grows with the largest value a sum runs through."""
+    actual = np.asarray(actual.detach().cpu() if torch.is_tensor(actual) else actual)
+    expected = np.asarray(expected)
+    scale = max(float(np.abs(expected).max()), 1.0)
+    np.testing.assert_allclose(actual, expected, rtol=0, atol=tol * scale, err_msg=what)
+
+
+def random_buffer_inputs(rng, n, dim):
+    """(x, log_w, log_q, mask) of a buffer add, with dead and masked rows."""
+    x = rng.standard_normal((n, dim))
+    log_w = rng.standard_normal(n) * 3
+    log_w[::7] = np.nan  # non-finite rows must become -inf priorities
+    mask = rng.random(n) > 0.2
+    return x, log_w, rng.standard_normal(n), mask
+
+
+def assert_buffer(state, state_j, tol):
+    for name, a, b in zip(state._fields, state, state_j):
+        assert_close(a, b, tol, name)
+
+
+def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_batches,
+                     hmc_kw, tol=1e-8):
+    """One full f64 PrioritisedBufferTrainer step of the port against fab_tpu's, on
+    a shared buffer (192 rows, some dead) and shared noise: flow parameters, Adam
+    state, HMC state, buffer and logged info agree to ``tol``.
+
+    ``flow_pair`` is (jax flow, jax params, port flow); ``targets`` is (jax target,
+    port target). Returns the port's info.
+    """
+    jax_flow, params, flow = flow_pair
+    target_j, target = targets
+    rng = np.random.default_rng(9)
+    with jax.enable_x64():
+        model_j = JaxFABModel.create(
+            jax_flow, target_j, transition_operator=JaxHMC(**hmc_kw),
+            n_intermediate_distributions=n_dists,
+        )
+        buf_j = JaxBuffer(dim=dim, max_length=512, min_sample_length=128)
+        trainer_j = JaxTrainer(
+            model_j, jax_make_optimizer(1e-2, 100.0), buf_j,
+            n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
+            dtype=jnp.float64,
+        )
+        buffer_j = buf_j.init(jnp.float64)
+        for _ in range(3):
+            x, lw, lq, m = random_buffer_inputs(rng, batch, dim)
+            buffer_j = buf_j.add(buffer_j, x, lw, lq, m)
+        trans_j = to_np(model_j.ais.transition_operator.init_state(dim, jnp.float64))
+        state_j = JaxBufferTrainState(
+            params={"flow": params, "transition": trans_j},
+            opt_state=trainer_j.optimizer.init(params),
+            buffer_state=buffer_j,
+            step=jnp.zeros((), jnp.int32),
+        )
+        key = jax.random.key(5)
+        key_ais, key_sample = jax.random.split(key)
+        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64)
+        noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, (512,), jnp.float64))]
+        new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key))
+
+    model = FABModel.create(
+        flow, target, transition_operator=HamiltonianMonteCarlo(**hmc_kw),
+        n_intermediate_distributions=n_dists,
+    )
+    trainer = PrioritisedBufferTrainer(
+        model, make_optimizer(1e-2, 100.0),
+        PrioritisedReplayBuffer(dim=dim, max_length=512, min_sample_length=128),
+        n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
+        dtype=torch.float64, device="cpu",
+    )
+    state = BufferTrainState(
+        transition_state=transition_state_from_jax(trans_j),
+        opt_state=trainer.optimizer.init(trainer.params),
+        buffer_state=buffer_state_from_jax(to_np(buffer_j)),
+        step=0,
+    )
+    replay = NoiseReplay(monkeypatch, noise)
+    new, info = trainer.train_step(state, None, batch)
+    replay.assert_consumed()
+
+    expected = from_jax_params(new_j.params["flow"])
+    for name, value in flow.state_dict().items():
+        assert_close(value, expected[name], tol, name)
+    adam_j = new_j.opt_state[1][0]
+    mu_j, nu_j = from_jax_params(adam_j.mu), from_jax_params(adam_j.nu)
+    names = [n for n, p in flow.named_parameters() if p.requires_grad]
+    assert int(new.opt_state.count) == int(adam_j.count)
+    for name, mu, nu in zip(names, new.opt_state.mu, new.opt_state.nu):
+        assert_close(mu, mu_j[name], tol, "mu " + name)
+        assert_close(nu, nu_j[name], tol, "nu " + name)
+    for k in ("epsilons", "common_epsilon", "mass"):
+        assert_close(new.transition_state[k], new_j.params["transition"][k], tol, k)
+    assert_buffer(new.buffer_state, new_j.buffer_state, tol)
+    for k in ("loss", "grad_norm", "n_valid", "w_adjust_mean", "sampled_log_w_mean",
+              "sampled_log_w_std", "ess_ais"):
+        assert_close(info[k], info_j[k], tol, k)
+    assert bool(info["update_applied"]) and bool(info_j["update_applied"])
+    assert float(info["loss"]) != 0.0 and int(info["n_valid"]) > 0
+    return info
