@@ -16,9 +16,11 @@ Phases:
      the fused flow, so every flow pass runs through K1: init_state, then 5 train
      steps. Launch counters are zeroed just before and read just after.
   4. One more ManyWell step under torch.profiler; K1 timing with CUDA events.
-  5. K2 (one large-dim affine coupling) against its plain version at LGCP-1600
-     shapes (B=512, D=1600, H=3200, scale cap 5): forward, inverse, round trip, a
-     [4, 128, 1600] input, and gradients through its autograd Function.
+  5. K2 (one large-dim affine coupling, 3xTF32 wgmma GEMMs fed by TMA) against its
+     plain version at LGCP-1600 shapes (B=512, D=1600, H=3200, scale cap 5):
+     forward, inverse, a bitwise repeat of the log-det, an in-place weight update
+     (the prepared weight copies must follow it), round trip, a [4, 128, 1600]
+     input, and gradients through its autograd Function.
   6. LGCP-1600 FAB with a prioritised buffer at experiments/configs/lgcp.yaml's
      settings with flow.fused_coupling=true (RealNVP 8 x [coupling, width 3200,
      scale cap 5; LU]; HMC with 8 intermediate distributions, 5 leapfrog steps,
@@ -26,10 +28,12 @@ Phases:
      1e-5 instead of the config's 1e-4: from a fresh flow, 1e-4 masks every AIS row
      from the second step on and 3e-5 all but a few (python3 -m
      fab_tpu_torch.lgcp_lr_sweep).
-     init_state, then 5 train steps, every coupling through K2. Counters are zeroed
-     just before and read just after.
+     init_state, then 5 train steps, every coupling through K2. Counters (launches,
+     recomputes, prepared-weight rebuilds) are zeroed just before and read just
+     after.
   7. One more LGCP step under torch.profiler; the trainer's run entry point (2
-     iterations and one dual-target eval, logged to a CSV); K2 timing.
+     iterations and one dual-target eval, logged to a CSV); K2 timing, with the
+     prepared-weight rebuild.
 
 Prints the kernel JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero on any failure, and without a card.
@@ -47,11 +51,12 @@ import sys
 import tempfile
 import time
 
-# Peak rates for the bound: f32 on the CUDA cores and device-memory bandwidth
-# (NVIDIA's H100 data sheet, dense; SXM at 700 W, PCIe at 350 W).
+# Peak rates for the bounds: f32 on the CUDA cores, dense TF32 on the tensor cores
+# and device-memory bandwidth (NVIDIA's H100 data sheet; SXM at 700 W, PCIe at
+# 350 W).
 PEAKS = {
-    "sxm": {"f32_flops": 67e12, "bytes_per_s": 3.35e12},
-    "pcie": {"f32_flops": 51e12, "bytes_per_s": 2.0e12},
+    "sxm": {"f32_flops": 67e12, "tf32_flops": 495e12, "bytes_per_s": 3.35e12},
+    "pcie": {"f32_flops": 51e12, "tf32_flops": 378e12, "bytes_per_s": 2.0e12},
 }
 
 N_STEPS = 5
@@ -67,11 +72,17 @@ def _peaks(name: str) -> dict:
     return PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
 
 
-def _bound_ms(flops: float, bytes_moved: float, name: str):
+def _bounds_ms(flops: float, bytes_moved: float, name: str) -> dict:
+    """The least time for `flops` f32-accurate operations and `bytes_moved`, two
+    ways: f32 FMAs on the CUDA cores, and 3xTF32 on the tensor cores (three TF32
+    products per product). Each is (ms, what bounds it)."""
     peaks = _peaks(name)
-    t_ops = flops / peaks["f32_flops"] * 1e3
     t_bytes = bytes_moved / peaks["bytes_per_s"] * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    bounds = {}
+    for way, t_ops in (("f32_fma", flops / peaks["f32_flops"] * 1e3),
+                       ("3xtf32", 3 * flops / peaks["tf32_flops"] * 1e3)):
+        bounds[way] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return bounds
 
 
 def _time_ms(fn, n: int = 50) -> float:
@@ -110,6 +121,7 @@ def _zero_counts() -> None:
     FusedPass.recomputes = 0
     ck.fused_coupling_apply.launches = 0
     ck.FusedCoupling.recomputes = 0
+    ck.prepared_weight.rebuilds = 0
 
 
 def _counts() -> dict:
@@ -120,6 +132,7 @@ def _counts() -> dict:
     return {
         "k1": rk.fused_realnvp_pass.launches, "k1_recomputes": FusedPass.recomputes,
         "k2": ck.fused_coupling_apply.launches, "k2_recomputes": ck.FusedCoupling.recomputes,
+        "k2_rebuilds": ck.prepared_weight.rebuilds,
     }
 
 
@@ -161,7 +174,8 @@ def _train(trainer, gen, batch, card, label):
 def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
     """One more step under torch.profiler: device busy time (device-side events
     only; one stream, so they do not overlap) against the step, the top device ops,
-    and the share of named groups of ops."""
+    and the share of named groups of ops (an op counts in the first group whose
+    words its name holds). Returns the state, the busy share and each group's ms."""
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -180,11 +194,15 @@ def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
           f"{busy_ms / steady:.1%} of the median step), {n_ops} device ops")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
-    for group, words in groups.items():
-        ms = sum(e.self_device_time_total for e in events
-                 if any(w in e.key.lower() for w in words)) / 1e3
+    group_ms = dict.fromkeys(groups, 0.0)
+    for e in events:
+        group = next((g for g, words in groups.items()
+                      if any(w in e.key.lower() for w in words)), None)
+        if group is not None:
+            group_ms[group] += e.self_device_time_total / 1e3
+    for group, ms in group_ms.items():
         print(f"    group {group}: {ms:.2f} ms ({ms / busy_ms:.1%} of device busy)")
-    return state, busy_ms / steady
+    return state, busy_ms / steady, group_ms
 
 
 # ------------------------------------------------------------------- K1 / ManyWell
@@ -293,7 +311,7 @@ def manywell_path(device, gen, card):
     assert all((p["k1"], p["k1_recomputes"]) == (38, 29) for p in per_step), (
         f"K1 launches/recomputes per step: {per_step}"
     )
-    assert total["k2"] == 0, "K2 is not on the ManyWell path"
+    assert total["k2"] == total["k2_rebuilds"] == 0, "K2 is not on the ManyWell path"
     print(f"ManyWell-32 path: K1 launches {total['k1']} (init_state {init['k1']}, 38 per "
           f"step), backward recomputations {total['k1_recomputes']} (29 per step)")
 
@@ -319,8 +337,10 @@ def manywell_path(device, gen, card):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] ManyWell-32 AIS pass alone: {ais_ms:.1f} ms "
           f"({ais_ms / run['steady_ms']:.1%} of the median step)")
-    _profile_step(trainer, state, gen, MW_BATCH, run["steady_ms"], card, "ManyWell-32",
-                  {"K1": ["realnvp_chain"], "triangular solves": ["trsm"]})
+    _, _, groups = _profile_step(trainer, state, gen, MW_BATCH, run["steady_ms"], card,
+                                 "ManyWell-32",
+                                 {"K1": ["realnvp_chain"], "triangular solves": ["trsm"]})
+    assert groups["K1"] > 0, "the profiler saw no K1 kernel"
     return run
 
 
@@ -335,7 +355,7 @@ def time_k1(k1, name, card):
     flops = 2.0 * MW_BATCH * L * (d_cond * H + H * H + H * n_last + MW_DIM * MW_DIM)
     n_weights = sum(t.numel() for t in operands[True][:-2]) + L * MW_DIM * MW_DIM + L
     bytes_moved = 4.0 * (2 * MW_BATCH * MW_DIM + MW_BATCH + n_weights)
-    bound, bound_by = _bound_ms(flops, bytes_moved, name)
+    bounds = _bounds_ms(flops, bytes_moved, name)
     timing = {}
     for inverse in (False, True):
         args = operands[inverse]
@@ -346,10 +366,15 @@ def time_k1(k1, name, card):
             )
         print(f"[{card}] K1 {'inverse' if inverse else 'forward'}: kernel "
               f"{timing[inverse][0]:.4f} ms, plain {timing[inverse][1]:.4f} ms, "
-              f"bound {bound:.4f} ms by {bound_by} "
-              f"({flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
+              f"{_bounds_text(bounds)} ({flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
     print("K1 library_ms: none - no single PyTorch call computes the fused RealNVP chain")
-    return timing, bound, bound_by
+    return timing, bounds
+
+
+def _bounds_text(bounds) -> str:
+    return (f"bound {bounds['f32_fma'][0]:.4f} ms by {bounds['f32_fma'][1]} at the f32 FMA "
+            f"rate, {bounds['3xtf32'][0]:.4f} ms by {bounds['3xtf32'][1]} in 3xTF32 on "
+            "the tensor cores")
 
 
 # ---------------------------------------------------------------- K2 / LGCP-1600
@@ -397,6 +422,27 @@ def check_k2(device, gen):
             errors[mode] = (float((y - y_ref).abs().max()), float((ld - ld_ref).abs().max()))
             print(f"K2 {mode}: max|y - plain| {errors[mode][0]:.3e} (atol=rtol=1e-4), "
                   f"max|log_det - plain| {errors[mode][1]:.3e} (atol 2e-3)")
+        # The log-det is summed in a fixed order, with no float atomics.
+        y_again, ld_again = ck.fused_coupling_apply(zc, zt, *weights, LG_CAP, True)
+        torch.cuda.synchronize()
+        assert torch.equal(ld_again, ld) and torch.equal(y_again, y), "K2 is not repeatable"
+        print("K2 repeated: y and log_det bitwise equal")
+        # An in-place update of the weights: the prepared copies must follow it.
+        rebuilds = ck.prepared_weight.rebuilds
+        _perturb(layer, gen, 0.001)
+        layer.mlp[-1].w[:, 2 * layer.d_trans:] = 0.0
+        layer.mlp[-1].b[2 * layer.d_trans:] = 0.0
+        y, ld = ck.fused_coupling_apply(zc, zt, *weights, LG_CAP, True)
+        y_ref, ld_ref = ck.fused_coupling_apply_reference(zc, zt, *weights, LG_CAP, True)
+        torch.cuda.synchronize()
+        assert ck.prepared_weight.rebuilds == rebuilds + 3, "the prepared weights were not rebuilt"
+        torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ld, ld_ref, atol=2e-3, rtol=0)
+        errors["after update"] = (float((y - y_ref).abs().max()),
+                                  float((ld - ld_ref).abs().max()))
+        print(f"K2 after an in-place update of every weight: 3 prepared copies rebuilt, "
+              f"max|y - plain| {errors['after update'][0]:.3e}, max|log_det - plain| "
+              f"{errors['after update'][1]:.3e}")
         y, ld_f = layer.forward_and_log_det(x)
         x_back, ld_i = layer.inverse_and_log_det(y)
         torch.cuda.synchronize()
@@ -483,9 +529,21 @@ def lgcp_path(device, gen, card, save_path):
         f"K2 launches/recomputes per step: {per_step}"
     )
     assert total["k1"] == 0, "K1 is not on the LGCP path"
+    # Prepared weight copies (w1, w2, w3p of 8 couplings) are built by init_state's
+    # first pass and rebuilt after each of a step's 4 updates, at the next pass:
+    # replay batches 2-4 of the same step and the next step's AIS pass.
+    per_layer = 3 * LG_LAYERS
+    assert init["k2_rebuilds"] == per_layer, f"init_state rebuilt {init['k2_rebuilds']}"
+    want_rebuilds = [(LG_REPLAY - 1) * per_layer] + [LG_REPLAY * per_layer] * (N_STEPS - 1)
+    assert [p["k2_rebuilds"] for p in per_step] == want_rebuilds, (
+        f"prepared-weight rebuilds per step: {[p['k2_rebuilds'] for p in per_step]}"
+    )
+    run["rebuilds_per_step"] = want_rebuilds[-1]
     print(f"LGCP-1600 path: K2 launches {total['k2']} (init_state {init['k2']}, "
           f"{want_step[0]} per step), backward recomputations {total['k2_recomputes']} "
-          f"(init_state {init['k2_recomputes']}, {want_step[1]} per step); peak device "
+          f"(init_state {init['k2_recomputes']}, {want_step[1]} per step), prepared-weight "
+          f"rebuilds {total['k2_rebuilds']} (init_state {init['k2_rebuilds']}, "
+          f"{want_rebuilds[0]} in step 1, {want_rebuilds[-1]} per later step); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # Output check: finite parameters and buffer, and the trained flow agrees with
@@ -517,11 +575,12 @@ def lgcp_path(device, gen, card, save_path):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] LGCP-1600 AIS pass alone: {ais_ms:.1f} ms "
           f"({ais_ms / run['steady_ms']:.1%} of the median step)")
-    state, busy = _profile_step(
+    state, busy, groups = _profile_step(
         trainer, state, gen, LG_BATCH, run["steady_ms"], card, "LGCP-1600",
-        {"K2": ["dense_relu", "coupling_out", "row_sum"], "triangular solves": ["trsm"],
+        {"K2": ["k2_"], "triangular solves": ["trsm"],
          "cuBLAS GEMMs": ["gemm", "cutlass", "sm90_xmma"]},
     )
+    assert groups["K2"] > 0, "the profiler saw no K2 kernel"
     run["busy"] = busy
     return trainer, state, run
 
@@ -563,7 +622,7 @@ def time_k2(k2, name, card):
     flops = 2.0 * B * (dc * H + H * H + H * 2 * dt)
     bytes_moved = 4.0 * (B * dc + B * dt + dc * H + H + H * H + H + H * 2 * dt
                          + 2 * dt + B * dt + B)
-    bound, bound_by = _bound_ms(flops, bytes_moved, name)
+    bounds = _bounds_ms(flops, bytes_moved, name)
     timing = {}
     with torch.no_grad():
         for inverse in (False, True):
@@ -574,15 +633,20 @@ def time_k2(k2, name, card):
             )
             print(f"[{card}] K2 {'inverse' if inverse else 'forward'}: kernel "
                   f"{timing[inverse][0]:.4f} ms, plain {timing[inverse][1]:.4f} ms, "
-                  f"bound {bound:.4f} ms by {bound_by} "
-                  f"({flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
+                  f"{_bounds_text(bounds)} ({flops / 1e9:.3f} GFLOP, "
+                  f"{bytes_moved / 1e6:.2f} MB)")
+        # One coupling's prepared weight copies, built again (after an update).
+        rebuild = _time_ms(lambda: [ck.prepare_weight_on_card(w, n) for w, n in
+                                    ((weights[0], H), (weights[2], H), (weights[4], 2 * dt))])
         w1, w2, w3p = weights[0], weights[2], weights[4][:, : 2 * dt]
         h1 = torch.relu(zc @ w1)
         h2 = torch.relu(h1 @ w2)
         library = _time_ms(lambda: (zc @ w1, h1 @ w2, h2 @ w3p))
     print(f"[{card}] K2 library_ms {library:.4f}: 3 x cuBLAS f32 GEMM, no epilogue; no "
           "single call computes K2 (a yardstick only, never called by the port)")
-    return timing, bound, bound_by, library
+    print(f"[{card}] K2 prepared-weight rebuild of one coupling (w1, w2, w3p): "
+          f"{rebuild:.4f} ms")
+    return timing, bounds, library, rebuild
 
 
 def drive(device, gen, name, card) -> list:
@@ -590,7 +654,7 @@ def drive(device, gen, name, card) -> list:
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
     mw = manywell_path(device, gen, card)
-    k1_timing, k1_bound, k1_bound_by = time_k1(k1, name, card)
+    k1_timing, k1_bounds = time_k1(k1, name, card)
 
     # ------------------------------------------------ 5-7. K2 and the LGCP path
     k2 = check_k2(device, gen)
@@ -598,7 +662,7 @@ def drive(device, gen, name, card) -> list:
         trainer, state, lg = lgcp_path(device, gen, card, tmp)
         lgcp_run_entry(trainer, state, gen, card, tmp)
     del trainer, state
-    k2_timing, k2_bound, k2_bound_by, k2_library = time_k2(k2, name, card)
+    k2_timing, k2_bounds, k2_library, k2_rebuild = time_k2(k2, name, card)
 
     kernels = [
         {
@@ -610,9 +674,12 @@ def drive(device, gen, name, card) -> list:
             "max_abs_err": max(e[0] for e in k1["errors"].values()),
             "ms": k1_timing[True][0],
             "plain_ms": k1_timing[True][1],
-            "bound_ms": k1_bound,
-            "bound_by": k1_bound_by,
+            "bound_ms": k1_bounds["3xtf32"][0],
+            "bound_by": k1_bounds["3xtf32"][1],
             "library_ms": None,
+            "bound": "3xTF32 on the tensor cores (f32 accuracy); K1 runs f32 FMAs",
+            "bound_ms_f32_fma": k1_bounds["f32_fma"][0],
+            "bound_by_f32_fma": k1_bounds["f32_fma"][1],
             "mode": "inverse (37 of the 38 launches per ManyWell-32 step)",
             "ms_forward": k1_timing[False][0],
             "plain_ms_forward": k1_timing[False][1],
@@ -629,9 +696,12 @@ def drive(device, gen, name, card) -> list:
             "max_abs_err": max(e[0] for e in k2["errors"].values()),
             "ms": k2_timing[True][0],
             "plain_ms": k2_timing[True][1],
-            "bound_ms": k2_bound,
-            "bound_by": k2_bound_by,
+            "bound_ms": k2_bounds["3xtf32"][0],
+            "bound_by": k2_bounds["3xtf32"][1],
             "library_ms": k2_library,
+            "bound": "3xTF32 on the tensor cores (f32 accuracy), as K2 computes",
+            "bound_ms_f32_fma": k2_bounds["f32_fma"][0],
+            "bound_by_f32_fma": k2_bounds["f32_fma"][1],
             "library": "3 x cuBLAS f32 GEMM, no epilogue; no single call computes K2",
             "mode": "inverse (392 of the 400 launches per LGCP-1600 step)",
             "ms_forward": k2_timing[False][0],
@@ -640,6 +710,10 @@ def drive(device, gen, name, card) -> list:
             "step_ms": lg["steady_ms"],
             "samples_per_s": LG_BATCH / lg["steady_ms"] * 1e3,
             "device_busy_share": lg["busy"],
+            "max_abs_err_after_update": k2["errors"]["after update"][0],
+            "log_det_bitwise_repeatable": True,
+            "rebuilds_per_step": lg["rebuilds_per_step"],
+            "rebuild_ms_per_coupling": k2_rebuild,
         },
     ]
     return kernels

@@ -101,8 +101,10 @@ def _perturbed_coupling(dim, width, device):
 
 
 # (dim, width, batch): ragged rows, a d_trans that is not a multiple of the
-# 32-column tile, and an odd dim.
-K2_SHAPES = [(256, 256, 100), (250, 384, 64), (7, 128, 3)]
+# column-pair tile (d_cond = 125: its rows are padded for TMA), an odd dim, one row,
+# the LGCP width with a ragged row tile (513 rows), and the narrowest width (128).
+K2_SHAPES = [(256, 256, 100), (250, 384, 64), (7, 128, 3), (250, 384, 1),
+             (1600, 3200, 513), (256, 128, 100)]
 
 
 @pytest.mark.gpu
@@ -145,3 +147,42 @@ def test_large_fused_coupling_launches_k2_on_batched_input(card):
     torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
     for a, b in zip(grads, grads_ref):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _k2_args(layer, x):
+    zc, zt = (t.contiguous() for t in layer._split(x))
+    return [zc, zt] + [t for d in layer.mlp for t in (d.w, d.b)]
+
+
+@pytest.mark.gpu
+def test_k2_follows_in_place_weight_updates(card):
+    """The kernel multiplies prepared copies of the weights, built at the first call
+    and rebuilt after each in-place update of every weight; the kernel matches the
+    plain version on the new weights each time (the stale-copy guard)."""
+    layer = _perturbed_coupling(256, 384, card)
+    args = _k2_args(layer, torch.randn(100, 256, device=card))
+    gen = torch.Generator(device=card).manual_seed(2)
+    with torch.no_grad():
+        for _ in range(3):
+            rebuilds = ck.prepared_weight.rebuilds
+            y, ld = ck.fused_coupling_apply(*args, 5.0, True)
+            y_ref, ld_ref = ck.fused_coupling_apply_reference(*args, 5.0, True)
+            torch.cuda.synchronize()
+            assert ck.prepared_weight.rebuilds == rebuilds + 3
+            torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+            for p in layer.parameters():
+                p.add_(0.01 * torch.randn(p.shape, generator=gen, device=card))
+            layer.mlp[-1].w[:, 2 * layer.d_trans:] = 0.0
+
+
+@pytest.mark.gpu
+def test_k2_log_det_is_bitwise_repeatable(card):
+    """The log-det is summed in a fixed order, with no float atomics."""
+    layer = _perturbed_coupling(1600, 3200, card)
+    args = _k2_args(layer, torch.randn(512, 1600, device=card))
+    with torch.no_grad():
+        first = ck.fused_coupling_apply(*args, 5.0, True)
+        second = ck.fused_coupling_apply(*args, 5.0, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[0], second[0])
