@@ -7,15 +7,21 @@ Phases:
   1. Environment: the card's name and power limit, torch and CUDA versions; build
      every kernel from the sources in this checkout (one nvcc per source, started
      together).
-  2. K1 (fused RealNVP chain) against its plain PyTorch version on the card at
-     ManyWell-32 shapes, with every parameter perturbed (a fresh coupling's last
-     layer is zero).
+  2. K1 (fused RealNVP chain: 3xTF32 mma.sync products, weights streamed by TMA
+     and multicast across clusters of 2 blocks) against its plain PyTorch version
+     on the card at ManyWell-32 shapes, with every parameter perturbed (a fresh
+     coupling's last layer is zero): forward, inverse, ragged batches (1, 100,
+     2047, 2049 rows), a bitwise repeat, a width the wrapper zero-pads for TMA
+     (many_well_fast.yaml's dim 6, width 240), round trip, a [4, 512, 32] input,
+     and gradients through its autograd Function.
   3. ManyWell-32 FAB with a prioritised buffer at bench.py's settings (batch 2048;
      RealNVP 10 x [coupling, width 320; LU]; HMC with 4 intermediate
      distributions, 5 leapfrog steps; buffer 32768 / 8192; 8 replay batches), with
      the fused flow, so every flow pass runs through K1: init_state, then 5 train
      steps. Launch counters are zeroed just before and read just after.
-  4. One more ManyWell step under torch.profiler; K1 timing with CUDA events.
+  4. One more ManyWell step under torch.profiler (K1's kernels are named `k1_*`);
+     K1 timing with CUDA events, and its launch plan (clusters; L2 reads reckoned
+     from the shapes, not measured).
   5. K2 (one large-dim affine coupling, 3xTF32 wgmma GEMMs fed by TMA) against its
      plain version at LGCP-1600 shapes (B=512, D=1600, H=3200, scale cap 5):
      forward, inverse, a bitwise repeat of the log-det, an in-place weight update
@@ -45,6 +51,7 @@ import csv
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +117,16 @@ def _perturb(module, generator, scale: float) -> None:
 
 def _max_rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+
+
+def _spills(report: str, kernel: str) -> tuple:
+    """(spill store bytes, spill load bytes) of `kernel` in an `-Xptxas -v` report."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+            return int(found.group(1)), int(found.group(2))
+    raise AssertionError(f"no -Xptxas -v report for {kernel}")
 
 
 def _zero_counts() -> None:
@@ -242,6 +259,45 @@ def check_k1(device, gen):
             errors[mode] = (float((y - y_ref).abs().max()), float((ld - ld_ref).abs().max()))
             print(f"K1 {mode}: max|y - plain| {errors[mode][0]:.3e}, "
                   f"max|log_det - plain| {errors[mode][1]:.3e}")
+        # Ragged batches: a lone row, part-filled clusters, one row short of and one
+        # past the main batch (padded rows are zero and never stored).
+        for batch in (1, 100, MW_BATCH - 1, MW_BATCH + 1):
+            xr = torch.randn(batch, MW_DIM, generator=gen, device=device)
+            for inverse in (False, True):
+                y, ld = rk.fused_realnvp_pass(xr, *operands[inverse], inverse)
+                y_ref, ld_ref = rk.fused_realnvp_pass_reference(xr, *operands[inverse], inverse)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+                torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+                errors[f"{'inverse' if inverse else 'forward'} B={batch}"] = (
+                    float((y - y_ref).abs().max()), float((ld - ld_ref).abs().max()))
+        ragged = max(e[0] for k, e in errors.items() if "B=" in k)
+        print(f"K1 at B = 1, 100, {MW_BATCH - 1}, {MW_BATCH + 1}, both modes: max|y - plain| "
+              f"{ragged:.3e}, max|log_det - plain| "
+              f"{max(e[1] for k, e in errors.items() if 'B=' in k):.3e}")
+        # Every sum in a fixed order, no float atomics: two launches, the same bits.
+        for inverse in (False, True):
+            first = rk.fused_realnvp_pass(x, *operands[inverse], inverse)
+            second = rk.fused_realnvp_pass(x, *operands[inverse], inverse)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), "K1 is not repeatable"
+        print("K1 repeated, both modes: y and log_det bitwise equal")
+        # An odd d_cond and d_trans (3 and 3): run zero-padded to D=8, d_cond=4.
+        narrow = make_realnvp(6, MW_LAYERS, 40, fused=True, generator=gen, device=device)
+        _perturb(narrow, gen, 0.005)
+        xn = torch.randn(MW_BATCH, 6, generator=gen, device=device)
+        for inverse in (False, True):
+            s = _stack_params(narrow, inverse)
+            args = [s[k] for k in keys]
+            y, ld = rk.fused_realnvp_pass(xn, *args, inverse)
+            y_ref, ld_ref = rk.fused_realnvp_pass_reference(xn, *args, inverse)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+            errors[f"{'inverse' if inverse else 'forward'} D=6"] = (
+                float((y - y_ref).abs().max()), float((ld - ld_ref).abs().max()))
+        print(f"K1 at D=6, H=240 (padded to D=8, d_cond=4), both modes: max|y - plain| "
+              f"{max(e[0] for k, e in errors.items() if 'D=6' in k):.3e}")
         y, ld_f = fused.forward_and_log_det(x)
         x_back, ld_i = fused.inverse_and_log_det(y)
         torch.cuda.synchronize()
@@ -337,10 +393,11 @@ def manywell_path(device, gen, card):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] ManyWell-32 AIS pass alone: {ais_ms:.1f} ms "
           f"({ais_ms / run['steady_ms']:.1%} of the median step)")
-    _, _, groups = _profile_step(trainer, state, gen, MW_BATCH, run["steady_ms"], card,
+    _, busy, groups = _profile_step(trainer, state, gen, MW_BATCH, run["steady_ms"], card,
                                  "ManyWell-32",
-                                 {"K1": ["realnvp_chain"], "triangular solves": ["trsm"]})
+                                 {"K1": ["k1_tf32x3"], "triangular solves": ["trsm"]})
     assert groups["K1"] > 0, "the profiler saw no K1 kernel"
+    run["busy"], run["k1_group_ms"] = busy, groups["K1"]
     return run
 
 
@@ -368,6 +425,12 @@ def time_k1(k1, name, card):
               f"{timing[inverse][0]:.4f} ms, plain {timing[inverse][1]:.4f} ms, "
               f"{_bounds_text(bounds)} ({flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
     print("K1 library_ms: none - no single PyTorch call computes the fused RealNVP chain")
+    plan = rk.plan_launch(MW_BATCH, MW_DIM, d_cond, H, L)
+    print(f"K1 launch: {plan.blocks} blocks in {plan.clusters} clusters of {rk.CLUSTER}, "
+          f"{plan.slots} ring slots of {plan.slot_bytes} B, {plan.smem_bytes} B of shared "
+          f"memory per block; L2 reads per pass reckoned from the shapes (not measured): "
+          f"{plan.l2_read_bytes / 1e6:.1f} MB (one stream per block would be "
+          f"{plan.l2_read_bytes_unshared / 1e6:.1f} MB)")
     return timing, bounds
 
 
@@ -677,15 +740,19 @@ def drive(device, gen, name, card) -> list:
             "bound_ms": k1_bounds["3xtf32"][0],
             "bound_by": k1_bounds["3xtf32"][1],
             "library_ms": None,
-            "bound": "3xTF32 on the tensor cores (f32 accuracy); K1 runs f32 FMAs",
+            "bound": "3xTF32 on the tensor cores (f32 accuracy), as K1 computes",
             "bound_ms_f32_fma": k1_bounds["f32_fma"][0],
             "bound_by_f32_fma": k1_bounds["f32_fma"][1],
             "mode": "inverse (37 of the 38 launches per ManyWell-32 step)",
             "ms_forward": k1_timing[False][0],
             "plain_ms_forward": k1_timing[False][1],
             "max_abs_err_log_det": max(e[1] for e in k1["errors"].values()),
+            "max_abs_err_ragged": max(e[0] for k, e in k1["errors"].items() if "B=" in k),
             "step_ms": mw["steady_ms"],
             "samples_per_s": MW_BATCH / mw["steady_ms"] * 1e3,
+            "device_busy_share": mw["busy"],
+            "profiled_step_k1_ms": mw["k1_group_ms"],
+            "log_det_bitwise_repeatable": True,
         },
         {
             "name": "fused_coupling_apply",
@@ -747,6 +814,8 @@ def main() -> int:
     print(f"built K1 and K2 ({', '.join(p.name for p in libs)}) in {time.time() - t0:.2f} s")
     for path in libs:
         print(path.with_suffix(".ptxas.txt").read_text().strip())
+    spills = _spills(libs[0].with_suffix(".ptxas.txt").read_text(), "k1_tf32x3_chain")
+    assert spills == (0, 0), f"K1 spills registers: {spills} bytes stored / loaded"
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)

@@ -66,7 +66,7 @@ def _old_apply(lib, zc, zt, w1, b1, w2, b2, w3p, b3p, cap, inverse):
     return y, log_det
 
 
-def _time_ms(fn, n: int) -> float:
+def time_ms(fn, n: int) -> float:
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -135,12 +135,12 @@ def main() -> int:
             times = {"old": [], "new": []}
             for _ in range(args.rounds):
                 for label in ("old", "new", "new", "old"):
-                    times[label].append(_time_ms(lambda: kernels[label](inverse), args.repeats))
+                    times[label].append(time_ms(lambda: kernels[label](inverse), args.repeats))
             for label, ts in times.items():
                 result[f"{label}_{mode}_ms"] = statistics.mean(ts)
                 result[f"{label}_{mode}_ms_all"] = ts
             result[f"speedup_{mode}"] = result[f"old_{mode}_ms"] / result[f"new_{mode}_ms"]
-            result[f"plain_{mode}_ms"] = _time_ms(
+            result[f"plain_{mode}_ms"] = time_ms(
                 lambda: ck.fused_coupling_apply_reference(zc, zt, *weights, CAP, inverse),
                 args.repeats,
             )
@@ -152,8 +152,8 @@ def main() -> int:
         w1, w2, w3p = weights[0], weights[2], weights[4][:, : 2 * dt]
         h1 = torch.relu(zc @ w1)
         h2 = torch.relu(h1 @ w2)
-        result["library_ms"] = _time_ms(lambda: (zc @ w1, h1 @ w2, h2 @ w3p), args.repeats)
-        result["rebuild_ms_per_coupling"] = _time_ms(
+        result["library_ms"] = time_ms(lambda: (zc @ w1, h1 @ w2, h2 @ w3p), args.repeats)
+        result["rebuild_ms_per_coupling"] = time_ms(
             lambda: [ck.prepare_weight_on_card(w, n) for w, n in
                      ((weights[0], H), (weights[2], H), (weights[4], 2 * dt))],
             args.repeats,

@@ -1,8 +1,9 @@
 """Build a kernel source under ``csrc/`` with ``nvcc`` into a shared library.
 
 Each library is compiled at first use into ``_build/`` (gitignored) as
-``lib<stem>_<hash>.so``, where the hash is of the source, so a stale build is never
-loaded. The compiler's register/shared-memory report goes to ``<lib>.ptxas.txt``.
+``lib<stem>_<hash>.so``, where the hash is of the source and of every local header it
+includes (``#include "..."``, followed through headers), so a stale build is never
+loaded, and editing a header shared by two sources rebuilds both. The compiler's register/shared-memory report goes to ``<lib>.ptxas.txt``.
 Builds of different sources may run at the same time (each writes a temporary file
 and renames it into place).
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,9 +42,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_files(src: pathlib.Path) -> list:
+    """``src`` and the local headers it includes, directly or through other local
+    headers (paths relative to the including file), each once, in include order."""
+    found, todo = [], [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / name.decode()).resolve())
+    return found
+
+
+def source_digest(src: pathlib.Path) -> str:
+    """The hash in the library's name: of ``src`` and of its local headers."""
+    h = hashlib.sha256()
+    for path in local_files(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def build(src: pathlib.Path) -> pathlib.Path:
-    """Compile ``src`` (if it changed since the last build) and return the library."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    """Compile ``src`` (if it or a local header changed since the last build) and
+    return the library."""
+    digest = source_digest(src)
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists():
         return lib

@@ -23,9 +23,10 @@ epilogues.
   no backward kernel on the TPU either). ``FusedCoupling.recomputes`` counts them.
 - ``pad_cols`` pads the conditioner's last layer to a multiple of 128 columns;
   only the first 2 * d_trans columns are ever read, so the pad gets zero gradient.
-- ``tf32_round``, ``split_tf32``, ``matmul_tf32x3`` and
-  ``fused_coupling_apply_tf32x3_emulated`` repeat the kernel's arithmetic in plain
-  PyTorch for the CPU tests; the main path never calls them.
+- ``fused_coupling_apply_tf32x3_emulated`` repeats the kernel's arithmetic in plain
+  PyTorch for the CPU tests, with ``tf32_round``, ``split_tf32`` and
+  ``matmul_tf32x3`` from ``tf32x3.py`` (shared with K1, re-exported here); the main
+  path never calls them.
 """
 from __future__ import annotations
 
@@ -39,6 +40,12 @@ import torch
 import torch.nn.functional as F
 
 from fab_tpu_torch.ops import build as build_lib
+from fab_tpu_torch.ops.tf32x3 import (  # noqa: F401  (re-exported for the tests)
+    matmul_tf32,
+    matmul_tf32x3,
+    split_tf32,
+    tf32_round,
+)
 
 SRC = build_lib.CSRC / "coupling_kernel.cu"
 
@@ -114,21 +121,6 @@ def fused_coupling_apply_reference(
     return _coupling_out(out, z_trans, scale_cap, inverse)
 
 
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32`` on float32: 10 explicit mantissa bits, rounded to
-    nearest with ties away from zero, the low 13 bits cleared; inf and nan pass."""
-    bits = x.view(torch.int32)
-    sign = bits & torch.iinfo(torch.int32).min
-    rounded = (((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF) | sign
-    return torch.where(torch.isfinite(x), rounded.view(torch.float32), x)
-
-
-def split_tf32(x: torch.Tensor) -> torch.Tensor:
-    """Planes [2, ...]: hi = tf32(x), lo = tf32(x - hi); hi + lo = x to ~2^-22."""
-    hi = tf32_round(x)
-    return torch.stack((hi, tf32_round(x - hi)))
-
-
 def split_rows_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain version of ``k2_split_rows``: x [M, K] as planes [2, M, pad4(K)], the
     pad zero."""
@@ -140,18 +132,6 @@ def prepare_weight_reference(w: torch.Tensor, n_cols: int) -> torch.Tensor:
     w [K, N] transposed and split, planes [2, n_cols, pad4(K)], the pad zero."""
     wt = w[:, :n_cols].t()
     return split_tf32(F.pad(wt, (0, _pad4(w.shape[0]) - w.shape[0]))).contiguous()
-
-
-def matmul_tf32x3(a_planes: torch.Tensor, b_planes: torch.Tensor) -> torch.Tensor:
-    """The kernel's product from planes a [2, M, K] and b [2, N, K]:
-    a_lo b_hi^T + a_hi b_lo^T + a_hi b_hi^T, the small terms first."""
-    (a_hi, a_lo), (b_hi, b_lo) = a_planes, b_planes
-    return (a_lo @ b_hi.T + a_hi @ b_lo.T) + a_hi @ b_hi.T
-
-
-def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One TF32 pass, a [M, K] @ b [K, N]: what 3xTF32 improves on."""
-    return tf32_round(a) @ tf32_round(b)
 
 
 def fused_coupling_apply_tf32x3_emulated(

@@ -1,7 +1,8 @@
-// Fused RealNVP chain (forward or inverse) with log-det, for Hopper (sm_90a).
+// Fused RealNVP chain (forward or inverse) with log-det (K1), for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel fab_tpu/ops/realnvp_kernel.py:fused_realnvp_pass
-// (body `_kernel`). Same function, same operand order and layout:
+// (pallas_call at line 134, body `_kernel`). Same function, same operand order and
+// layout:
 //   x [B, D]; w1 [L, dc, H]; b1 [L, H]; w2 [L, H, H]; b2 [L, H];
 //   w3 [L, H, 2*dt]; b3 [L, 2*dt]; wlin [L, D, D]; lu_ld [L]
 // with dt = D - dc. Per layer: h1 = relu(zc W1 + b1), h2 = relu(h1 W2 + b2),
@@ -9,230 +10,613 @@
 // (zt - shift) * exp(-ls) (inverse); then z <- z Wlin^T; log_det +/-= sum(ls) and
 // +/- lu_ld. The inverse walks the layers in reverse, LU mix first.
 //
-// What bounds it: at the ManyWell-32 shapes (B=2048, D=32, H=320, L=10) one pass is
-// ~4.9 GFLOP of f32 FMAs against ~5 MB of weights and activations, so it is bound
-// by the f32 FMA rate of the CUDA cores, not by memory.
+// What bounds it, at the ManyWell-32 shapes (B=2048, D=32, dc=dt=16, H=320, L=10):
+//   - 4.865 GFLOP per pass, which must keep f32 accuracy (the Pallas kernel runs in
+//     f32). In 3xTF32 on the tensor cores (three TF32 products per product, 495
+//     TFLOP/s dense) that is 0.0295 ms; in f32 FMAs on the CUDA cores (67 TFLOP/s)
+//     0.0726 ms. Device memory: 5.31 MB (x, y, log_det, the weights once), 0.0016 ms
+//     at 3.35 TB/s. So operations bound it.
+//   - The weights (4.78 MB per pass) do not fit one SM's shared memory: every block
+//     streams all of them. With one block per 16 rows that is 128 blocks x 4.78 MB =
+//     611 MB of L2 reads per pass, ~1.9 TB/s for a kernel taking 0.325 ms.
 //
-// Design: the TPU kernel keeps every layer's weights in VMEM; here the weights
-// (~4.8 MB) cannot fit one SM's shared memory but stay resident in the 50 MB L2.
-// Each block owns ROWS rows of the batch and keeps their activations (z, h1, h2, o)
-// in shared memory, transposed to [feature][row] so that one thread reads the ROWS
-// values of a feature as float4 broadcasts. A thread owns one output column of a
-// dense layer and accumulates all ROWS rows in registers while it streams the
-// weight column from L2 (row-major [in, out] weights: neighbouring threads read
-// neighbouring addresses). The narrow last layer (2*dt columns) splits its K
-// dimension over thread groups and reduces in shared memory. Bias, ReLU, the
-// affine step, the LU mix and the per-row log-det are fused into the same pass,
-// so nothing but x, the weights, y and log_det touches device memory.
-// Arithmetic is plain f32 (no TF32, no tensor cores).
+// Design:
+//   - Products run on the tensor cores as `mma.sync.aligned.m16n8k8 ... .tf32` in
+//     3xTF32: each operand x is split into hi = tf32(x) and lo = tf32(x - hi), both
+//     rounded as cvt.rna.tf32.f32 rounds (tf32_bits), in registers as its fragment
+//     is loaded, and each product is a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms
+//     first. mma.sync and not wgmma: wgmma needs 64-row tiles, so B=2048 would be 32
+//     row tiles on 32 of 132 SMs, and those alone need 3 x 4.865 GFLOP / (32 x 3.75
+//     TFLOP/s) ~ 0.12 ms. A 16-row m16 tile keeps 128 blocks in one wave.
+//   - The tensor cores truncate their f32 sums (see coupling_kernel.cu). Each
+//     32-deep stage of W2 is summed from zero on its own and added to the running sum
+//     on the CUDA cores, rounded to nearest; a CPU model of truncating accumulation
+//     (tf32x3.py:truncating_chain) puts one accumulator over depth 320 at 10x the
+//     error of this order. The narrow W3 product splits its depth over the 8
+//     consumer warps (<= 40 deep each) and adds their partial sums in warp order.
+//   - Weights stream by TMA (`cp.async.bulk.tensor`, 128B swizzle, out-of-bounds
+//     rows and columns zero-filled) through a ring of 4 mbarrier-guarded 40 KB slots
+//     filled by one producer warp. The stream does not depend on the data: W1, the
+//     W2 chunks (32 rows each), W3 and Wlin of each layer, in the order of use, so
+//     the producer runs ahead across layer boundaries, gated only by free slots.
+//   - Blocks share the stream through a thread-block cluster (2 blocks, each with its
+//     own 16 rows): each block loads every other box of a stage with
+//     `.multicast::cluster` to both blocks, and a slot is released only when every
+//     consumer warp of the cluster has finished with it (each warp arrives on the
+//     slot's barrier in every block). L2 reads fall to one weight stream per cluster:
+//     64 x 4.75 MB = 304 MB per pass (reckoned from the shapes). Clusters of 4 would
+//     halve that again, but they measured twice as slow: 128 blocks of 212 KB in
+//     clusters of 4 do not all fit one wave. CLUSTER is fixed at compile time
+//     (K1_CLUSTER, default 2); k1_compare.py builds and times other sizes.
+//   - A weight tile lands as 32-column boxes, row k of a box 128 bytes with its
+//     16-byte chunks XOR-swizzled by k % 8. Fragment k index i of an 8-deep step is
+//     mapped to row 2 (i % 4) + i / 4: then a warp's 32 B-fragment loads hit 32
+//     banks, and each thread's two A values are neighbours (one 8-byte load). A
+//     lane's B offsets are worked out once per phase. Activations (z twice, h1, h2
+//     for the block's 16 rows, 47 KB at H=320) stay in shared memory for the whole
+//     chain with row strides of 8 mod 32 floats, so their fragment loads and the
+//     epilogues' stores are free of bank conflicts.
+//   - Bias, ReLU, the affine step, the LU mix (f32 FMAs: 16 x 32 x 32 per layer, into
+//     the other z buffer) and the per-row log-det (summed in a fixed order, no
+//     atomics: bitwise repeatable) are fused, so nothing but x, the weights, y and
+//     log_det touches device memory. Biases, b3 and lu_ld are read a phase ahead.
+//   - 8 consumer warps (each owns every 8th 8-column tile of h1 and h2) and one
+//     producer warp per block; 212 KB of shared memory at H=320, one block per SM.
+// Shapes: D % 4 == 0, D <= 32, dt even, 2 * dt <= 32, H % 4 == 0, H <= 320 (TMA
+// strides are multiples of 16 bytes; the wrapper, realnvp_kernel.py, zero-pads a
+// shape that misses only the alignment and mirrors this layout in plan_launch).
+// Ragged rows are zero and never stored.
 
-#include <cuda_runtime.h>
+#include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 16;  // batch rows per block
+constexpr int ROWS = 16;                      // batch rows per block: one m16 tile
+constexpr int CONSUMER_WARPS = 8;
+constexpr int CONSUMERS = 32 * CONSUMER_WARPS;
+constexpr int THREADS = CONSUMERS + 32;       // and one producer warp
+constexpr int NT_MAX = 5;                     // 8-column tiles per warp: H <= 320
+constexpr int N3_TILES_MAX = 4;               // 2 * dt <= 32
+constexpr int BOX = 32;                       // box width: one 128-byte swizzle row
+constexpr int ROW_BYTES = 4 * BOX;
+constexpr int SZ = 40;                        // row stride of z (D <= 32), 8 mod 32
+constexpr int MAX_SMEM = 232448;
+constexpr int MAX_SLOTS = 4;
+#ifndef K1_CLUSTER
+#define K1_CLUSTER 2
+#endif
+constexpr int CLUSTER = K1_CLUSTER;           // blocks that share one weight stream
+static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster has 1 to 8 blocks");
 
-// out_T[j][r] = act(b[j] + sum_k in_T[k][r] * w[k, j]) for j < N; one column per thread.
-template <bool RELU>
-__device__ __forceinline__ void dense_cols(const float* in_T, int K,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ b, int N,
-                                           float* out_T) {
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    float acc[ROWS];
-    const float bj = __ldg(b + j);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = bj;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float wk = __ldg(w + static_cast<size_t>(k) * N + j);
-      const float4* a = reinterpret_cast<const float4*>(in_T + k * ROWS);
-#pragma unroll
-      for (int q = 0; q < ROWS / 4; ++q) {
-        const float4 f = a[q];
-        acc[4 * q + 0] = fmaf(f.x, wk, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(f.y, wk, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(f.z, wk, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(f.w, wk, acc[4 * q + 3]);
-      }
-    }
-    float4* o = reinterpret_cast<float4*>(out_T + j * ROWS);
-#pragma unroll
-    for (int q = 0; q < ROWS / 4; ++q) {
-      float4 v = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-      if (RELU) {
-        v.x = fmaxf(v.x, 0.f);
-        v.y = fmaxf(v.y, 0.f);
-        v.z = fmaxf(v.z, 0.f);
-        v.w = fmaxf(v.w, 0.f);
-      }
-      o[q] = v;
-    }
-  }
+enum Kind { W1 = 0, W2 = 1, W3 = 2, WL = 3 };
+
+struct Shape {
+  int B, D, dc, dt, H, L, inverse, slots;
+  int h_pad;      // H rounded up to 32
+  int cbs;        // 32-column boxes across H (= 32-row chunks down H)
+  int r1;         // dc rounded up to 8: W1 box rows
+  int rl;         // D rounded up to 8: Wlin box rows
+  int n3_tiles;   // 8-column tiles of 2 * dt
+  int sh;         // row stride of h1, h2 (floats), 8 mod 32
+  int h1_floats;  // h1 region; it also holds the W3 partial sums
+  int slot_bytes;
+};
+
+__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// Dynamic shared memory: 1 KB to align the ring to the swizzle's 1024-byte period,
+// the ring (as many slots as fit, up to MAX_SLOTS), 2 barriers per slot, then z, h1,
+// h2. Returns false for a shape the kernel cannot take.
+__host__ bool make_shape(int B, int D, int dc, int H, int L, int inverse, Shape& s, int& smem) {
+  s.B = B; s.D = D; s.dc = dc; s.dt = D - dc; s.H = H; s.L = L; s.inverse = inverse;
+  if (B < 1 || L < 1 || dc < 1 || s.dt < 1 || D % 4 || D > 32 || s.dt % 2 ||
+      2 * s.dt > 8 * N3_TILES_MAX || H < 1 || H % 4 || H > 8 * NT_MAX * CONSUMER_WARPS)
+    return false;
+  s.h_pad = round_up(H, BOX);
+  s.cbs = s.h_pad / BOX;
+  s.r1 = round_up(dc, 8);
+  s.rl = round_up(D, 8);
+  s.n3_tiles = round_up(2 * s.dt, 8) / 8;
+  s.sh = s.h_pad + 8;
+  const int part = CONSUMER_WARPS * ROWS * 8 * s.n3_tiles;
+  s.h1_floats = ROWS * s.sh > part ? ROWS * s.sh : part;
+  s.slot_bytes = s.cbs * BOX * ROW_BYTES;  // the largest stage: W2 or W3
+  const int fixed = 1024 + 4 * (2 * ROWS * SZ + s.h1_floats + ROWS * s.sh);
+  s.slots = (MAX_SMEM - fixed) / (s.slot_bytes + 16);
+  s.slots = s.slots < MAX_SLOTS ? s.slots : MAX_SLOTS;
+  smem = fixed + s.slots * (s.slot_bytes + 16);
+  return s.slots >= 2;
 }
 
-// out_T[j][r] = b[j] + sum_k in_T[k][r] * w[k, j] for a narrow N (blockDim >= N):
-// blockDim / N thread groups each sum a slice of K into part, then one pass reduces.
-__device__ __forceinline__ void dense_splitk(const float* in_T, int K,
-                                             const float* __restrict__ w,
-                                             const float* __restrict__ b, int N,
-                                             float* out_T, float* part) {
-  const int groups = blockDim.x / N;
-  const int g = threadIdx.x / N;
-  const int j = threadIdx.x % N;
-  if (g < groups) {
-    const int chunk = (K + groups - 1) / groups;
-    const int k0 = g * chunk;
-    const int k1 = min(K, k0 + chunk);
-    float acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    for (int k = k0; k < k1; ++k) {
-      const float wk = __ldg(w + static_cast<size_t>(k) * N + j);
-      const float4* a = reinterpret_cast<const float4*>(in_T + k * ROWS);
-#pragma unroll
-      for (int q = 0; q < ROWS / 4; ++q) {
-        const float4 f = a[q];
-        acc[4 * q + 0] = fmaf(f.x, wk, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(f.y, wk, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(f.z, wk, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(f.w, wk, acc[4 * q + 3]);
-      }
-    }
-    float4* p = reinterpret_cast<float4*>(part + (g * N + j) * ROWS);
-#pragma unroll
-    for (int q = 0; q < ROWS / 4; ++q)
-      p[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-  }
-  __syncthreads();
-  for (int it = threadIdx.x; it < N * ROWS; it += blockDim.x) {
-    const int jj = it / ROWS;
-    const int r = it % ROWS;
-    float s = __ldg(b + jj);
-    for (int gg = 0; gg < groups; ++gg) s += part[(gg * N + jj) * ROWS + r];
-    out_T[jj * ROWS + r] = s;
-  }
+__host__ __device__ inline int box_rows(const Shape& s, int kind) {
+  return kind == W1 ? s.r1 : kind == WL ? s.rl : BOX;
+}
+__host__ __device__ inline int n_boxes(const Shape& s, int kind) {
+  return kind == WL ? 1 : s.cbs;
+}
+__host__ __device__ inline int stage_bytes(const Shape& s, int kind) {
+  return n_boxes(s, kind) * box_rows(s, kind) * ROW_BYTES;
 }
 
-__global__ void realnvp_chain_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ w1,
-                                     const float* __restrict__ b1,
-                                     const float* __restrict__ w2,
-                                     const float* __restrict__ b2,
-                                     const float* __restrict__ w3,
-                                     const float* __restrict__ b3,
-                                     const float* __restrict__ wlin,
-                                     const float* __restrict__ lu_ld,
-                                     float* __restrict__ y, float* __restrict__ ld_out,
-                                     int B, int D, int dc, int H, int L, int inverse) {
-  extern __shared__ float4 smem4[];
-  const int dt = D - dc;
-  const int N3 = 2 * dt;
-  float* z = reinterpret_cast<float*>(smem4);  // [D][ROWS]
-  float* tmp = z + D * ROWS;                     // [D][ROWS]
-  float* h1 = tmp + D * ROWS;                    // [H][ROWS]
-  float* h2 = h1 + H * ROWS;                     // [H][ROWS]
-  float* o = h2 + H * ROWS;                      // [2*dt][ROWS]
-  float* part = o + N3 * ROWS;                   // [blockDim][ROWS]
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
 
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The 8 consumer warps only; the producer warp runs ahead on its own.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+}
+
+// Arrive on the barrier at the same offset in block `cta` of the cluster, with the
+// default (.release.cta) semantics, as CUTLASS's cluster pipelines do: with
+// .release.cluster every release stalled its warp, and the kernel ran much slower.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(bar), "r"(cta));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
+}
+
+// One TMA box into the same offset of every block in `mask`, each block's barrier
+// at `bar` told of its bytes.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cvt.rna.tf32.f32 for a finite x in two integer instructions: add half a TF32 ulp
+// to the magnitude and clear the low 13 bits (round to nearest, ties away from
+// zero). ptxas expands the cvt itself into a longer sequence with inf/nan checks; an
+// inf or nan operand still gives an inf or nan product.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(v);
+  lo = tf32_bits(v - __uint_as_float(hi));
+}
+
+// d += A B in 3xTF32 for one 8-deep step: lo hi, hi lo, then hi hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], float b0, float b1) {
+  uint32_t b0h, b0l, b1h, b1l;
+  split(b0, b0h, b0l);
+  split(b1, b1h, b1l);
+  mma_tf32(d, a_lo, b0h, b1h);
+  mma_tf32(d, a_hi, b0l, b1l);
+  mma_tf32(d, a_hi, b0h, b1h);
+}
+
+// This lane's A fragment of the 8-deep step at depth k (a multiple of 8), from its
+// two rows of activations (a_top = row g, a_bot = row g + 8, both already offset by
+// 2 t), split into hi and lo; with MASK, depth from k_left on (k_valid - 2 t) reads as
+// zero (z holds zt past dc; h1 and h2 hold zeros past H). Fragment column i of the
+// step is depth k + 2 (i % 4) + i / 4.
+template <bool MASK>
+__device__ __forceinline__ void load_a(const float* a_top, const float* a_bot, int k,
+                                       int k_left, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 top = *reinterpret_cast<const float2*>(a_top + k);
+  const float2 bot = *reinterpret_cast<const float2*>(a_bot + k);
+  const bool in0 = !MASK || k < k_left, in1 = !MASK || k + 1 < k_left;
+  const float v[4] = {in0 ? top.x : 0.f, in0 ? bot.x : 0.f, in1 ? top.y : 0.f,
+                      in1 ? bot.y : 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(v[i], hi[i], lo[i]);
+}
+
+struct Args {
+  const float* x;
+  const float* b1;
+  const float* b2;
+  const float* b3;
+  const float* lu_ld;
+  float* y;
+  float* ld;
+  Shape s;
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    k1_tf32x3_chain(const __grid_constant__ CUtensorMap tm_w1,
+                    const __grid_constant__ CUtensorMap tm_w2,
+                    const __grid_constant__ CUtensorMap tm_w3,
+                    const __grid_constant__ CUtensorMap tm_wl, const __grid_constant__ Args a) {
+  const Shape& s = a.s;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t full = ring_u32 + s.slots * s.slot_bytes;  // landed: 1 arrival + bytes
+  const uint32_t empty = full + 8 * s.slots;  // released: every consumer warp of the cluster
+  float* z_buf = reinterpret_cast<float*>(ring + s.slots * (s.slot_bytes + 16));  // 2 x [16][SZ]
+  float* h1 = z_buf + 2 * ROWS * SZ;  // [16][sh]; the W3 partials
+  float* h2 = h1 + s.h1_floats;       // [16][sh]; log_scale
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = blockIdx.x * ROWS;
+  const uint32_t rank = cluster_rank();
 
-  // Load the tile (rows past B are zero and never stored).
-  for (int it = tid; it < D * ROWS; it += blockDim.x) {
-    const int r = it / D;
-    const int k = it % D;
-    const int row = row0 + r;
-    z[k * ROWS + r] = row < B ? x[static_cast<size_t>(row) * D + k] : 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < s.slots; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, CONSUMER_WARPS * CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  float ld = 0.f;  // log-det of row `tid`, held by threads tid < ROWS
+  for (int i = tid; i < ROWS * SZ; i += THREADS) {
+    const int r = i / SZ, k = i % SZ, row = row0 + r;
+    z_buf[i] = (k < s.D && row < s.B) ? a.x[static_cast<size_t>(row) * s.D + k] : 0.f;
+  }
   __syncthreads();
+  cluster_sync();  // every block's barriers exist before any multicast or remote arrive
 
-  for (int s = 0; s < L; ++s) {
-    const int l = inverse ? L - 1 - s : s;
-    const float* W1 = w1 + static_cast<size_t>(l) * dc * H;
-    const float* B1 = b1 + static_cast<size_t>(l) * H;
-    const float* W2 = w2 + static_cast<size_t>(l) * H * H;
-    const float* B2 = b2 + static_cast<size_t>(l) * H;
-    const float* W3 = w3 + static_cast<size_t>(l) * H * N3;
-    const float* B3 = b3 + static_cast<size_t>(l) * N3;
-    const float* WL = wlin + static_cast<size_t>(l) * D * D;
-    const float lu = __ldg(lu_ld + l);
-
-    for (int half = 0; half < 2; ++half) {
-      const bool do_lu = inverse ? half == 0 : half == 1;
-      if (do_lu) {
-        // z <- z Wlin^T (Wlin holds W^-1 on the inverse).
-        for (int it = tid; it < D * ROWS; it += blockDim.x) {
-          const int i = it / ROWS;
-          const int r = it % ROWS;
-          const float* wrow = WL + i * D;
-          float acc = 0.f;
-          for (int k = 0; k < D; ++k) acc = fmaf(z[k * ROWS + r], __ldg(wrow + k), acc);
-          tmp[i * ROWS + r] = acc;
+  if (warp == CONSUMER_WARPS) {
+    // ------------------------------------------------------------- producer warp
+    if (lane == 0) {
+      const CUtensorMap* maps[4] = {&tm_w1, &tm_w2, &tm_w3, &tm_wl};
+      constexpr uint16_t mask = static_cast<uint16_t>((1u << CLUSTER) - 1);
+      int it = 0;
+      auto put = [&](int kind, int chunk, int l) {
+        const int slot = it % s.slots;
+        if (it >= s.slots) mbar_wait(empty + 8 * slot, ((it / s.slots) + 1) & 1);
+        const uint32_t bar = full + 8 * slot;
+        mbar_expect_tx(bar, stage_bytes(s, kind));
+        const uint32_t dst = ring_u32 + slot * s.slot_bytes;
+        const int box_bytes = box_rows(s, kind) * ROW_BYTES;
+        for (int j = rank; j < n_boxes(s, kind); j += CLUSTER) {
+          // Coordinates (column, row, layer) of box j.
+          const int c0 = kind == W3 || kind == WL ? 0 : BOX * j;
+          const int c1 = kind == W2 ? BOX * chunk : kind == W3 ? BOX * j : 0;
+          tma_load_3d_multicast(dst + j * box_bytes, maps[kind], bar, c0, c1, l, mask);
         }
-        __syncthreads();
-        for (int it = tid; it < D * ROWS; it += blockDim.x) z[it] = tmp[it];
-        if (tid < ROWS) ld = inverse ? ld - lu : ld + lu;
-        __syncthreads();
-      } else {
-        dense_cols<true>(z, dc, W1, B1, H, h1);
-        __syncthreads();
-        dense_cols<true>(h1, H, W2, B2, H, h2);
-        __syncthreads();
-        dense_splitk(h2, H, W3, B3, N3, o, part);
-        __syncthreads();
-        for (int it = tid; it < dt * ROWS; it += blockDim.x) {
-          const int c = it / ROWS;
-          const int r = it % ROWS;
-          const float shift = o[c * ROWS + r];
-          const float ls = o[(dt + c) * ROWS + r];
-          float* zt = z + (dc + c) * ROWS + r;
-          *zt = inverse ? (*zt - shift) * expf(-ls) : *zt * expf(ls) + shift;
-        }
-        if (tid < ROWS) {
-          float sum = 0.f;
-          for (int c = 0; c < dt; ++c) sum += o[(dt + c) * ROWS + tid];
-          ld = inverse ? ld - sum : ld + sum;
-        }
-        __syncthreads();
+        ++it;
+      };
+      for (int step = 0; step < s.L; ++step) {
+        const int l = s.inverse ? s.L - 1 - step : step;
+        if (s.inverse) put(WL, 0, l);
+        put(W1, 0, l);
+        for (int c = 0; c < s.cbs; ++c) put(W2, c, l);
+        put(W3, 0, l);
+        if (!s.inverse) put(WL, 0, l);
       }
     }
-  }
+    __syncwarp();
+  } else {
+    // ------------------------------------------------------- the consumer warps
+    const int g = lane / 4, t = lane % 4;
+    const int n_tiles = s.h_pad / 8;
+    const int n3 = 2 * s.dt, n3p = 8 * s.n3_tiles;
+    int it = 0;
+    float ld = 0.f;  // log-det of row tid, held by threads tid < 16
+    float* z = z_buf;              // z now; the LU mix writes the other buffer
+    float* z_next = z_buf + ROWS * SZ;
 
-  for (int it = tid; it < D * ROWS; it += blockDim.x) {
-    const int r = it / D;
-    const int k = it % D;
-    const int row = row0 + r;
-    if (row < B) y[static_cast<size_t>(row) * D + k] = z[k * ROWS + r];
+    auto wait_slot = [&]() -> const uint8_t* {
+      const int slot = it % s.slots;
+      mbar_wait(full + 8 * slot, (it / s.slots) & 1);
+      return ring + slot * s.slot_bytes;
+    };
+    auto release_slot = [&]() {
+      __syncwarp();
+      if (lane < CLUSTER) mbar_arrive_remote(empty + 8 * (it % s.slots), lane);
+      ++it;
+    };
+    // Byte offsets, in a box of 32-column rows, of this lane's two B values for an
+    // 8-deep step starting at row 0 (the next step is 1024 bytes on) and column col.
+    auto b_offsets = [&](int col, int& off0, int& off1) {
+      const int base = 2 * t * ROW_BYTES + ((col & 3) << 2);
+      off0 = base + (((col >> 2) ^ (2 * t)) << 4);
+      off1 = base + ROW_BYTES + (((col >> 2) ^ (2 * t + 1)) << 4);
+    };
+
+    // out = relu(act W + b) over the stages of W (W1: one stage of k_steps 8-deep
+    // steps, W2: cbs stages of 4), columns past H zero. Each stage's product is summed
+    // from zero, then added. A warp's tiles past the last one (small H only) multiply
+    // tile 0 again and are not stored. bias_v holds this lane's bias values
+    // (load_bias), read well before they are needed.
+    auto load_bias = [&](const float* bias, float (&bias_v)[NT_MAX][2]) {
+#pragma unroll
+      for (int j = 0; j < NT_MAX; ++j) {
+        const int n = 8 * (warp + CONSUMER_WARPS * j) + 2 * t;
+        bias_v[j][0] = n < s.H ? __ldg(bias + n) : 0.f;
+        bias_v[j][1] = n + 1 < s.H ? __ldg(bias + n + 1) : 0.f;
+      }
+    };
+    auto dense = [&](auto mask, const float* act, int stride, int k_valid, int n_stages,
+                     int k_steps, const float (&bias_v)[NT_MAX][2], float* out) {
+      const int box_bytes = k_steps * 8 * ROW_BYTES;
+      int off0[NT_MAX], off1[NT_MAX];
+#pragma unroll
+      for (int j = 0; j < NT_MAX; ++j) {
+        int tile = warp + CONSUMER_WARPS * j;
+        tile = tile < n_tiles ? tile : 0;
+        b_offsets((tile & 3) * 8 + g, off0[j], off1[j]);
+        off0[j] += (tile >> 2) * box_bytes;
+        off1[j] += (tile >> 2) * box_bytes;
+      }
+      const float* a_top = act + g * stride + 2 * t;
+      const float* a_bot = a_top + 8 * stride;
+      float acc[NT_MAX][4];
+#pragma unroll
+      for (int j = 0; j < NT_MAX; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      for (int c = 0; c < n_stages; ++c) {
+        const uint8_t* w = wait_slot();
+        float part[NT_MAX][4];
+#pragma unroll
+        for (int j = 0; j < NT_MAX; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < BOX / 8; ++ks) {
+          if (ks >= k_steps) break;
+          const int k = BOX * c + 8 * ks;
+          uint32_t a_hi[4], a_lo[4];
+          load_a<decltype(mask)::value>(a_top, a_bot, k, k_valid - 2 * t, a_hi, a_lo);
+#pragma unroll
+          for (int j = 0; j < NT_MAX; ++j) {
+            const float b0 = *reinterpret_cast<const float*>(w + off0[j] + ks * 1024);
+            const float b1 = *reinterpret_cast<const float*>(w + off1[j] + ks * 1024);
+            mma_3xtf32(part[j], a_hi, a_lo, b0, b1);
+          }
+        }
+        release_slot();
+#pragma unroll
+        for (int j = 0; j < NT_MAX; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
+      }
+#pragma unroll
+      for (int j = 0; j < NT_MAX; ++j) {
+        const int tile = warp + CONSUMER_WARPS * j;
+        if (tile >= n_tiles) continue;
+        const int n = 8 * tile + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v0 = n < s.H ? fmaxf(acc[j][2 * h] + bias_v[j][0], 0.f) : 0.f;
+          const float v1 = n + 1 < s.H ? fmaxf(acc[j][2 * h + 1] + bias_v[j][1], 0.f) : 0.f;
+          *reinterpret_cast<float2*>(out + (g + 8 * h) * s.sh + n) = make_float2(v0, v1);
+        }
+      }
+    };
+
+    // z_next <- z Wlin^T (Wlin holds W^-1 on the inverse), f32 FMAs in depth order,
+    // 4 depths per 16-byte load; a thread's two outputs (16 x D <= 2 x 256) run
+    // side by side. Then the buffers swap and the log-det takes lu.
+    auto lu_mix = [&](float lu) {
+      const uint8_t* wl = wait_slot();
+      int r[2], col[2];
+      float acc[2] = {0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = tid + q * CONSUMERS;
+        r[q] = i < ROWS * s.D ? i / s.D : 0;
+        col[q] = i < ROWS * s.D ? i % s.D : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < BOX; k += 4) {
+        if (k >= s.D) break;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float4 zv = *reinterpret_cast<const float4*>(z + r[q] * SZ + k);
+          const float4 wv = *reinterpret_cast<const float4*>(
+              wl + col[q] * ROW_BYTES + (((k >> 2) ^ (col[q] & 7)) << 4));
+          acc[q] = fmaf(zv.w, wv.w, fmaf(zv.z, wv.z, fmaf(zv.y, wv.y, fmaf(zv.x, wv.x, acc[q]))));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (tid + q * CONSUMERS < ROWS * s.D) z_next[r[q] * SZ + col[q]] = acc[q];
+      release_slot();
+      consumer_sync();
+      float* swap = z;
+      z = z_next;
+      z_next = swap;
+      if (tid < ROWS) ld = s.inverse ? ld - lu : ld + lu;
+    };
+
+    // Small operands are read one phase or more ahead, so their latency hides behind
+    // the products: b1 of the next layer and b2, b3 and the next lu_ld during W2.
+    const int layer0 = s.inverse ? s.L - 1 : 0;
+    const int r_aff = tid / s.dt, c_aff = tid % s.dt;  // this thread's affine element
+    const bool affine = tid < ROWS * s.dt;
+    float b1_v[NT_MAX][2], b2_v[NT_MAX][2];
+    load_bias(a.b1 + static_cast<size_t>(layer0) * s.H, b1_v);
+    float lu = tid < ROWS ? __ldg(a.lu_ld + layer0) : 0.f;
+    for (int step = 0; step < s.L; ++step) {
+      const int l = s.inverse ? s.L - 1 - step : step;
+      const int l_next = s.inverse ? l - 1 : l + 1;
+      if (s.inverse) lu_mix(lu);
+
+      dense(std::true_type(), z, SZ, s.dc, 1, s.r1 / 8, b1_v, h1);
+      load_bias(a.b2 + static_cast<size_t>(l) * s.H, b2_v);
+      if (step + 1 < s.L) load_bias(a.b1 + static_cast<size_t>(l_next) * s.H, b1_v);
+      const float* b3 = a.b3 + static_cast<size_t>(l) * n3;
+      const float b_shift = affine ? __ldg(b3 + c_aff) : 0.f;
+      const float b_ls = affine ? __ldg(b3 + s.dt + c_aff) : 0.f;
+      if (tid < ROWS) lu = __ldg(a.lu_ld + (s.inverse ? (step + 1 < s.L ? l_next : l) : l));
+      consumer_sync();
+      dense(std::false_type(), h1, s.sh, s.H, s.cbs, BOX / 8, b2_v, h2);
+      consumer_sync();
+
+      // o = h2 W3 + b3: warp w sums the 8-deep steps [w n / W, (w + 1) n / W) of the
+      // n steps (W warps), then the partials are added in warp order after the bias.
+      {
+        const uint8_t* w3 = wait_slot();
+        int off0[N3_TILES_MAX], off1[N3_TILES_MAX];
+        float part[N3_TILES_MAX][4];
+#pragma unroll
+        for (int j = 0; j < N3_TILES_MAX; ++j) {
+          b_offsets(8 * (j < s.n3_tiles ? j : 0) + g, off0[j], off1[j]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+        }
+        const float* a_top = h2 + g * s.sh + 2 * t;
+        const float* a_bot = a_top + 8 * s.sh;
+        const int steps = s.h_pad / 8;
+        for (int ks = warp * steps / CONSUMER_WARPS; ks < (warp + 1) * steps / CONSUMER_WARPS;
+             ++ks) {
+          uint32_t a_hi[4], a_lo[4];
+          load_a<false>(a_top, a_bot, 8 * ks, 0, a_hi, a_lo);
+#pragma unroll
+          for (int j = 0; j < N3_TILES_MAX; ++j) {
+            const float b0 = *reinterpret_cast<const float*>(w3 + off0[j] + ks * 1024);
+            const float b1 = *reinterpret_cast<const float*>(w3 + off1[j] + ks * 1024);
+            mma_3xtf32(part[j], a_hi, a_lo, b0, b1);
+          }
+        }
+        release_slot();
+        float* mine = h1 + warp * ROWS * n3p;
+#pragma unroll
+        for (int j = 0; j < N3_TILES_MAX; ++j) {
+          if (j >= s.n3_tiles) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(mine + (g + 8 * h) * n3p + 8 * j + 2 * t) =
+                make_float2(part[j][2 * h], part[j][2 * h + 1]);
+        }
+      }
+      consumer_sync();
+      // The affine step, one (row, column) per thread; log_scale is kept in h2 for
+      // the row sums.
+      if (affine) {
+        float shift = b_shift, ls = b_ls;
+#pragma unroll
+        for (int w = 0; w < CONSUMER_WARPS; ++w) {
+          shift += h1[(w * ROWS + r_aff) * n3p + c_aff];
+          ls += h1[(w * ROWS + r_aff) * n3p + s.dt + c_aff];
+        }
+        float* zt = z + r_aff * SZ + s.dc + c_aff;
+        *zt = s.inverse ? (*zt - shift) * expf(-ls) : *zt * expf(ls) + shift;
+        h2[r_aff * n3p + c_aff] = ls;
+      }
+      consumer_sync();
+      // Each row's log_scale sum, in column order. h2 is next written after the next
+      // layer's W1 phase and its barrier.
+      if (tid < ROWS) {
+        float sum = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < s.dt; ++c) sum += h2[tid * n3p + c];
+        ld = s.inverse ? ld - sum : ld + sum;
+      }
+
+      if (!s.inverse) lu_mix(lu);
+    }
+
+    for (int i = tid; i < ROWS * s.D; i += CONSUMERS) {
+      const int r = i / s.D, k = i % s.D, row = row0 + r;
+      if (row < s.B) a.y[static_cast<size_t>(row) * s.D + k] = z[r * SZ + k];
+    }
+    if (tid < ROWS && row0 + tid < s.B) a.ld[row0 + tid] = ld;
   }
-  if (tid < ROWS && row0 + tid < B) ld_out[row0 + tid] = ld;
+  // No block leaves while a multicast may still land in it or a remote warp may
+  // still arrive on its barriers.
+  __syncwarp();
+  cluster_sync();
+}
+
+// ------------------------------------------------------------------------ host side
+
+EncodeTiled g_encode = nullptr;
+
+constexpr int kNoEncoder = -1;
+constexpr int kEncodeFailed = -2;
+constexpr int kBadShape = -3;
+
+int encode(CUtensorMap* map, const float* base, cuuint32_t rank, const cuuint64_t* dims,
+           const cuuint64_t* strides, const cuuint32_t* box) {
+  if (g_encode == nullptr) return kNoEncoder;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = g_encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(base),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
+}
+
+// A [L][rows][cols] f32 tensor read in boxes of 32 columns x box_rows rows of one
+// layer, 128B swizzle; past cols and rows: zeros.
+int layer_map(CUtensorMap* map, const float* base, int cols, int rows, int L, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {4ull * cols, 4ull * cols * rows};
+  const cuuint32_t box[3] = {BOX, static_cast<cuuint32_t>(box_rows), 1};
+  return encode(map, base, 3, dims, strides, box);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one fused pass on `stream`. Returns cudaGetLastError() (0 = launched).
+void realnvp_set_encoder(void* fn) { g_encode = reinterpret_cast<EncodeTiled>(fn); }
+
+// Launches one fused pass on `stream`, no synchronisation: ceil(B / 16) blocks
+// rounded up to whole clusters of CLUSTER blocks. Returns 0, the first failing CUDA
+// call's error, or a negative code (no encoder, a refused tensor map, a shape the
+// kernel cannot take).
 int fused_realnvp_pass_f32(const float* x, const float* w1, const float* b1,
                            const float* w2, const float* b2, const float* w3,
                            const float* b3, const float* wlin, const float* lu_ld,
                            float* y, float* ld, int B, int D, int dc, int H, int L,
-                           int inverse, int threads, void* stream) {
-  const int dt = D - dc;
-  const size_t smem =
-      static_cast<size_t>(2 * D + 2 * H + 2 * dt + threads) * ROWS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      realnvp_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + ROWS - 1) / ROWS);
-  realnvp_chain_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w1, b1, w2, b2, w3, b3, wlin, lu_ld, y, ld, B, D, dc, H, L, inverse);
+                           int inverse, void* stream) {
+  Args args;
+  args.x = x; args.b1 = b1; args.b2 = b2; args.b3 = b3; args.lu_ld = lu_ld;
+  args.y = y; args.ld = ld;
+  int smem = 0;
+  if (!make_shape(B, D, dc, H, L, inverse, args.s, smem)) return kBadShape;
+  const Shape& s = args.s;
+  CUtensorMap m1, m2, m3, ml;
+  int err;
+  if ((err = layer_map(&m1, w1, H, dc, L, s.r1)) || (err = layer_map(&m2, w2, H, H, L, BOX)) ||
+      (err = layer_map(&m3, w3, 2 * s.dt, H, L, BOX)) || (err = layer_map(&ml, wlin, D, D, L, s.rl)))
+    return err;
+  cudaError_t e = cudaFuncSetAttribute(k1_tf32x3_chain,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(round_up((B + ROWS - 1) / ROWS, CLUSTER));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, k1_tf32x3_chain, m1, m2, m3, ml, args);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* realnvp_error_string(int code) {
+  if (code == kNoEncoder) return "no tensor-map encoder: realnvp_set_encoder was not called";
+  if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
+  if (code == kBadShape) return "a shape the kernel cannot take";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

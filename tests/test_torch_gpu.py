@@ -14,8 +14,12 @@ from fab_tpu_torch.ops import coupling_kernel as ck
 from fab_tpu_torch.ops import realnvp_kernel as rk
 
 KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wlin", "lu_ld")
-# (dim, layers, nodes per dim, batch): a small ragged batch and the main path.
-SHAPES = [(8, 3, 4, 100), (32, 10, 10, 2048)]
+# (dim, layers, nodes per dim, batch): a small ragged batch, the main path, ragged
+# batches at the main widths (one row; a part-filled cluster; one row short of and
+# one past the main batch), and widths the wrapper zero-pads for TMA (odd d_cond and
+# d_trans: many_well_fast's dim 6 and nodes 40, gmm's dim 2).
+SHAPES = [(8, 3, 4, 100), (32, 10, 10, 2048), (32, 10, 10, 1), (32, 10, 10, 100),
+          (32, 10, 10, 2047), (32, 10, 10, 2049), (6, 10, 40, 100), (2, 3, 10, 100)]
 
 
 @pytest.fixture
@@ -53,6 +57,36 @@ def test_k1_kernel_matches_plain_version(card, inverse, shape):
     torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
     # log_det sums up to 10 layers' f32 terms in another order.
     torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_k1_refuses_widths_past_its_limits(card):
+    """H = 640 (ManyWell-32 at 20 nodes per dim) ran on the earlier f32-FMA kernel
+    (0953cb5); the Hopper kernel takes H up to 320 and raises before any launch."""
+    flow = _perturbed_flow(32, 2, 20, card)
+    x = torch.randn(64, 32, device=card)
+    before = rk.fused_realnvp_pass.launches
+    with torch.no_grad():
+        s = _stack_params(flow, True)
+        with pytest.raises(ValueError, match="H up to 320"):
+            rk.fused_realnvp_pass(x, *(s[k] for k in KEYS), True)
+    assert rk.fused_realnvp_pass.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_k1_is_bitwise_repeatable(card, inverse):
+    """The log-det is summed in a fixed order, with no float atomics, and every
+    product in a fixed order: two launches give the same bits."""
+    flow = _perturbed_flow(32, 10, 10, card)
+    x = torch.randn(2048, 32, device=card)
+    with torch.no_grad():
+        s = _stack_params(flow, inverse)
+        args = [s[k] for k in KEYS]
+        first = rk.fused_realnvp_pass(x, *args, inverse)
+        second = rk.fused_realnvp_pass(x, *args, inverse)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.gpu
