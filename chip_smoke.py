@@ -40,6 +40,23 @@ Phases:
   7. One more LGCP step under torch.profiler; the trainer's run entry point (2
      iterations and one dual-target eval, logged to a CSV); K2 timing, with the
      prepared-weight rebuild.
+  8. K1 at the wide chains its stages are split for (10 layers, B=2048 and a ragged
+     B=1000): D=32 / H=640, D=64 / d_cond=32 / H=640 and D=32 / d_cond=8 / H=320
+     against the plain version, a bitwise repeat, and its time against the 3xTF32
+     bound.
+  9. The GMM-40 paper experiment through the port's runner
+     (python3 -m fab_tpu_torch.experiments.run_gmm on experiments/configs/gmm.yaml:
+     D=2, RealNVP 15 x [coupling 80-80, LU], Metropolis AIS with one intermediate
+     distribution, batch 128, the plain Trainer, f64) for 20 iterations with one
+     eval (512 samples) and one checkpoint; 5 more timed steps and a profiled one;
+     a resume from the checkpoint for 2 iterations; the runner once more with
+     training.use_buffer=true (BufferTrainer) for 3 iterations.
+ 10. The ManyWell runner on experiments/configs/many_well.yaml (f64, the plain flow
+     setup_run builds, prioritised buffer) for 2 iterations with one eval, so the
+     exact-sample metrics run on the card.
+  The runner paths launch no kernel (fab_tpu's runners build no fused flow; K2 is
+  reached through flow.fused_coupling=true on lgcp.yaml, phases 6-7): their counts
+  are zeroed before and asserted 0 after.
 
 Prints the kernel JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero on any failure, and without a card.
@@ -73,6 +90,11 @@ MW_DIM, MW_LAYERS, MW_NODES, MW_BATCH = 32, 10, 10, 2048
 LG_GRID, LG_LAYERS, LG_NODES, LG_CAP, LG_BATCH = 40, 8, 2, 5.0, 512
 LG_DISTS, LG_LEAPFROG, LG_EPS = 8, 5, 0.2
 LG_BUFFER, LG_BUFFER_MIN, LG_REPLAY, LG_LR = 65536, 4096, 4, 1e-5
+# K1's wide chains (D, d_cond, H), 10 layers.
+K1_WIDE = [(32, 16, 640), (64, 32, 640), (32, 8, 320)]
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "configs")
+RUNNER_COMMON = ["--device", "cuda", "training.n_flow_forward_pass=null", "evaluation.n_eval=1",
+                 "evaluation.n_plots=0"]
 
 
 def _peaks(name: str) -> dict:
@@ -408,10 +430,8 @@ def time_k1(k1, name, card):
 
     x, operands = k1["x"], k1["operands"]
     L, d_cond, H = operands[True][0].shape
-    n_last = 2 * (MW_DIM - d_cond)
-    flops = 2.0 * MW_BATCH * L * (d_cond * H + H * H + H * n_last + MW_DIM * MW_DIM)
-    n_weights = sum(t.numel() for t in operands[True][:-2]) + L * MW_DIM * MW_DIM + L
-    bytes_moved = 4.0 * (2 * MW_BATCH * MW_DIM + MW_BATCH + n_weights)
+    flops, bytes_moved = _k1_flops_bytes(MW_BATCH, MW_DIM, d_cond, H, L,
+                                         sum(t.numel() for t in operands[True]))
     bounds = _bounds_ms(flops, bytes_moved, name)
     timing = {}
     for inverse in (False, True):
@@ -438,6 +458,225 @@ def _bounds_text(bounds) -> str:
     return (f"bound {bounds['f32_fma'][0]:.4f} ms by {bounds['f32_fma'][1]} at the f32 FMA "
             f"rate, {bounds['3xtf32'][0]:.4f} ms by {bounds['3xtf32'][1]} in 3xTF32 on "
             "the tensor cores")
+
+
+def _k1_flops_bytes(B, D, d_cond, H, L, weights):
+    """Operations of one pass (two per multiply-add) and the bytes it must move: x,
+    y and log_det once, every weight once."""
+    flops = 2.0 * B * L * (d_cond * H + H * H + H * 2 * (D - d_cond) + D * D)
+    return flops, 4.0 * (2 * B * D + B + weights)
+
+
+def _wide_operands(D, d_cond, H, L, gen, device):
+    """A 10-layer chain of any split: He-initialised hidden layers, a small last
+    layer (log-scales ~0.1), orthogonal LU mixes."""
+    import torch
+
+    n3 = 2 * (D - d_cond)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    return [normal(L, d_cond, H) * (2 / d_cond) ** 0.5, 0.1 * normal(L, H),
+            normal(L, H, H) * (2 / H) ** 0.5, 0.1 * normal(L, H),
+            normal(L, H, n3) * 0.1 / H ** 0.5, 0.05 * normal(L, n3),
+            torch.linalg.qr(normal(L, D, D))[0], 0.1 * normal(L, 1)]
+
+
+def check_k1_wide(device, gen, name, card) -> list:
+    """K1 against its plain version at the wide chains, a bitwise repeat, and its
+    time (inverse and forward) against the 3xTF32 bound."""
+    import torch
+
+    from fab_tpu_torch.ops import realnvp_kernel as rk
+
+    records = []
+    for D, d_cond, H in K1_WIDE:
+        ops = _wide_operands(D, d_cond, H, MW_LAYERS, gen, device)
+        plan = rk.plan_launch(MW_BATCH, D, d_cond, H, MW_LAYERS)
+        errors = []
+        with torch.no_grad():
+            for batch in (MW_BATCH, 1000):
+                x = torch.randn(batch, D, generator=gen, device=device)
+                for inverse in (False, True):
+                    y, ld = rk.fused_realnvp_pass(x, *ops, inverse)
+                    y_ref, ld_ref = rk.fused_realnvp_pass_reference(x, *ops, inverse)
+                    torch.cuda.synchronize()
+                    assert torch.isfinite(y_ref).all() and float(y_ref.abs().max()) > 1.0
+                    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+                    torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+                    errors.append((float((y - y_ref).abs().max()),
+                                   float((ld - ld_ref).abs().max())))
+            x = torch.randn(MW_BATCH, D, generator=gen, device=device)
+            first = rk.fused_realnvp_pass(x, *ops, True)
+            second = rk.fused_realnvp_pass(x, *ops, True)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), "K1 is not repeatable"
+            timing = {inverse: (_time_ms(lambda: rk.fused_realnvp_pass(x, *ops, inverse)),
+                                _time_ms(lambda: rk.fused_realnvp_pass_reference(x, *ops, inverse)))
+                      for inverse in (True, False)}
+        weights = sum(t.numel() for t in ops)
+        flops, bytes_moved = _k1_flops_bytes(MW_BATCH, D, d_cond, H, MW_LAYERS, weights)
+        bounds = _bounds_ms(flops, bytes_moved, name)
+        shape = f"D={D} d_cond={d_cond} H={H}"
+        print(f"[{card}] K1 at {shape}, L={MW_LAYERS}: max|y - plain| "
+              f"{max(e[0] for e in errors):.3e}, max|log_det - plain| "
+              f"{max(e[1] for e in errors):.3e} (B = {MW_BATCH} and 1000, both modes), "
+              f"bitwise repeatable; kernel {timing[True][0]:.4f} ms inverse / "
+              f"{timing[False][0]:.4f} forward, plain {timing[True][1]:.4f} / "
+              f"{timing[False][1]:.4f}, {_bounds_text(bounds)} ({flops / 1e9:.3f} GFLOP); "
+              f"{plan.groups} column group(s), {plan.stages_per_layer} stages per layer, "
+              f"{plan.slots} ring slots, {plan.smem_bytes} B of shared memory")
+        records.append({
+            "shape": shape, "ms": timing[True][0], "ms_forward": timing[False][0],
+            "plain_ms": timing[True][1], "plain_ms_forward": timing[False][1],
+            "bound_ms": bounds["3xtf32"][0], "bound_by": bounds["3xtf32"][1],
+            "max_abs_err": max(e[0] for e in errors),
+            "max_abs_err_log_det": max(e[1] for e in errors),
+            "slots": plan.slots, "smem_bytes": plan.smem_bytes,
+        })
+    return records
+
+
+# ------------------------------------------------------------- the YAML runners
+
+
+def _csv_rows(run_dir):
+    (path,) = [os.path.join(d, "logging_hist.csv") for d in
+               (os.path.join(run_dir, e) for e in os.listdir(run_dir))]
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def _finite_columns(row, names):
+    shown = {k: float(row[k]) for k in names}
+    bad = [k for k, v in shown.items() if not math.isfinite(v)]
+    assert not bad, f"not finite: {bad}"
+    return shown
+
+
+def _no_kernel_launched(label):
+    counts = _counts()
+    assert not any(counts.values()), f"{label} launched a kernel: {counts}"
+
+
+def gmm_runner(device, gen, card, tmp):
+    """The GMM-40 runner (Trainer, f64): 20 iterations with an eval and a checkpoint,
+    5 timed steps and a profiled one, a resume, and the BufferTrainer run."""
+    import torch
+
+    from fab_tpu_torch.experiments import run_gmm
+    from fab_tpu_torch.train import BufferTrainer, Trainer
+
+    config = ["--config", os.path.join(CONFIGS, "gmm.yaml"), *RUNNER_COMMON]
+    first = os.path.join(tmp, "gmm")
+    _zero_counts()
+    t0 = time.time()
+    trainer, state = run_gmm.main(config + ["training.n_iterations=20",
+                                            "evaluation.n_checkpoints=1",
+                                            f"evaluation.save_path={first}"])
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    _no_kernel_launched("the GMM-40 runner")
+    assert type(trainer) is Trainer and state.step == 20 and trainer.dtype == torch.float64
+    rows = _csv_rows(first)
+    eval_rows = [r for r in rows if r.get("eval_ess_ais")]
+    assert [r["step"] for r in rows] == ["10.0", "20.0", "20.0"] and len(eval_rows) == 1, rows
+    losses = [float(r["loss"]) for r in rows if r.get("loss")]
+    assert all(math.isfinite(v) for v in losses), losses
+    shown = _finite_columns(eval_rows[0], (
+        "eval_ess_flow", "eval_ess_ais", "flow_test_set_mean_log_prob", "flow_kl_forward",
+        "flow_bias_normed", "ais_bias_normed"))
+    print(f"[{card}] GMM-40 runner (gmm.yaml, f64, Trainer): 20 iterations, one eval at 512 "
+          f"and one checkpoint in {run_s:.1f} s (the target's 1e7-sample true expectation "
+          f"included); loss {losses[-1]:.4f}; eval " +
+          ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
+
+    # Step time: 5 more steps of the runner's trainer, then one under the profiler.
+    batch = 128
+    step_ms = []
+    for _ in range(N_STEPS):
+        t0 = time.time()
+        state, info = trainer.train_step(state, gen, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0
+    steady = statistics.median(step_ms[1:])
+    print(f"[{card}] GMM-40 train step: median {steady:.1f} ms over steps 2-{N_STEPS} (all: "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}), {batch / steady * 1e3:.1f} AIS samples/s")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.model.ais.sample_and_log_weights(state.transition_state, gen, batch,
+                                             p_target=False, tune=False)
+    torch.cuda.synchronize()
+    ais_ms = (time.time() - t0) * 1e3
+    print(f"[{card}] GMM-40 AIS pass alone: {ais_ms:.1f} ms ({ais_ms / steady:.1%} of the "
+          "median step)")
+    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, "GMM-40", {
+        "triangular solves": ["trsm"], "GEMMs": ["gemm", "cutlass", "sm90_xmma"]})
+    _no_kernel_launched("the GMM-40 steps")
+
+    # Resume from the checkpoint at iteration 20.
+    t0 = time.time()
+    _, resumed = run_gmm.main(config + [
+        "training.n_iterations=22", "evaluation.n_checkpoints=0",
+        f"evaluation.save_path={os.path.join(tmp, 'gmm_resumed')}",
+        f"training.checkpoint_load_dir={first}"])
+    torch.cuda.synchronize()
+    assert resumed.step == 22
+    rows = _csv_rows(os.path.join(tmp, "gmm_resumed"))
+    assert [r["step"] for r in rows] == ["22.0", "22.0"], rows
+    print(f"[{card}] GMM-40 runner resumed from iteration 20 for 2 iterations "
+          f"({time.time() - t0:.1f} s); eval ess_ais {float(rows[-1]['eval_ess_ais']):.4g}")
+
+    # The uniform-buffer trainer.
+    t0 = time.time()
+    buffered, bstate = run_gmm.main(config + [
+        "training.n_iterations=3", "training.use_buffer=true", "evaluation.n_checkpoints=0",
+        f"evaluation.save_path={os.path.join(tmp, 'gmm_buffer')}"])
+    torch.cuda.synchronize()
+    _no_kernel_launched("the GMM-40 buffer runner")
+    assert type(buffered) is BufferTrainer and bstate.step == 3
+    rows = _csv_rows(os.path.join(tmp, "gmm_buffer"))
+    train_rows = [r for r in rows if r.get("replay_loss")]
+    for r in train_rows:
+        _finite_columns(r, ("loss", "replay_loss"))
+    shown = _finite_columns(rows[-1], ("eval_ess_ais", "flow_kl_forward"))
+    print(f"[{card}] GMM-40 runner with training.use_buffer=true (BufferTrainer): 3 "
+          f"iterations in {time.time() - t0:.1f} s (buffer filled to "
+          f"{int(bstate.buffer_state.n_added)} rows), replay loss "
+          f"{float(train_rows[-1]['replay_loss']):.4f}; eval "
+          + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
+    return {"steady_ms": steady, "busy": busy, "ais_ms": ais_ms, "run_s": run_s,
+            "groups": groups}
+
+
+def many_well_runner(card, tmp):
+    """The ManyWell runner on many_well.yaml (f64, plain flow, prioritised buffer):
+    2 iterations and one eval, whose flow metrics use exact samples."""
+    import torch
+
+    from fab_tpu_torch.experiments import run_many_well
+
+    out = os.path.join(tmp, "many_well")
+    _zero_counts()
+    t0 = time.time()
+    trainer, state = run_many_well.main([
+        "--config", os.path.join(CONFIGS, "many_well.yaml"), *RUNNER_COMMON,
+        "training.n_iterations=2", "evaluation.n_checkpoints=0", f"evaluation.save_path={out}"])
+    torch.cuda.synchronize()
+    _no_kernel_launched("the ManyWell runner")
+    assert state.step == 2 and trainer.dtype == torch.float64
+    rows = _csv_rows(out)
+    eval_rows = [r for r in rows if r.get("eval_ess_ais_p_target")]
+    assert len(eval_rows) == 1, rows
+    for r in rows:
+        if r.get("loss"):
+            _finite_columns(r, ("loss",))
+    shown = _finite_columns(eval_rows[0], (
+        "flow_forward_kl_p_target", "flow_test_set_exact_mean_log_prob_p_target",
+        "flow_test_set_modes_mean_log_prob_p_target", "ais_abs_MSE_log_Z_estimate_p_target",
+        "eval_ess_ais_min_var_target"))
+    print(f"[{card}] ManyWell-32 runner (many_well.yaml, f64, plain flow): buffer fill to "
+          f"{int(state.buffer_state.n_added)} rows, 2 iterations and one eval in "
+          f"{time.time() - t0:.1f} s; eval " + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
 
 
 # ---------------------------------------------------------------- K2 / LGCP-1600
@@ -713,7 +952,7 @@ def time_k2(k2, name, card):
 
 
 def drive(device, gen, name, card) -> list:
-    """Phases 2-7; returns the kernel records."""
+    """Phases 2-10; returns the kernel records."""
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
     mw = manywell_path(device, gen, card)
@@ -726,6 +965,14 @@ def drive(device, gen, name, card) -> list:
         lgcp_run_entry(trainer, state, gen, card, tmp)
     del trainer, state
     k2_timing, k2_bounds, k2_library, k2_rebuild = time_k2(k2, name, card)
+
+    # ------------------------------------------------ 8. K1 at the wide chains
+    k1_wide = check_k1_wide(device, gen, name, card)
+
+    # ------------------------------------------------ 9-10. the YAML runners
+    with tempfile.TemporaryDirectory() as tmp:
+        gmm = gmm_runner(device, gen, card, tmp)
+        many_well_runner(card, tmp)
 
     kernels = [
         {
@@ -753,6 +1000,7 @@ def drive(device, gen, name, card) -> list:
             "device_busy_share": mw["busy"],
             "profiled_step_k1_ms": mw["k1_group_ms"],
             "log_det_bitwise_repeatable": True,
+            "wide_chains": k1_wide,
         },
         {
             "name": "fused_coupling_apply",
@@ -783,6 +1031,9 @@ def drive(device, gen, name, card) -> list:
             "rebuild_ms_per_coupling": k2_rebuild,
         },
     ]
+    print(f"[{card}] GMM-40 runner path (no kernel): median step {gmm['steady_ms']:.1f} ms, "
+          f"{128 / gmm['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
+          f"{gmm['busy']:.1%} of the median step")
     return kernels
 
 

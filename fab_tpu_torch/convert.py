@@ -26,7 +26,7 @@ def _tensor(a, device=None) -> torch.Tensor:
 
 def from_jax_params(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
     """Flow state dict from ``fab_tpu``'s flow params (diagonal-Gaussian base,
-    AffineCoupling and LULinear layers)."""
+    AffineCoupling, LULinear and ActNorm layers)."""
     state = {
         "base.loc": _tensor(tree["base"]["loc"], device),
         "base.log_scale": _tensor(tree["base"]["log_scale"], device),
@@ -39,6 +39,9 @@ def from_jax_params(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor
                 state[f"{prefix}mlp.{j}.b"] = _tensor(dense["b"], device)
         elif "lower" in layer:
             for name in ("lower", "upper", "log_s", "sign_s"):
+                state[prefix + name] = _tensor(layer[name], device)
+        elif "shift" in layer:
+            for name in ("shift", "log_scale"):
                 state[prefix + name] = _tensor(layer[name], device)
         else:
             raise ValueError(f"layer {i}: unknown parameter keys {sorted(layer)}")

@@ -1,17 +1,19 @@
 from fab_tpu_torch.flows.base import DiagGaussianBase, Flow, flow_log_prob, frozen
 from fab_tpu_torch.flows.coupling import AffineCoupling
-from fab_tpu_torch.flows.factory import make_realnvp
+from fab_tpu_torch.flows.factory import data_dependent_init, make_realnvp
 from fab_tpu_torch.flows.fused import FusedRealNVPFlow
 from fab_tpu_torch.flows.large_coupling import LargeFusedCoupling
-from fab_tpu_torch.flows.linear import LULinear
+from fab_tpu_torch.flows.linear import ActNorm, LULinear
 
 __all__ = [
+    "ActNorm",
     "AffineCoupling",
     "DiagGaussianBase",
     "Flow",
     "FusedRealNVPFlow",
     "LULinear",
     "LargeFusedCoupling",
+    "data_dependent_init",
     "flow_log_prob",
     "frozen",
     "make_realnvp",

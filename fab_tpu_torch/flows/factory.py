@@ -1,5 +1,8 @@
-"""Flow factory (``fab_tpu/flows/factory.py:make_realnvp``)."""
+"""Flow factory and ActNorm's data-dependent initialisation
+(``fab_tpu/flows/factory.py``)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -8,13 +11,14 @@ from fab_tpu_torch.flows.base import DiagGaussianBase, Flow
 from fab_tpu_torch.flows.coupling import AffineCoupling
 from fab_tpu_torch.flows.fused import FusedRealNVPFlow
 from fab_tpu_torch.flows.large_coupling import LargeFusedCoupling
-from fab_tpu_torch.flows.linear import LULinear
+from fab_tpu_torch.flows.linear import ActNorm, LULinear
 
 
 def make_realnvp(
     dim: int,
     n_flow_layers: int = 5,
     layer_nodes_per_dim: int = 10,
+    act_norm: bool = False,
     scale_cap: float = 0.0,
     fused: bool = False,
     fused_coupling: bool = False,
@@ -23,14 +27,14 @@ def make_realnvp(
     dtype=torch.float32,
     device="cuda",
 ) -> Flow:
-    """RealNVP stack: n_flow_layers x [affine coupling, LU-linear].
+    """RealNVP stack: n_flow_layers x [affine coupling, LU-linear (, ActNorm)].
 
-    ``fused=True`` returns a FusedRealNVPFlow whose passes run as one K1 launch.
-    ``fused_coupling=True`` makes each coupling a LargeFusedCoupling, one K2 call per
-    layer (LGCP-1600-class dims). The two exclude each other. Parameters are
-    initialised from ``generator`` (a fresh seed-0 generator on the device if none
-    is given). ActNorm is not ported yet: this is ``fab_tpu``'s
-    ``make_realnvp(..., act_norm=False)``.
+    ``fused=True`` returns a FusedRealNVPFlow whose passes run as one K1 launch
+    (no ActNorm, no scale cap, as in ``fab_tpu``). ``fused_coupling=True`` makes each
+    coupling a LargeFusedCoupling, one K2 call per layer (LGCP-1600-class dims). The
+    two exclude each other. Parameters are initialised from ``generator`` (a fresh
+    seed-0 generator on the device if none is given). ``act_norm`` defaults to False
+    here (``fab_tpu``'s default is True): the port's callers name it.
     """
     device = resolve_device(device)
     width = dim * layer_nodes_per_dim
@@ -44,6 +48,8 @@ def make_realnvp(
             )
         )
         bijectors.append(LULinear(dim, dtype=dtype, device=device))
+        if act_norm:
+            bijectors.append(ActNorm(dim, dtype=dtype, device=device))
     base = DiagGaussianBase(dim, dtype=dtype, device=device)
     if fused:
         flow = FusedRealNVPFlow(dim, bijectors, base)
@@ -52,4 +58,28 @@ def make_realnvp(
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     flow.reset_parameters(generator)
+    return flow
+
+
+def data_dependent_init(
+    flow: Flow,
+    generator: torch.Generator,
+    n_samples: int = 500,
+    data: Optional[torch.Tensor] = None,
+) -> Flow:
+    """Data-dependent ActNorm initialisation, in place: push a batch (``data``, or
+    ``n_samples`` draws of the base) forward layer by layer and set each ActNorm so
+    that its output is standardised per dimension. Returns the flow."""
+    with torch.no_grad():
+        if data is None:
+            z, _ = flow.base.sample_and_log_prob(n_samples, generator)
+        else:
+            z = data
+        for bij in flow.bijectors:
+            if isinstance(bij, ActNorm):
+                std = z.std(0, correction=0) + 1e-6
+                log_scale = -torch.log(std)
+                bij.log_scale.copy_(log_scale)
+                bij.shift.copy_(-z.mean(0) * torch.exp(log_scale))
+            z, _ = bij.forward_and_log_det(z)
     return flow

@@ -1,4 +1,4 @@
-"""Invertible LU-parametrised linear bijector (``fab_tpu/flows/linear.py``).
+"""Invertible LU-parametrised linear bijector and ActNorm (``fab_tpu/flows/linear.py``).
 
 W = L (U + diag(sign * exp(log_s))) with L unit-lower-triangular, initialised from
 the LU factors of a random rotation. ``sign_s`` is a fixed +-1 pattern (a buffer,
@@ -81,3 +81,29 @@ class LULinear(Bijector):
     def inverse_and_log_det(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         z = x @ lu_weight(self, inverse=True).T
         return z, (-self.log_s.sum()).expand(x.shape[:-1])
+
+
+class ActNorm(Bijector):
+    """Per-dimension affine y = x * exp(log_scale) + shift, zero at reset;
+    ``flows/factory.py:data_dependent_init`` standardises its outputs on a warm-up
+    batch."""
+
+    def __init__(self, dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim = dim
+        self.shift = nn.Parameter(torch.zeros((dim,), dtype=dtype, device=device))
+        self.log_scale = nn.Parameter(torch.zeros((dim,), dtype=dtype, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.shift.zero_()
+            self.log_scale.zero_()
+
+    def forward_and_log_det(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        y = z * torch.exp(self.log_scale) + self.shift
+        return y, self.log_scale.sum().expand(z.shape[:-1])
+
+    def inverse_and_log_det(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = (x - self.shift) * torch.exp(-self.log_scale)
+        return z, (-self.log_scale.sum()).expand(x.shape[:-1])

@@ -3,11 +3,13 @@ shapes (B=2048, D=32, H=320, L=10), on one CUDA card.
 
     python3 -m fab_tpu_torch.k1_compare --old-src PATH [--repeats 50] [--rounds 2]
 
-PATH is a K1 CUDA source with the earlier C interface: ``fused_realnvp_pass_f32``
-taking (x, w1, b1, w2, b2, w3, b3, wlin, lu_ld, y, ld, B, D, dc, H, L, inverse,
-threads, stream), as the f32-FMA kernel in the repository's history does
-(``git show 0953cb5:fab_tpu_torch/ops/csrc/realnvp_kernel.cu``). It is built like
-any kernel source (``ops/build.py``).
+PATH is an earlier K1 CUDA source, built like any kernel source (``ops/build.py``),
+with either C interface in the repository's history: the Hopper kernel's
+(``realnvp_set_encoder`` and ``fused_realnvp_pass_f32`` as this source has them,
+``git show 26761ad:fab_tpu_torch/ops/csrc/realnvp_kernel.cu``), launched through
+this wrapper, or the f32-FMA kernel's, whose ``fused_realnvp_pass_f32`` takes
+(x, w1, b1, w2, b2, w3, b3, wlin, lu_ld, y, ld, B, D, dc, H, L, inverse, threads,
+stream) (``git show 0953cb5:fab_tpu_torch/ops/csrc/realnvp_kernel.cu``).
 
 Per mode (forward, inverse) and round the order is old, new, cluster1, cluster4,
 cluster4, cluster1, new, old: "new" is K1 as the port launches it (clusters of 2
@@ -39,15 +41,19 @@ DIM, LAYERS, NODES, BATCH = 32, 10, 10, 2048
 KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wlin", "lu_ld")
 
 
-def _old_library(src: pathlib.Path) -> ctypes.CDLL:
+def _old_kernel(src: pathlib.Path):
+    """The earlier source's launch function, (x, *operands, inverse) -> (y, ld)."""
+    if "realnvp_set_encoder" in src.read_text():  # the Hopper kernel's interface
+        lib = rk.load_library(build_lib.build(src))
+        return lambda x, *ops: rk.launch_kernel(x, *ops, lib=lib)
     lib = ctypes.CDLL(str(build_lib.build(src)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_realnvp_pass_f32.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
     lib.fused_realnvp_pass_f32.restype = i32
-    return lib
+    return lambda x, *ops: _fma_pass(lib, x, *ops)
 
 
-def _old_pass(lib, x, w1, b1, w2, b2, w3, b3, wlin, lu_ld, inverse):
+def _fma_pass(lib, x, w1, b1, w2, b2, w3, b3, wlin, lu_ld, inverse):
     B, D = x.shape
     L, dc, H = w1.shape
     y = torch.empty_like(x)
@@ -84,7 +90,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    old = _old_library(args.old_src)
+    old = _old_kernel(args.old_src)
     variants = {c: _cluster_library(c) for c in (1, 4)}
 
     device = torch.device("cuda")
@@ -101,7 +107,7 @@ def main() -> int:
             s = _stack_params(flow, inverse)
             ops = [s[k].contiguous() for k in KEYS]
             kernels = {
-                "old": lambda: _old_pass(old, x, *ops, inverse),
+                "old": lambda: old(x, *ops, inverse),
                 "new": lambda: rk.launch_kernel(x, *ops, inverse),
                 "cluster1": lambda: rk.launch_kernel(x, *ops, inverse, lib=variants[1]),
                 "cluster4": lambda: rk.launch_kernel(x, *ops, inverse, lib=variants[4]),

@@ -1,6 +1,8 @@
-"""FAB losses on the main path (``fab_tpu/losses.py``): ``fab_alpha_div`` and
-``buffer_replay_loss``. Invalid rows carry log_w = -inf and a zeroed log q, so no
-NaN reaches the loss graph. The other loss variants are not ported yet.
+"""FAB losses (``fab_tpu/losses.py``). Each returns a scalar to differentiate in the
+flow's parameters. Invalid rows carry log_w = -inf and a zeroed log q (or are left
+out of the means by ``mask``), so no NaN reaches the loss graph. ``flow_alpha_2_div``,
+``flow_alpha_2_div_unbiased`` and ``fab_ub_alpha_2_div`` are experimental in the
+original FAB code; they run here as they do in ``fab_tpu``.
 """
 from __future__ import annotations
 
@@ -9,7 +11,16 @@ from typing import Optional
 
 import torch
 
-LOSS_TYPES = ("fab_alpha_div",)
+LOSS_TYPES = (
+    "fab_alpha_div",
+    "flow_reverse_kl",
+    "forward_kl",
+    "target_forward_kl",
+    "flow_alpha_2_div_nis",
+    "flow_alpha_2_div",
+    "flow_alpha_2_div_unbiased",
+    "fab_ub_alpha_2_div",
+)
 
 
 def fab_alpha_div(
@@ -56,3 +67,54 @@ def buffer_replay_loss(
     else:
         loss = -(w_adjust * log_q_x).mean()
     return loss, log_w_adjust, w_adjust_pre_clip
+
+
+def _masked_mean(v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean over the valid rows."""
+    if mask is None:
+        return v.mean()
+    return torch.where(mask, v, 0.0).sum() / mask.sum().clamp(min=1)
+
+
+def flow_reverse_kl(log_q: torch.Tensor, log_p: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reverse KL on flow samples: mean log q - mean log p."""
+    return _masked_mean(log_q, mask) - _masked_mean(log_p, mask)
+
+
+def flow_alpha_2_div(log_q: torch.Tensor, log_p: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The alpha-2 divergence in logsumexp form, logsumexp(2 (log p - log q))."""
+    lw = 2 * (log_p - log_q)
+    if mask is not None:
+        lw = torch.where(mask, lw, -math.inf)
+    return torch.logsumexp(lw, 0)
+
+
+def flow_alpha_2_div_unbiased(log_q: torch.Tensor, log_p: torch.Tensor,
+                              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unbiased alpha-2 estimate from flow samples, mean(w^2 log q)."""
+    return _masked_mean(torch.exp(2 * (log_p - log_q)) * log_q, mask)
+
+
+def flow_alpha_2_div_nis(log_q: torch.Tensor, log_p: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Neural importance sampling loss, -mean(sg(w^2) log q)."""
+    w_sq = torch.exp(2 * (log_p - log_q)).detach()
+    return -_masked_mean(w_sq * log_q, mask)
+
+
+def forward_kl(log_q_xp: torch.Tensor) -> torch.Tensor:
+    """Forward KL up to a constant, -mean log q(x) with x ~ p."""
+    return -log_q_xp.mean()
+
+
+def fab_ub_alpha_2_div(log_q_x: torch.Tensor, log_p: torch.Tensor, log_w_ais: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Upper-bound alpha-2 FAB loss, logsumexp(log_w_ais + log p - log q) (the
+    corrected form ``fab_tpu`` uses)."""
+    log_w = log_p - log_q_x
+    if mask is not None:
+        log_w_ais = torch.where(mask, log_w_ais, -math.inf)
+        log_w = torch.where(mask, log_w, 0.0)
+    return torch.logsumexp(log_w_ais + log_w, 0)

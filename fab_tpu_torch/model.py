@@ -1,14 +1,13 @@
-"""FABModel: flow + target + AIS + the fab_alpha_div loss + evaluation
-(``fab_tpu/model.py``).
+"""FABModel: flow + target + AIS + loss dispatch + evaluation (``fab_tpu/model.py``).
 
 The flow's parameters live in its modules; the transition operator's adaptation
-state is an explicit dict passed in and returned.
+state is an explicit dict passed in and returned (empty without AIS).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +26,9 @@ class FABModel:
     ais: Optional[AnnealedImportanceSampler]
     loss_type: str
     alpha: float = 2.0
+    # Optional (x, mask) -> mask, applied to sampled batches before the loss (the
+    # train-time filter hook; ``fab_tpu`` uses it for ALDP's chirality filter).
+    sample_filter: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
 
     @classmethod
     def create(
@@ -38,32 +40,43 @@ class FABModel:
         alpha: float = 2.0,
         ais_distribution_spacing: str = "linear",
         loss_type: str = "fab_alpha_div",
+        use_ais: bool = True,
     ) -> "FABModel":
-        """Wire flow + target + transition operator into an AIS chain."""
+        """Wire flow + target + transition operator into an AIS chain. The FAB losses
+        always have one; the others only with ``use_ais``."""
         if loss_type not in losses.LOSS_TYPES:
             raise ValueError(
-                f"Unknown or unported loss_type {loss_type!r}; options: "
-                f"{losses.LOSS_TYPES}"
+                f"Unknown loss_type {loss_type!r}; options: {losses.LOSS_TYPES}"
             )
-        if transition_operator is None:
-            raise ValueError("If using AIS, transition operator must be provided.")
-        ais = AnnealedImportanceSampler(
-            flow=flow,
-            target_log_prob=target.log_prob,
-            transition_operator=transition_operator,
-            n_intermediate_distributions=n_intermediate_distributions,
-            spacing_type=ais_distribution_spacing,
-            alpha=alpha,
-        )
+        ais = None
+        if use_ais or loss_type in ("fab_alpha_div", "fab_ub_alpha_2_div"):
+            if transition_operator is None:
+                raise ValueError("If using AIS, transition operator must be provided.")
+            ais = AnnealedImportanceSampler(
+                flow=flow,
+                target_log_prob=target.log_prob,
+                transition_operator=transition_operator,
+                n_intermediate_distributions=n_intermediate_distributions,
+                spacing_type=ais_distribution_spacing,
+                alpha=alpha,
+            )
         return cls(flow=flow, target=target, ais=ais, loss_type=loss_type, alpha=alpha)
 
     def init(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """Re-initialise the flow's parameters; return a fresh transition state."""
         self.flow.reset_parameters(generator)
+        if self.ais is None:
+            return {}
         p = next(self.flow.parameters())
         return self.ais.transition_operator.init_state(
             self.flow.dim, dtype=p.dtype, device=p.device
         )
+
+    def filter_batch(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The sample filter's mask, or ``mask`` without a filter."""
+        if self.sample_filter is None:
+            return mask
+        return self.sample_filter(x, mask)
 
     def loss_and_info(
         self,
@@ -72,17 +85,43 @@ class FABModel:
         batch_size: int,
         tune: bool = True,
     ) -> Tuple[torch.Tensor, Any, Dict[str, Any]]:
-        """(loss, new transition state, info); the loss is differentiable in the
-        flow's parameters only (AIS output is detached)."""
-        result = self.ais.sample_and_log_weights(
-            transition_state, generator, batch_size, p_target=False, tune=tune
-        )
-        # Zero-fill invalid rows BEFORE the differentiated evaluation, so no NaN
-        # cotangent reaches the parameters.
-        x_safe = torch.where(result.mask[:, None], result.point.x, 0.0)
-        log_q_x = flow_log_prob(self.flow, x_safe)
-        loss = losses.fab_alpha_div(log_q_x, result.log_w, self.alpha, result.mask)
-        return loss, result.transition_state, dict(result.info)
+        """(loss, new transition state, info) for ``loss_type``; the loss is
+        differentiable in the flow's parameters only (AIS output is detached). The
+        FAB losses run AIS; the flow-sample losses differentiate through a
+        reparametrised flow draw; ``target_forward_kl`` uses exact target samples."""
+        if self.loss_type in ("fab_alpha_div", "fab_ub_alpha_2_div"):
+            result = self.ais.sample_and_log_weights(
+                transition_state, generator, batch_size, p_target=False, tune=tune
+            )
+            mask = self.filter_batch(result.point.x, result.mask)
+            # Zero-fill invalid rows BEFORE the differentiated evaluation, so no NaN
+            # cotangent reaches the parameters.
+            x_safe = torch.where(mask[:, None], result.point.x, 0.0)
+            log_q_x = flow_log_prob(self.flow, x_safe)
+            if self.loss_type == "fab_alpha_div":
+                loss = losses.fab_alpha_div(log_q_x, result.log_w, self.alpha, mask)
+            else:
+                loss = losses.fab_ub_alpha_2_div(
+                    log_q_x, result.point.log_p, result.log_w, mask
+                )
+            return loss, result.transition_state, dict(result.info)
+        if self.loss_type == "target_forward_kl":
+            x_p = self.target.sample(generator, batch_size)
+            return self.forward_kl_loss(x_p), transition_state, {}
+        if self.loss_type not in ("flow_reverse_kl", "flow_alpha_2_div",
+                                  "flow_alpha_2_div_unbiased", "flow_alpha_2_div_nis"):
+            raise NotImplementedError(self.loss_type)  # forward_kl: see forward_kl_loss
+        x, log_q = self.flow.sample_and_log_prob(batch_size, generator)
+        log_p = self.target.log_prob(x)
+        loss_fn = getattr(losses, self.loss_type)
+        if self.sample_filter is not None:
+            mask = self.sample_filter(x, torch.isfinite(log_q) & torch.isfinite(log_p))
+            return loss_fn(log_q, log_p, mask=mask), transition_state, {}
+        return loss_fn(log_q, log_p), transition_state, {}
+
+    def forward_kl_loss(self, x_p: torch.Tensor) -> torch.Tensor:
+        """Forward KL (up to a constant) on target samples x_p."""
+        return losses.forward_kl(flow_log_prob(self.flow, x_p))
 
     def generate_eval_data(
         self,
@@ -132,7 +171,9 @@ class FABModel:
         ais_only: bool = False,
     ) -> Dict[str, float]:
         """ESS of the flow and AIS samples, and the target's metrics on each
-        (``fab_tpu/model.py:265-319``)."""
+        (``fab_tpu/model.py:265-319``): the flow samples' metrics get the flow's log
+        q, ``inner_batch_size`` (ManyWell's exact-sample count) and ``generator``
+        (for exact samples and test sets)."""
         base_x, base_log_w, base_mask, ais_x, ais_log_w, ais_mask = (
             self.generate_eval_data(
                 transition_state, generator, outer_batch_size, inner_batch_size,
@@ -153,11 +194,14 @@ class FABModel:
             if not ais_only:
                 flow_info = self.target.performance_metrics(
                     on_device(base_x), on_device(base_log_w),
-                    lambda x: flow_log_prob(self.flow, x), mask=on_device(base_mask),
+                    lambda x: flow_log_prob(self.flow, x),
+                    batch_size=inner_batch_size, mask=on_device(base_mask),
+                    generator=generator,
                 )
                 info.update({"flow_" + k: float(v) for k, v in flow_info.items()})
             ais_info = self.target.performance_metrics(
-                on_device(ais_x), on_device(ais_log_w), mask=on_device(ais_mask)
+                on_device(ais_x), on_device(ais_log_w), mask=on_device(ais_mask),
+                generator=generator,
             )
         info.update({"ais_" + k: float(v) for k, v in ais_info.items()})
         return info

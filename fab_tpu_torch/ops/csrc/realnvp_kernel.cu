@@ -62,10 +62,21 @@
 //     log_det touches device memory. Biases, b3 and lu_ld are read a phase ahead.
 //   - 8 consumer warps (each owns every 8th 8-column tile of h1 and h2) and one
 //     producer warp per block; 212 KB of shared memory at H=320, one block per SM.
-// Shapes: D % 4 == 0, D <= 32, dt even, 2 * dt <= 32, H % 4 == 0, H <= 320 (TMA
-// strides are multiples of 16 bytes; the wrapper, realnvp_kernel.py, zero-pads a
-// shape that misses only the alignment and mirrors this layout in plan_launch).
-// Ragged rows are zero and never stored.
+//     With 9 warps, 3 share one SM sub-partition's 16K registers: 168 a thread, all
+//     of them used, so what is live in W2's products decides whether ptxas spills.
+//   - Wide chains run the same code path. Every ring stage is at most 32 deep and
+//     320 wide (GROUP: 8 warps x 5 tiles x 8 columns), so the slot size does not grow
+//     with H or D: W1 and W2 are streamed per 320-column group of H (the warps keep
+//     their 5 tiles and loop over the groups, so the register count stays put), W1 in
+//     32-deep stages past d_cond = 32, W3 per 32-column group of 2 dt and per
+//     320-deep chunk of H (each chunk's warp partial summed apart and added in chunk
+//     order), and z and Wlin over as many 32-column boxes as D needs, z's row stride
+//     D rounded up to 32 plus 8 (8 mod 32). Every sum keeps a fixed order.
+// Shapes: D % 4 == 0, dt even, H % 4 == 0 (TMA strides are multiples of 16 bytes;
+// the wrapper, realnvp_kernel.py, zero-pads a shape that misses only the alignment
+// and mirrors this layout in plan_launch), and the 16 rows' activations with a ring
+// of at least 2 slots within a block's 227 KB of shared memory (H up to ~1000 at
+// D = 32). Ragged rows are zero and never stored.
 
 #include <cstddef>
 #include <cstdint>
@@ -79,12 +90,14 @@ constexpr int ROWS = 16;                      // batch rows per block: one m16 t
 constexpr int CONSUMER_WARPS = 8;
 constexpr int CONSUMERS = 32 * CONSUMER_WARPS;
 constexpr int THREADS = CONSUMERS + 32;       // and one producer warp
-constexpr int NT_MAX = 5;                     // 8-column tiles per warp: H <= 320
-constexpr int N3_TILES_MAX = 4;               // 2 * dt <= 32
+constexpr int NT_MAX = 5;                     // 8-column tiles per warp and group
+constexpr int N3_TILES_MAX = 4;               // 8-column tiles of a W3 column group
 constexpr int BOX = 32;                       // box width: one 128-byte swizzle row
 constexpr int ROW_BYTES = 4 * BOX;
-constexpr int SZ = 40;                        // row stride of z (D <= 32), 8 mod 32
+constexpr int GROUP = 8 * NT_MAX * CONSUMER_WARPS;  // 320: columns of a group of H
+constexpr int GROUP_BOXES = GROUP / BOX;
 constexpr int MAX_SMEM = 232448;
+constexpr int MAX_BOX_ROWS = 256;             // TMA's largest box dimension
 constexpr int MAX_SLOTS = 4;
 #ifndef K1_CLUSTER
 #define K1_CLUSTER 2
@@ -98,48 +111,59 @@ struct Shape {
   int B, D, dc, dt, H, L, inverse, slots;
   int h_pad;      // H rounded up to 32
   int cbs;        // 32-column boxes across H (= 32-row chunks down H)
-  int r1;         // dc rounded up to 8: W1 box rows
+  int groups;     // 320-column groups of H (= 320-row chunks of W3's depth)
+  int r1;         // dc rounded up to 8: W1's depth
+  int w1_rows;    // W1 box rows: r1, at most 32
+  int w1_chunks;  // W1's 32-deep stages
   int rl;         // D rounded up to 8: Wlin box rows
+  int wl_boxes;   // Wlin's 32-column boxes (along the depth k)
   int n3_tiles;   // 8-column tiles of 2 * dt
+  int n3_groups;  // W3's 32-column groups
+  int sz;         // row stride of z (floats): D rounded up to 32, plus 8
   int sh;         // row stride of h1, h2 (floats), 8 mod 32
   int h1_floats;  // h1 region; it also holds the W3 partial sums
+  int h2_floats;  // h2 region; it also holds log_scale
   int slot_bytes;
 };
 
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// 32-column boxes of H in column group g (or 32-row boxes in W3's depth chunk g).
+__host__ __device__ inline int group_boxes(const Shape& s, int g) {
+  return imin(GROUP_BOXES, s.cbs - GROUP_BOXES * g);
+}
 
 // Dynamic shared memory: 1 KB to align the ring to the swizzle's 1024-byte period,
 // the ring (as many slots as fit, up to MAX_SLOTS), 2 barriers per slot, then z, h1,
 // h2. Returns false for a shape the kernel cannot take.
 __host__ bool make_shape(int B, int D, int dc, int H, int L, int inverse, Shape& s, int& smem) {
   s.B = B; s.D = D; s.dc = dc; s.dt = D - dc; s.H = H; s.L = L; s.inverse = inverse;
-  if (B < 1 || L < 1 || dc < 1 || s.dt < 1 || D % 4 || D > 32 || s.dt % 2 ||
-      2 * s.dt > 8 * N3_TILES_MAX || H < 1 || H % 4 || H > 8 * NT_MAX * CONSUMER_WARPS)
+  if (B < 1 || L < 1 || dc < 1 || s.dt < 1 || D % 4 || s.dt % 2 || H < 1 || H % 4)
     return false;
   s.h_pad = round_up(H, BOX);
   s.cbs = s.h_pad / BOX;
+  s.groups = (s.cbs + GROUP_BOXES - 1) / GROUP_BOXES;
   s.r1 = round_up(dc, 8);
+  s.w1_rows = imin(s.r1, BOX);
+  s.w1_chunks = (s.r1 + BOX - 1) / BOX;
   s.rl = round_up(D, 8);
+  s.wl_boxes = (D + BOX - 1) / BOX;
   s.n3_tiles = round_up(2 * s.dt, 8) / 8;
+  s.n3_groups = (s.n3_tiles + N3_TILES_MAX - 1) / N3_TILES_MAX;
+  s.sz = round_up(D, BOX) + 8;
   s.sh = s.h_pad + 8;
-  const int part = CONSUMER_WARPS * ROWS * 8 * s.n3_tiles;
-  s.h1_floats = ROWS * s.sh > part ? ROWS * s.sh : part;
-  s.slot_bytes = s.cbs * BOX * ROW_BYTES;  // the largest stage: W2 or W3
-  const int fixed = 1024 + 4 * (2 * ROWS * SZ + s.h1_floats + ROWS * s.sh);
+  const int n3p = 8 * s.n3_tiles;
+  s.h1_floats = imax(ROWS * s.sh, CONSUMER_WARPS * ROWS * n3p);
+  s.h2_floats = ROWS * imax(s.sh, n3p);
+  // The largest stage: a group of W2 (or W1, W3), or Wlin.
+  s.slot_bytes = imax(imin(s.cbs, GROUP_BOXES) * BOX * ROW_BYTES, s.wl_boxes * s.rl * ROW_BYTES);
+  const int fixed = 1024 + 4 * (2 * ROWS * s.sz + s.h1_floats + s.h2_floats);
   s.slots = (MAX_SMEM - fixed) / (s.slot_bytes + 16);
   s.slots = s.slots < MAX_SLOTS ? s.slots : MAX_SLOTS;
   smem = fixed + s.slots * (s.slot_bytes + 16);
-  return s.slots >= 2;
-}
-
-__host__ __device__ inline int box_rows(const Shape& s, int kind) {
-  return kind == W1 ? s.r1 : kind == WL ? s.rl : BOX;
-}
-__host__ __device__ inline int n_boxes(const Shape& s, int kind) {
-  return kind == WL ? 1 : s.cbs;
-}
-__host__ __device__ inline int stage_bytes(const Shape& s, int kind) {
-  return n_boxes(s, kind) * box_rows(s, kind) * ROW_BYTES;
+  return s.slots >= 2 && s.rl <= MAX_BOX_ROWS;
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -228,6 +252,19 @@ __device__ __forceinline__ void load_a(const float* a_top, const float* a_bot, i
   for (int i = 0; i < 4; ++i) split(v[i], hi[i], lo[i]);
 }
 
+// This lane's bias values of one column group, columns col0 + 8 W j + {0, 1} for its
+// tiles j (W consumer warps), zero past H; read well before they are needed. A
+// function forced inline: a call here would make the kernel save registers around it.
+__device__ __forceinline__ void load_bias(const float* bias, int H, int col0,
+                                          float (&bias_v)[NT_MAX][2]) {
+#pragma unroll
+  for (int j = 0; j < NT_MAX; ++j) {
+    const int n = col0 + 8 * CONSUMER_WARPS * j;
+    bias_v[j][0] = n < H ? __ldg(bias + n) : 0.f;
+    bias_v[j][1] = n + 1 < H ? __ldg(bias + n + 1) : 0.f;
+  }
+}
+
 struct Args {
   const float* x;
   const float* b1;
@@ -251,9 +288,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t ring_u32 = smem_u32(ring);
   const uint32_t full = ring_u32 + s.slots * s.slot_bytes;  // landed: 1 arrival + bytes
   const uint32_t empty = full + 8 * s.slots;  // released: every consumer warp of the cluster
-  float* z_buf = reinterpret_cast<float*>(ring + s.slots * (s.slot_bytes + 16));  // 2 x [16][SZ]
-  float* h1 = z_buf + 2 * ROWS * SZ;  // [16][sh]; the W3 partials
-  float* h2 = h1 + s.h1_floats;       // [16][sh]; log_scale
+  float* z_buf = reinterpret_cast<float*>(ring + s.slots * (s.slot_bytes + 16));  // 2 x [16][sz]
+  float* h1 = z_buf + 2 * ROWS * s.sz;  // [16][sh]; the W3 partials
+  float* h2 = h1 + s.h1_floats;         // [16][sh]; log_scale
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = blockIdx.x * ROWS;
   const uint32_t rank = cluster_rank();
@@ -265,8 +302,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = tid; i < ROWS * SZ; i += THREADS) {
-    const int r = i / SZ, k = i % SZ, row = row0 + r;
+  for (int i = tid; i < ROWS * s.sz; i += THREADS) {
+    const int r = i / s.sz, k = i % s.sz, row = row0 + r;
     z_buf[i] = (k < s.D && row < s.B) ? a.x[static_cast<size_t>(row) * s.D + k] : 0.f;
   }
   __syncthreads();
@@ -278,28 +315,36 @@ __global__ void __launch_bounds__(THREADS, 1)
       const CUtensorMap* maps[4] = {&tm_w1, &tm_w2, &tm_w3, &tm_wl};
       constexpr uint16_t mask = static_cast<uint16_t>((1u << CLUSTER) - 1);
       int it = 0;
-      auto put = [&](int kind, int chunk, int l) {
+      // One stage: n boxes of `rows` rows, box j at (column, row) (c0 + j d0, c1 + j d1)
+      // of layer l, side by side in the slot.
+      auto put = [&](int kind, int n, int rows, int c0, int c1, int d0, int d1, int l) {
         const int slot = it % s.slots;
         if (it >= s.slots) mbar_wait(empty + 8 * slot, ((it / s.slots) + 1) & 1);
         const uint32_t bar = full + 8 * slot;
-        mbar_expect_tx(bar, stage_bytes(s, kind));
+        const int box_bytes = rows * ROW_BYTES;
+        mbar_expect_tx(bar, n * box_bytes);
         const uint32_t dst = ring_u32 + slot * s.slot_bytes;
-        const int box_bytes = box_rows(s, kind) * ROW_BYTES;
-        for (int j = rank; j < n_boxes(s, kind); j += CLUSTER) {
-          // Coordinates (column, row, layer) of box j.
-          const int c0 = kind == W3 || kind == WL ? 0 : BOX * j;
-          const int c1 = kind == W2 ? BOX * chunk : kind == W3 ? BOX * j : 0;
-          tma_load_3d_multicast(dst + j * box_bytes, maps[kind], bar, c0, c1, l, mask);
-        }
+        for (int j = rank; j < n; j += CLUSTER)
+          tma_load_3d_multicast(dst + j * box_bytes, maps[kind], bar, c0 + j * d0, c1 + j * d1,
+                                l, mask);
         ++it;
       };
+      // The consumers take the stages in this order: W1 and W2 per column group of H
+      // (W1 in 32-deep stages, W2 in 32-deep chunks), W3 per 32-column group and
+      // 320-deep chunk, and Wlin, first on the inverse.
       for (int step = 0; step < s.L; ++step) {
         const int l = s.inverse ? s.L - 1 - step : step;
-        if (s.inverse) put(WL, 0, l);
-        put(W1, 0, l);
-        for (int c = 0; c < s.cbs; ++c) put(W2, c, l);
-        put(W3, 0, l);
-        if (!s.inverse) put(WL, 0, l);
+        if (s.inverse) put(WL, s.wl_boxes, s.rl, 0, 0, BOX, 0, l);
+        for (int g = 0; g < s.groups; ++g)
+          for (int c = 0; c < s.w1_chunks; ++c)
+            put(W1, group_boxes(s, g), s.w1_rows, GROUP * g, BOX * c, BOX, 0, l);
+        for (int g = 0; g < s.groups; ++g)
+          for (int c = 0; c < s.cbs; ++c)
+            put(W2, group_boxes(s, g), BOX, GROUP * g, BOX * c, BOX, 0, l);
+        for (int g3 = 0; g3 < s.n3_groups; ++g3)
+          for (int c = 0; c < s.groups; ++c)
+            put(W3, group_boxes(s, c), BOX, BOX * g3, GROUP * c, 0, BOX, l);
+        if (!s.inverse) put(WL, s.wl_boxes, s.rl, 0, 0, BOX, 0, l);
       }
     }
     __syncwarp();
@@ -311,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     int it = 0;
     float ld = 0.f;  // log-det of row tid, held by threads tid < 16
     float* z = z_buf;              // z now; the LU mix writes the other buffer
-    float* z_next = z_buf + ROWS * SZ;
+    float* z_next = z_buf + ROWS * s.sz;
 
     auto wait_slot = [&]() -> const uint8_t* {
       const int slot = it % s.slots;
@@ -331,105 +376,117 @@ __global__ void __launch_bounds__(THREADS, 1)
       off1 = base + ROW_BYTES + (((col >> 2) ^ (2 * t + 1)) << 4);
     };
 
-    // out = relu(act W + b) over the stages of W (W1: one stage of k_steps 8-deep
-    // steps, W2: cbs stages of 4), columns past H zero. Each stage's product is summed
-    // from zero, then added. A warp's tiles past the last one (small H only) multiply
-    // tile 0 again and are not stored. bias_v holds this lane's bias values
-    // (load_bias), read well before they are needed.
-    auto load_bias = [&](const float* bias, float (&bias_v)[NT_MAX][2]) {
-#pragma unroll
-      for (int j = 0; j < NT_MAX; ++j) {
-        const int n = 8 * (warp + CONSUMER_WARPS * j) + 2 * t;
-        bias_v[j][0] = n < s.H ? __ldg(bias + n) : 0.f;
-        bias_v[j][1] = n + 1 < s.H ? __ldg(bias + n + 1) : 0.f;
-      }
-    };
-    auto dense = [&](auto mask, const float* act, int stride, int k_valid, int n_stages,
-                     int k_steps, const float (&bias_v)[NT_MAX][2], float* out) {
-      const int box_bytes = k_steps * 8 * ROW_BYTES;
-      int off0[NT_MAX], off1[NT_MAX];
-#pragma unroll
-      for (int j = 0; j < NT_MAX; ++j) {
-        int tile = warp + CONSUMER_WARPS * j;
-        tile = tile < n_tiles ? tile : 0;
-        b_offsets((tile & 3) * 8 + g, off0[j], off1[j]);
-        off0[j] += (tile >> 2) * box_bytes;
-        off1[j] += (tile >> 2) * box_bytes;
-      }
+    // out = relu(act W + b) of layer l, one 320-column group of H after another; per
+    // group, the stages of W (W1: 32-deep stages of its r1 rows, the last one
+    // k_steps_all left over; W2: cbs stages of 4 8-deep steps), columns past H zero.
+    // Each stage's product is summed from zero, then added. A warp's tiles past the
+    // last one (small H only) multiply the group's tile 0 again and are not stored.
+    // bias_v holds this lane's bias values of group 0 (load_bias), read a phase
+    // ahead; later groups' (wide chains only) are read in the epilogue, so that no
+    // more registers are live in the products than at H <= 320: the kernel is at its
+    // register cap (9 warps: 3 share one SM sub-partition's 16K registers, 168 each).
+    auto dense = [&](auto mask, const float* act, int stride, int k_valid, int k_steps_all,
+                     int box_rows, const float (&bias_v)[NT_MAX][2], float* out, int l) {
+      constexpr bool MASK = decltype(mask)::value;  // W1 (b1): masked depth, ragged stages
+      const int box_bytes = box_rows * ROW_BYTES;
+      const int n_stages = (8 * k_steps_all + BOX - 1) / BOX;
       const float* a_top = act + g * stride + 2 * t;
       const float* a_bot = a_top + 8 * stride;
-      float acc[NT_MAX][4];
+      for (int grp = 0; grp < s.groups; ++grp) {
+        const int tile0 = GROUP / 8 * grp;
+        int off0[NT_MAX], off1[NT_MAX];
 #pragma unroll
-      for (int j = 0; j < NT_MAX; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-      for (int c = 0; c < n_stages; ++c) {
-        const uint8_t* w = wait_slot();
-        float part[NT_MAX][4];
-#pragma unroll
-        for (int j = 0; j < NT_MAX; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < BOX / 8; ++ks) {
-          if (ks >= k_steps) break;
-          const int k = BOX * c + 8 * ks;
-          uint32_t a_hi[4], a_lo[4];
-          load_a<decltype(mask)::value>(a_top, a_bot, k, k_valid - 2 * t, a_hi, a_lo);
-#pragma unroll
-          for (int j = 0; j < NT_MAX; ++j) {
-            const float b0 = *reinterpret_cast<const float*>(w + off0[j] + ks * 1024);
-            const float b1 = *reinterpret_cast<const float*>(w + off1[j] + ks * 1024);
-            mma_3xtf32(part[j], a_hi, a_lo, b0, b1);
-          }
+        for (int j = 0; j < NT_MAX; ++j) {
+          int tile = warp + CONSUMER_WARPS * j;  // in the group
+          tile = tile0 + tile < n_tiles ? tile : 0;
+          b_offsets((tile & 3) * 8 + g, off0[j], off1[j]);
+          off0[j] += (tile >> 2) * box_bytes;
+          off1[j] += (tile >> 2) * box_bytes;
         }
-        release_slot();
+        float acc[NT_MAX][4];
 #pragma unroll
         for (int j = 0; j < NT_MAX; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
-      }
+          for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+        for (int c = 0; c < n_stages; ++c) {
+          const uint8_t* w = wait_slot();
+          const int k_steps = MASK ? imin(BOX / 8, k_steps_all - BOX / 8 * c) : BOX / 8;
+          float part[NT_MAX][4];
 #pragma unroll
-      for (int j = 0; j < NT_MAX; ++j) {
-        const int tile = warp + CONSUMER_WARPS * j;
-        if (tile >= n_tiles) continue;
-        const int n = 8 * tile + 2 * t;
+          for (int j = 0; j < NT_MAX; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float v0 = n < s.H ? fmaxf(acc[j][2 * h] + bias_v[j][0], 0.f) : 0.f;
-          const float v1 = n + 1 < s.H ? fmaxf(acc[j][2 * h + 1] + bias_v[j][1], 0.f) : 0.f;
-          *reinterpret_cast<float2*>(out + (g + 8 * h) * s.sh + n) = make_float2(v0, v1);
+            for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < BOX / 8; ++ks) {
+            if (ks >= k_steps) break;
+            const int k = BOX * c + 8 * ks;
+            uint32_t a_hi[4], a_lo[4];
+            load_a<MASK>(a_top, a_bot, k, k_valid - 2 * t, a_hi, a_lo);
+#pragma unroll
+            for (int j = 0; j < NT_MAX; ++j) {
+              const float b0 = *reinterpret_cast<const float*>(w + off0[j] + ks * 1024);
+              const float b1 = *reinterpret_cast<const float*>(w + off1[j] + ks * 1024);
+              mma_3xtf32(part[j], a_hi, a_lo, b0, b1);
+            }
+          }
+          release_slot();
+#pragma unroll
+          for (int j = 0; j < NT_MAX; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
+        }
+#pragma unroll
+        for (int j = 0; j < NT_MAX; ++j) {
+          const int tile = tile0 + warp + CONSUMER_WARPS * j;
+          if (tile >= n_tiles) continue;
+          const int n = 8 * tile + 2 * t;
+          float bv0 = bias_v[j][0], bv1 = bias_v[j][1];
+          if (grp > 0) {
+            const float* bias = (MASK ? a.b1 : a.b2) + static_cast<size_t>(l) * s.H;
+            bv0 = n < s.H ? __ldg(bias + n) : 0.f;
+            bv1 = n + 1 < s.H ? __ldg(bias + n + 1) : 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = n < s.H ? fmaxf(acc[j][2 * h] + bv0, 0.f) : 0.f;
+            const float v1 = n + 1 < s.H ? fmaxf(acc[j][2 * h + 1] + bv1, 0.f) : 0.f;
+            *reinterpret_cast<float2*>(out + (g + 8 * h) * s.sh + n) = make_float2(v0, v1);
+          }
         }
       }
     };
 
     // z_next <- z Wlin^T (Wlin holds W^-1 on the inverse), f32 FMAs in depth order,
-    // 4 depths per 16-byte load; a thread's two outputs (16 x D <= 2 x 256) run
-    // side by side. Then the buffers swap and the log-det takes lu.
+    // 4 depths per 16-byte load from Wlin's 32-column box of that depth; a thread's
+    // outputs (16 x D of them) go two at a time, side by side. Then the buffers swap
+    // and the log-det takes lu.
     auto lu_mix = [&](float lu) {
       const uint8_t* wl = wait_slot();
-      int r[2], col[2];
-      float acc[2] = {0.f, 0.f};
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = tid + q * CONSUMERS;
-        r[q] = i < ROWS * s.D ? i / s.D : 0;
-        col[q] = i < ROWS * s.D ? i % s.D : 0;
-      }
-#pragma unroll
-      for (int k = 0; k < BOX; k += 4) {
-        if (k >= s.D) break;
+      const int box_bytes = s.rl * ROW_BYTES;
+      for (int i0 = tid; i0 < ROWS * s.D; i0 += 2 * CONSUMERS) {
+        int r[2], col[2];
+        float acc[2] = {0.f, 0.f};
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const float4 zv = *reinterpret_cast<const float4*>(z + r[q] * SZ + k);
-          const float4 wv = *reinterpret_cast<const float4*>(
-              wl + col[q] * ROW_BYTES + (((k >> 2) ^ (col[q] & 7)) << 4));
-          acc[q] = fmaf(zv.w, wv.w, fmaf(zv.z, wv.z, fmaf(zv.y, wv.y, fmaf(zv.x, wv.x, acc[q]))));
+          const int i = i0 + q * CONSUMERS;
+          r[q] = i < ROWS * s.D ? i / s.D : 0;
+          col[q] = i < ROWS * s.D ? i % s.D : 0;
         }
-      }
+#pragma unroll 4
+        for (int k = 0; k < s.D; k += 4) {
+          const uint8_t* box = wl + (k / BOX) * box_bytes;
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-        if (tid + q * CONSUMERS < ROWS * s.D) z_next[r[q] * SZ + col[q]] = acc[q];
+          for (int q = 0; q < 2; ++q) {
+            const float4 zv = *reinterpret_cast<const float4*>(z + r[q] * s.sz + k);
+            const float4 wv = *reinterpret_cast<const float4*>(
+                box + col[q] * ROW_BYTES + ((((k % BOX) >> 2) ^ (col[q] & 7)) << 4));
+            acc[q] = fmaf(zv.w, wv.w, fmaf(zv.z, wv.z, fmaf(zv.y, wv.y, fmaf(zv.x, wv.x, acc[q]))));
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (i0 + q * CONSUMERS < ROWS * s.D) z_next[r[q] * s.sz + col[q]] = acc[q];
+      }
       release_slot();
       consumer_sync();
       float* swap = z;
@@ -438,80 +495,112 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (tid < ROWS) ld = s.inverse ? ld - lu : ld + lu;
     };
 
-    // Small operands are read one phase or more ahead, so their latency hides behind
-    // the products: b1 of the next layer and b2, b3 and the next lu_ld during W2.
+    // Small operands are read a phase or more ahead, so their latency hides behind
+    // the products: b2 during W1's barrier, b1 of the next layer, b3 and the next
+    // lu_ld after W2 (not before it: W2's products hold the most registers).
     const int layer0 = s.inverse ? s.L - 1 : 0;
-    const int r_aff = tid / s.dt, c_aff = tid % s.dt;  // this thread's affine element
+    const int r_aff = tid / s.dt, c_aff = tid % s.dt;  // this thread's first affine element
     const bool affine = tid < ROWS * s.dt;
     float b1_v[NT_MAX][2], b2_v[NT_MAX][2];
-    load_bias(a.b1 + static_cast<size_t>(layer0) * s.H, b1_v);
+    const int col0 = 8 * warp + 2 * t;  // this lane's first bias column of a group
+    load_bias(a.b1 + static_cast<size_t>(layer0) * s.H, s.H, col0, b1_v);
     float lu = tid < ROWS ? __ldg(a.lu_ld + layer0) : 0.f;
     for (int step = 0; step < s.L; ++step) {
       const int l = s.inverse ? s.L - 1 - step : step;
       const int l_next = s.inverse ? l - 1 : l + 1;
       if (s.inverse) lu_mix(lu);
 
-      dense(std::true_type(), z, SZ, s.dc, 1, s.r1 / 8, b1_v, h1);
-      load_bias(a.b2 + static_cast<size_t>(l) * s.H, b2_v);
-      if (step + 1 < s.L) load_bias(a.b1 + static_cast<size_t>(l_next) * s.H, b1_v);
+      dense(std::true_type(), z, s.sz, s.dc, s.r1 / 8, s.w1_rows, b1_v, h1, l);
+      load_bias(a.b2 + static_cast<size_t>(l) * s.H, s.H, col0, b2_v);
+      consumer_sync();
+      dense(std::false_type(), h1, s.sh, s.H, s.h_pad / 8, BOX, b2_v, h2, l);
+      if (step + 1 < s.L) load_bias(a.b1 + static_cast<size_t>(l_next) * s.H, s.H, col0, b1_v);
       const float* b3 = a.b3 + static_cast<size_t>(l) * n3;
       const float b_shift = affine ? __ldg(b3 + c_aff) : 0.f;
       const float b_ls = affine ? __ldg(b3 + s.dt + c_aff) : 0.f;
       if (tid < ROWS) lu = __ldg(a.lu_ld + (s.inverse ? (step + 1 < s.L ? l_next : l) : l));
       consumer_sync();
-      dense(std::false_type(), h1, s.sh, s.H, s.cbs, BOX / 8, b2_v, h2);
-      consumer_sync();
 
-      // o = h2 W3 + b3: warp w sums the 8-deep steps [w n / W, (w + 1) n / W) of the
-      // n steps (W warps), then the partials are added in warp order after the bias.
+      // o = h2 W3 + b3, per 32-column group of W3 and per 320-deep chunk of h2: in a
+      // chunk of n 8-deep steps warp w sums steps [w n / W, (w + 1) n / W) (W warps);
+      // chunk 0's sum is stored to the warp's partials in shared memory and each later
+      // chunk's added to them (each lane to its own elements: no barrier), in chunk
+      // order; the warps' partials are added in warp order after the bias. Chunk 0 is
+      // written out on its own so that a chain of one chunk runs no accumulation.
       {
-        const uint8_t* w3 = wait_slot();
-        int off0[N3_TILES_MAX], off1[N3_TILES_MAX];
-        float part[N3_TILES_MAX][4];
-#pragma unroll
-        for (int j = 0; j < N3_TILES_MAX; ++j) {
-          b_offsets(8 * (j < s.n3_tiles ? j : 0) + g, off0[j], off1[j]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
-        }
         const float* a_top = h2 + g * s.sh + 2 * t;
         const float* a_bot = a_top + 8 * s.sh;
-        const int steps = s.h_pad / 8;
-        for (int ks = warp * steps / CONSUMER_WARPS; ks < (warp + 1) * steps / CONSUMER_WARPS;
-             ++ks) {
-          uint32_t a_hi[4], a_lo[4];
-          load_a<false>(a_top, a_bot, 8 * ks, 0, a_hi, a_lo);
+        // Chunk c's products into part: this warp's slice of its 8-deep steps.
+        auto w3_chunk = [&](int c, const int (&off0)[N3_TILES_MAX],
+                            const int (&off1)[N3_TILES_MAX], float (&part)[N3_TILES_MAX][4]) {
+          const uint8_t* w3 = wait_slot();
+          const int steps = imin(GROUP / 8, s.h_pad / 8 - GROUP / 8 * c);
+#pragma unroll
+          for (int j = 0; j < N3_TILES_MAX; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+          for (int ks = warp * steps / CONSUMER_WARPS; ks < (warp + 1) * steps / CONSUMER_WARPS;
+               ++ks) {
+            uint32_t a_hi[4], a_lo[4];
+            load_a<false>(a_top, a_bot, GROUP * c + 8 * ks, 0, a_hi, a_lo);
+#pragma unroll
+            for (int j = 0; j < N3_TILES_MAX; ++j) {
+              const float b0 = *reinterpret_cast<const float*>(w3 + off0[j] + ks * 1024);
+              const float b1 = *reinterpret_cast<const float*>(w3 + off1[j] + ks * 1024);
+              mma_3xtf32(part[j], a_hi, a_lo, b0, b1);
+            }
+          }
+          release_slot();
+        };
+        for (int g3 = 0; g3 < s.n3_groups; ++g3) {
+          const int tiles = imin(N3_TILES_MAX, s.n3_tiles - N3_TILES_MAX * g3);
+          int off0[N3_TILES_MAX], off1[N3_TILES_MAX];
+          float* mine = h1 + warp * ROWS * n3p + BOX * g3;
+#pragma unroll
+          for (int j = 0; j < N3_TILES_MAX; ++j)
+            b_offsets(8 * (j < tiles ? j : 0) + g, off0[j], off1[j]);
+          float part[N3_TILES_MAX][4];
+          w3_chunk(0, off0, off1, part);
 #pragma unroll
           for (int j = 0; j < N3_TILES_MAX; ++j) {
-            const float b0 = *reinterpret_cast<const float*>(w3 + off0[j] + ks * 1024);
-            const float b1 = *reinterpret_cast<const float*>(w3 + off1[j] + ks * 1024);
-            mma_3xtf32(part[j], a_hi, a_lo, b0, b1);
+            if (j >= tiles) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(mine + (g + 8 * h) * n3p + 8 * j + 2 * t) =
+                  make_float2(part[j][2 * h], part[j][2 * h + 1]);
           }
-        }
-        release_slot();
-        float* mine = h1 + warp * ROWS * n3p;
+          for (int c = 1; c < s.groups; ++c) {
+            w3_chunk(c, off0, off1, part);
 #pragma unroll
-        for (int j = 0; j < N3_TILES_MAX; ++j) {
-          if (j >= s.n3_tiles) continue;
+            for (int j = 0; j < N3_TILES_MAX; ++j) {
+              if (j >= tiles) continue;
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(mine + (g + 8 * h) * n3p + 8 * j + 2 * t) =
-                make_float2(part[j][2 * h], part[j][2 * h + 1]);
+              for (int h = 0; h < 2; ++h) {
+                float2* dst = reinterpret_cast<float2*>(mine + (g + 8 * h) * n3p + 8 * j + 2 * t);
+                *dst = make_float2(dst->x + part[j][2 * h], dst->y + part[j][2 * h + 1]);
+              }
+            }
+          }
         }
       }
       consumer_sync();
-      // The affine step, one (row, column) per thread; log_scale is kept in h2 for
-      // the row sums.
-      if (affine) {
-        float shift = b_shift, ls = b_ls;
+      // The affine step, one (row, column) at a time per thread; log_scale is kept in
+      // h2 for the row sums. A thread's first element (row r_aff, column c_aff) has its
+      // b3 values read ahead; further elements (16 dt > 256 only) read theirs here.
+      auto affine_step = [&](int r, int c, float shift, float ls) {
 #pragma unroll
         for (int w = 0; w < CONSUMER_WARPS; ++w) {
-          shift += h1[(w * ROWS + r_aff) * n3p + c_aff];
-          ls += h1[(w * ROWS + r_aff) * n3p + s.dt + c_aff];
+          shift += h1[(w * ROWS + r) * n3p + c];
+          ls += h1[(w * ROWS + r) * n3p + s.dt + c];
         }
-        float* zt = z + r_aff * SZ + s.dc + c_aff;
+        float* zt = z + r * s.sz + s.dc + c;
         *zt = s.inverse ? (*zt - shift) * expf(-ls) : *zt * expf(ls) + shift;
-        h2[r_aff * n3p + c_aff] = ls;
+        h2[r * n3p + c] = ls;
+      };
+      if (affine) affine_step(r_aff, c_aff, b_shift, b_ls);
+      for (int i = tid + CONSUMERS; i < ROWS * s.dt; i += CONSUMERS) {
+        const int c = i % s.dt;
+        affine_step(i / s.dt, c, __ldg(b3 + c), __ldg(b3 + s.dt + c));
       }
       consumer_sync();
       // Each row's log_scale sum, in column order. h2 is next written after the next
@@ -528,7 +617,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     for (int i = tid; i < ROWS * s.D; i += CONSUMERS) {
       const int r = i / s.D, k = i % s.D, row = row0 + r;
-      if (row < s.B) a.y[static_cast<size_t>(row) * s.D + k] = z[r * SZ + k];
+      if (row < s.B) a.y[static_cast<size_t>(row) * s.D + k] = z[r * s.sz + k];
     }
     if (tid < ROWS && row0 + tid < s.B) a.ld[row0 + tid] = ld;
   }
@@ -590,8 +679,9 @@ int fused_realnvp_pass_f32(const float* x, const float* w1, const float* b1,
   const Shape& s = args.s;
   CUtensorMap m1, m2, m3, ml;
   int err;
-  if ((err = layer_map(&m1, w1, H, dc, L, s.r1)) || (err = layer_map(&m2, w2, H, H, L, BOX)) ||
-      (err = layer_map(&m3, w3, 2 * s.dt, H, L, BOX)) || (err = layer_map(&ml, wlin, D, D, L, s.rl)))
+  if ((err = layer_map(&m1, w1, H, dc, L, s.w1_rows)) ||
+      (err = layer_map(&m2, w2, H, H, L, BOX)) || (err = layer_map(&m3, w3, 2 * s.dt, H, L, BOX)) ||
+      (err = layer_map(&ml, wlin, D, D, L, s.rl)))
     return err;
   cudaError_t e = cudaFuncSetAttribute(k1_tf32x3_chain,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -17,8 +17,9 @@ multicast across a cluster of 2 blocks, activations kept in shared memory.
   the kernel runs at and refuses a shape the kernel cannot take. TMA reads rows
   whose byte strides are multiples of 16, so the kernel takes D a multiple of 4 and
   an even d_trans and H a multiple of 4; a shape that misses only that is zero-padded
-  by the wrapper (``_embed``: exact, the padded entries stay zero), one that is too
-  wide (D > 32, 2 d_trans > 32 or H > 320 after padding) raises.
+  by the wrapper (``_embed``: exact, the padded entries stay zero). Any width runs
+  whose 16 rows of activations fit in shared memory beside a ring of 2 slots (each
+  ring stage is at most 32 deep and 320 wide); a wider one raises.
 - ``fused_realnvp_pass_tf32x3_emulated`` repeats the kernel's arithmetic (splits
   and order of sums) in plain PyTorch for the CPU tests; the main path never calls
   it.
@@ -47,7 +48,8 @@ CONSUMER_WARPS = 8
 MAX_SLOTS = 4
 MAX_SMEM = 232448  # bytes of shared memory a block can have on an H100
 _BOX = 32  # columns of a TMA box: one 128-byte swizzle row
-_SZ = 40  # row stride of z in shared memory (floats)
+GROUP = 8 * 5 * CONSUMER_WARPS  # 320: columns of H per group (5 tiles per warp)
+_MAX_BOX_ROWS = 256  # TMA's largest box dimension
 
 
 def _round_up(n: int, m: int) -> int:
@@ -65,9 +67,13 @@ class LaunchPlan:
     clusters: int
     padded_rows: int  # rows of the last tiles past B: zero, never stored
     h_pad: int  # H rounded up to 32 (TMA zero-fills the columns past H)
+    groups: int  # 320-column groups of H (and 320-deep chunks of W3)
     d_cond_pad: int  # d_cond rounded up to 8: W1's depth in 8-deep steps
     n3_pad: int  # 2 * d_trans rounded up to 8
-    stages_per_layer: int  # W1, H / 32 chunks of W2, W3, Wlin
+    z_stride: int  # floats per row of z in shared memory: D rounded up to 32, plus 8
+    # One layer's ring stages in the order the kernel takes them on the forward
+    # pass (the inverse takes Wlin first): (weight, boxes, rows per box).
+    stages: Tuple[Tuple[str, int, int], ...]
     slot_bytes: int
     slots: int
     smem_bytes: int
@@ -76,6 +82,10 @@ class LaunchPlan:
     # each block's biases and lu_ld, and the same with one stream per block.
     l2_read_bytes: int
     l2_read_bytes_unshared: int
+
+    @property
+    def stages_per_layer(self) -> int:
+        return len(self.stages)
 
 
 def plan_launch(B: int, D: int, d_cond: int, H: int, L: int) -> LaunchPlan:
@@ -90,32 +100,41 @@ def plan_launch(B: int, D: int, d_cond: int, H: int, L: int) -> LaunchPlan:
     dc, dt = _round_up(d_cond, 2), _round_up(D - d_cond, 2)
     dt += (dc + dt) % 4
     Dk, Hk = dc + dt, _round_up(H, 4)
-    if Dk > 32 or 2 * dt > 32:
-        raise ValueError(
-            f"fused_realnvp_pass: the kernel takes D up to 32 and d_trans up to 16 (after "
-            f"padding to {Dk} and {dt}), got D={D}, d_cond={d_cond}"
-        )
-    if Hk > 8 * CONSUMER_WARPS * 5:
-        raise ValueError(f"fused_realnvp_pass: the kernel takes H up to 320, got {H}")
     h_pad = _round_up(Hk, _BOX)
     cbs = h_pad // _BOX
+    group_boxes = GROUP // _BOX
+    groups = -(-cbs // group_boxes)
+    widths = [min(group_boxes, cbs - group_boxes * g) for g in range(groups)]
     r1, rl = _round_up(dc, 8), _round_up(Dk, 8)
     n3_pad = _round_up(2 * dt, 8)
+    wl_boxes = -(-Dk // _BOX)
+    stages = (
+        [("w1", n, min(r1, _BOX)) for n in widths for _ in range(-(-r1 // _BOX))]
+        + [("w2", n, _BOX) for n in widths for _ in range(cbs)]
+        + [("w3", n, _BOX) for _ in range(-(-n3_pad // _BOX)) for n in widths]
+        + [("wlin", wl_boxes, rl)]
+    )
+    z_stride = _round_up(Dk, _BOX) + 8
     sh = h_pad + 8
     h1_floats = max(ROWS * sh, CONSUMER_WARPS * ROWS * n3_pad)
-    slot_bytes = cbs * _BOX * 4 * _BOX
-    fixed = 1024 + 4 * (2 * ROWS * _SZ + h1_floats + ROWS * sh)
+    h2_floats = ROWS * max(sh, n3_pad)
+    slot_bytes = max(min(cbs, group_boxes) * _BOX * 4 * _BOX, wl_boxes * rl * 4 * _BOX)
+    fixed = 1024 + 4 * (2 * ROWS * z_stride + h1_floats + h2_floats)
     slots = min(MAX_SLOTS, (MAX_SMEM - fixed) // (slot_bytes + 16))
-    if slots < 2:
-        raise ValueError(f"fused_realnvp_pass: no room for a 2-slot ring at H={H}")
+    if slots < 2 or rl > _MAX_BOX_ROWS:
+        raise ValueError(
+            f"fused_realnvp_pass: at D={D}, d_cond={d_cond}, H={H} the 16 rows' "
+            f"activations ({fixed} B) and a ring of 2 slots of {slot_bytes} B exceed the "
+            f"{MAX_SMEM} bytes of shared memory a block can have"
+        )
     blocks = _round_up(-(-B // ROWS), CLUSTER)
-    tma = L * 128 * (cbs * r1 + cbs * cbs * _BOX + cbs * _BOX + rl)
+    tma = L * sum(n * rows * 4 * _BOX for _, n, rows in stages)
     biases = 4 * L * (2 * Hk + 2 * dt + 1)
     return LaunchPlan(
         D=Dk, d_cond=dc, H=Hk, blocks=blocks, clusters=blocks // CLUSTER,
-        padded_rows=blocks * ROWS - B, h_pad=h_pad, d_cond_pad=r1, n3_pad=n3_pad,
-        stages_per_layer=cbs + 3, slot_bytes=slot_bytes, slots=slots,
-        smem_bytes=fixed + slots * (slot_bytes + 16), tma_bytes_per_pass=tma,
+        padded_rows=blocks * ROWS - B, h_pad=h_pad, groups=groups, d_cond_pad=r1,
+        n3_pad=n3_pad, z_stride=z_stride, stages=tuple(stages), slot_bytes=slot_bytes,
+        slots=slots, smem_bytes=fixed + slots * (slot_bytes + 16), tma_bytes_per_pass=tma,
         l2_read_bytes=blocks // CLUSTER * tma + blocks * biases,
         l2_read_bytes_unshared=blocks * (tma + biases),
     )
@@ -309,18 +328,25 @@ def launch_kernel(x, w1, b1, w2, b2, w3, b3, wlin, lu_ld, inverse, lib=None):
 
 
 def _w3_step_ranges(h_pad: int):
-    """The 8-deep steps of W3's product that each consumer warp sums."""
-    steps = h_pad // 8
-    return [(w * steps // CONSUMER_WARPS, (w + 1) * steps // CONSUMER_WARPS)
-            for w in range(CONSUMER_WARPS)]
+    """For each consumer warp, the 8-deep steps of W3's product it sums, one slice of
+    each 320-deep chunk of the depth (one ring stage): [w n / 8, (w + 1) n / 8) of a
+    chunk's n steps."""
+    steps, chunk = h_pad // 8, GROUP // 8
+    return [
+        [(s0 + w * n // CONSUMER_WARPS, s0 + (w + 1) * n // CONSUMER_WARPS)
+         for s0, n in ((s0, min(chunk, steps - s0)) for s0 in range(0, steps, chunk))]
+        for w in range(CONSUMER_WARPS)
+    ]
 
 
 def fused_realnvp_pass_tf32x3_emulated(
     x, w1, b1, w2, b2, w3, b3, wlin, lu_ld, inverse
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's arithmetic in plain PyTorch (float32): every product of the
-    coupling MLP in 3xTF32 from hi/lo splits, W2's depth in 32-deep stages summed
-    apart and added in order, W3's depth in the consumer warps' slices added in warp
+    """The kernel's arithmetic in plain PyTorch (float32), in its stage order: every
+    product of the coupling MLP in 3xTF32 from hi/lo splits; W1's and W2's depth in
+    32-deep stages summed apart and added in order (a column's sum does not depend on
+    its 320-column group); W3's depth in the consumer warps' slices of each 320-deep
+    chunk, a warp's chunk sums added in chunk order and the warps' partials in warp
     order after the bias; the LU mix in f32. The tensor cores' own order of sums
     inside a step is not repeated."""
     f = lambda t: t.to(torch.float32)
@@ -334,11 +360,15 @@ def fused_realnvp_pass_tf32x3_emulated(
 
     def coupling(z, l, ld):
         zc, zt = z[:, :d_cond], z[:, d_cond:]
-        h = torch.relu(product(zc, w1[l]) + b1[l])
+        h = torch.relu(matmul_tf32x3_staged(zc, w1[l], _BOX) + b1[l])
         h = torch.relu(matmul_tf32x3_staged(h, w2[l], _BOX) + b2[l])
         o = b3[l].expand(x.shape[0], -1)
-        for s0, s1 in ranges:
-            o = o + product(h[:, 8 * s0:8 * s1], w3[l, 8 * s0:8 * s1])
+        for mine in ranges:
+            total = None
+            for s0, s1 in mine:
+                part = product(h[:, 8 * s0:8 * s1], w3[l, 8 * s0:8 * s1])
+                total = part if total is None else total + part
+            o = o + total
         shift, log_scale = o[:, :d_trans], o[:, d_trans:]
         if inverse:
             return torch.cat([zc, (zt - shift) * torch.exp(-log_scale)], -1), ld - log_scale.sum(-1)

@@ -1,7 +1,10 @@
 """The port's random draws, each from an explicit ``torch.Generator``.
 
-Every draw of the main path goes through these three functions, so a test can
-replace them to replay noise drawn elsewhere (for example by ``fab_tpu``).
+Every draw of the port goes through these functions, so a test can replace them to
+replay noise drawn elsewhere (for example by ``fab_tpu``). ``categorical`` and
+``bernoulli`` are built on ``gumbel`` and ``uniform``, in the forms ``jax.random``
+uses (Gumbel-max over the logits; a uniform below p), so replaying those draws
+replays them too.
 """
 from __future__ import annotations
 
@@ -26,3 +29,27 @@ def exponential(
 def gumbel(generator: torch.Generator, shape: Sequence[int], dtype, device) -> torch.Tensor:
     """Standard Gumbel draws (-log of an Exp(1) draw)."""
     return -torch.log(exponential(generator, shape, dtype, device))
+
+
+def uniform(generator: torch.Generator, shape: Sequence[int], dtype, device) -> torch.Tensor:
+    """Uniform [0, 1) draws."""
+    return torch.rand(tuple(shape), generator=generator, dtype=dtype, device=device)
+
+
+def randint(generator: torch.Generator, low: int, high: int, shape: Sequence[int],
+            device) -> torch.Tensor:
+    """Integers uniform in [low, high), int64."""
+    return torch.randint(low, high, tuple(shape), generator=generator, device=device)
+
+
+def bernoulli(generator: torch.Generator, p: float, shape: Sequence[int], dtype,
+              device) -> torch.Tensor:
+    """True with probability p: a uniform draw below p."""
+    return uniform(generator, shape, dtype, device) < p
+
+
+def categorical(generator: torch.Generator, logits: torch.Tensor, n: int) -> torch.Tensor:
+    """n indices drawn with replacement from softmax(logits) (1-D), by the Gumbel-max
+    trick over an [n, len(logits)] draw."""
+    g = gumbel(generator, (n, logits.shape[-1]), logits.dtype, logits.device)
+    return torch.argmax(g + logits, dim=-1)

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from fab_tpu_torch import random
 from fab_tpu_torch.typing import LogProbFn, Point
 
 
@@ -57,3 +58,9 @@ def grad_intermediate_log_prob(point: Point, beta, ais_alpha: float) -> torch.Te
     assert point.grad_log_q is not None and point.grad_log_p is not None
     c_q, c_p = intermediate_coefficients(beta, ais_alpha)
     return c_q * point.grad_log_q + c_p * point.grad_log_p
+
+
+def resample(generator: torch.Generator, point: Point, log_w: torch.Tensor) -> Point:
+    """Multinomial resampling of the rows by log-weight (with replacement)."""
+    indices = random.categorical(generator, log_w, log_w.shape[0])
+    return Point(*(None if a is None else a[indices] for a in point))

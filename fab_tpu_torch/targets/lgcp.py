@@ -90,10 +90,14 @@ class LogGaussianCoxProcess(TargetDistribution):
         samples: torch.Tensor,
         log_w: torch.Tensor,
         log_q_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        batch_size: Optional[int] = None,
         mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """Importance-weighted posterior mean of the FIELD against the known
-        generating field; with ``log_q_fn``, also the mean log q of the samples."""
+        generating field; with ``log_q_fn``, also the mean log q of the samples.
+        Draws nothing (``batch_size`` and ``generator`` are the metrics interface's)."""
+        del batch_size, generator
         if mask is None:
             mask = torch.ones(log_w.shape, dtype=torch.bool, device=log_w.device)
         w_bar = torch.softmax(torch.where(mask, log_w, -math.inf), dim=0)

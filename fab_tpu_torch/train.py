@@ -1,4 +1,4 @@
-"""Prioritised-buffer FAB trainer, guarded update and optimizer (``fab_tpu/train.py``).
+"""FAB trainers, guarded update and optimizer (``fab_tpu/train.py``).
 
 The optimizer is a small functional Adam with global-norm clipping that keeps
 the JAX package's semantics (``fab_tpu/train.py:57-156``), which ``torch.optim``
@@ -11,8 +11,10 @@ does not:
   the whole optimizer state, Adam's count included, unchanged. The skip is a
   ``torch.where`` select, so no step waits for the device.
 
-``PrioritisedBufferTrainer.run`` is the training loop with its eval, checkpoint and
-time-limit schedule (``fab_tpu/train.py:247-394``).
+``Trainer`` is plain FAB training (loss, gradient, guarded step); ``run`` is the
+training loop with its eval, checkpoint and time-limit schedule
+(``fab_tpu/train.py:168-394``), shared by ``BufferTrainer`` (a uniform or
+recency-weighted replay buffer) and ``PrioritisedBufferTrainer``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,12 @@ import torch
 
 from fab_tpu_torch import checkpoint
 from fab_tpu_torch import losses as losses_lib
-from fab_tpu_torch.buffer import PrioritisedBufferState, PrioritisedReplayBuffer
+from fab_tpu_torch.buffer import (
+    PrioritisedBufferState,
+    PrioritisedReplayBuffer,
+    ReplayBuffer,
+    UniformBufferState,
+)
 from fab_tpu_torch.convert import from_jax_params, to_jax_params
 from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import flow_log_prob
@@ -130,14 +137,334 @@ def guarded_update(
     return new_state, grad_norm, ok
 
 
-class BufferTrainState(NamedTuple):
+class TrainState(NamedTuple):
     transition_state: Dict[str, torch.Tensor]
     opt_state: AdamState
-    buffer_state: PrioritisedBufferState
     step: int
 
 
-class PrioritisedBufferTrainer:
+class BufferTrainState(NamedTuple):
+    transition_state: Dict[str, torch.Tensor]
+    opt_state: AdamState
+    buffer_state: Any  # PrioritisedBufferState | UniformBufferState
+    step: int
+
+
+class Trainer:
+    """Plain FAB trainer (``fab_tpu/train.py:168-394``): per iteration the model's
+    loss (for FAB, an AIS pass), its gradient and a guarded optimizer step.
+
+    The flow's parameters live in ``model.flow`` and are updated in place; the
+    flow is moved to ``device`` and ``dtype`` here.
+    """
+
+    state_type = TrainState
+
+    def __init__(
+        self,
+        model: FABModel,
+        optimizer: ClippedAdam,
+        logger: Optional[Logger] = None,
+        plotter: Optional[Callable] = None,
+        save_path: str = "",
+        dtype=torch.float32,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.model = model
+        self.optimizer = optimizer
+        self.logger = logger if logger is not None else ListLogger()
+        self.plotter = plotter
+        self.plots_dir = os.path.join(save_path, "plots")
+        self.checkpoints_dir = os.path.join(save_path, "model_checkpoints")
+        self.dtype = dtype
+        self.model.flow.to(device=self.device, dtype=dtype)
+
+    @property
+    def params(self) -> List[torch.nn.Parameter]:
+        """The flow's trainable parameters, in the optimizer state's order."""
+        return [p for p in self.model.flow.parameters() if p.requires_grad]
+
+    def init_state(self, generator: torch.Generator) -> TrainState:
+        """Initialise the flow, the transition state and the optimizer."""
+        transition_state = self.model.init(generator)
+        return TrainState(transition_state, self.optimizer.init(self.params), 0)
+
+    def _step(self, loss: torch.Tensor, opt_state: AdamState):
+        """The guarded optimizer step on ``loss``'s gradient; (opt_state, grad_norm,
+        applied)."""
+        params = self.params
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        return guarded_update(self.optimizer, grads, opt_state, params, loss)
+
+    def train_step(
+        self, state: TrainState, generator: torch.Generator, batch_size: int
+    ) -> Tuple[TrainState, Dict[str, Any]]:
+        loss, transition_state, info = self.model.loss_and_info(
+            state.transition_state, generator, batch_size, tune=True
+        )
+        opt_state, grad_norm, ok = self._step(loss, state.opt_state)
+        info = dict(info, loss=loss.detach(), grad_norm=grad_norm, update_applied=ok)
+        return TrainState(transition_state, opt_state, state.step + 1), info
+
+    # ------------------------------------------------------------ run loop
+
+    def save_checkpoint(self, state, i: int) -> None:
+        """``<save_path>/model_checkpoints/iter_<i>/state.pkl``; the flow's
+        parameters in ``fab_tpu``'s pytree layout, Adam's moments keyed by the
+        parameters' names, and the buffer, if the state has one."""
+        names = [n for n, p in self.model.flow.named_parameters() if p.requires_grad]
+        opt = state.opt_state
+        payload = {
+            "params": {
+                "flow": to_jax_params(self.model.flow.state_dict()),
+                "transition": dict(state.transition_state),
+            },
+            "opt_state": {
+                "count": opt.count,
+                "mu": dict(zip(names, opt.mu)),
+                "nu": dict(zip(names, opt.nu)),
+            },
+            "step": state.step,
+        }
+        if hasattr(state, "buffer_state"):
+            payload["buffer_state"] = state.buffer_state._asdict()
+        checkpoint.save_checkpoint(
+            os.path.join(self.checkpoints_dir, f"iter_{i}", "state.pkl"), payload
+        )
+
+    def load_state(self, path: str):
+        """Load a checkpoint written by ``save_checkpoint``: the flow's parameters go
+        into the model in place; returns (state, step)."""
+        raw = checkpoint.load_checkpoint(path)
+        tensor = lambda a: torch.as_tensor(a, device=self.device)
+        flow = self.model.flow
+        flow.load_state_dict(from_jax_params(raw["params"]["flow"], self.device))
+        names = [n for n, p in flow.named_parameters() if p.requires_grad]
+        opt = raw["opt_state"]
+        fields = dict(
+            transition_state={k: tensor(v) for k, v in raw["params"]["transition"].items()},
+            opt_state=AdamState(
+                tensor(opt["count"]),
+                [tensor(opt["mu"][n]) for n in names],
+                [tensor(opt["nu"][n]) for n in names],
+            ),
+            step=int(raw["step"]),
+        )
+        if "buffer_state" in raw:
+            fields["buffer_state"] = self.buffer_state_type(
+                **{k: tensor(v) for k, v in raw["buffer_state"].items()}
+            )
+        state = self.state_type(**fields)
+        return state, state.step
+
+    def perform_eval(
+        self, state, generator: torch.Generator, i: int, eval_batch_size: int,
+        batch_size: int,
+    ) -> None:
+        """Evaluate with AIS targeting p and log the metrics."""
+        eval_info = self.model.get_eval_info(
+            state.transition_state, generator, eval_batch_size, batch_size, p_target=True
+        )
+        eval_info["step"] = i
+        self.logger.write(eval_info)
+
+    def _plots(self, state, generator: torch.Generator, i: int, save: bool) -> None:
+        """The plotter hook. Plotting is not ported yet, so this does nothing; the
+        plot schedule is kept so that a ported plotter slots in here."""
+
+    def run(
+        self,
+        generator: torch.Generator,
+        n_iterations: int,
+        batch_size: int,
+        eval_batch_size: Optional[int] = None,
+        n_eval: Optional[int] = None,
+        n_plot: Optional[int] = None,
+        n_checkpoints: Optional[int] = None,
+        save: bool = True,
+        tlimit: Optional[float] = None,
+        state=None,
+        start_iter: int = 0,
+        log_every: int = 1,
+    ):
+        """Training loop with linspace-scheduled eval/plot/checkpoint and a graceful
+        stop at ``tlimit`` hours (``fab_tpu/train.py:277-394``).
+
+        Steps run in chunks of up to ``log_every`` iterations that stop at every
+        scheduled event; the logger gets the last step of each chunk. Without jit
+        there is nothing to amortise, but the schedule and the log rows stay
+        ``fab_tpu``'s. Without ``state``, ``init_state`` makes one (a buffer
+        trainer fills its buffer with its default batch, as in ``fab_tpu``).
+        """
+        if save:
+            pathlib.Path(self.plots_dir).mkdir(parents=True, exist_ok=True)
+            pathlib.Path(self.checkpoints_dir).mkdir(parents=True, exist_ok=True)
+        checkpoint_iter = _schedule(n_iterations, n_checkpoints)
+        eval_iter = _schedule(n_iterations, n_eval)
+        plot_iter = _schedule(n_iterations, n_plot)
+        if n_eval and eval_batch_size is None:
+            raise ValueError("n_eval needs eval_batch_size")
+        if state is None:
+            state = self.init_state(generator)
+        events = sorted({n_iterations} | checkpoint_iter | eval_iter | plot_iter)
+        start_time = time()
+        max_it_time = 0.0
+        # The first chunk of each length is left out of the time projection: it
+        # carries one-off costs (the kernels' first build, library handles).
+        warm_ks: set = set()
+        last_progress = 0.0
+
+        i = start_iter
+        while i < n_iterations:
+            it_start = time()
+            next_event = min(e for e in events if e > i)
+            k = max(min(log_every, next_event - i), 1)
+            for _ in range(k):
+                state, info = self.train_step(state, generator, batch_size)
+            i += k
+            t_info = info.pop("transition", None)
+            host_info = {name: float(v) for name, v in info.items()}
+            if t_info is not None and self.model.ais is not None:
+                n_dists = self.model.ais.n_intermediate_distributions
+                host_info.update(
+                    {name: float(v) for name, v in format_transition_info(t_info, n_dists).items()}
+                )
+            host_info["step"] = i
+            self.logger.write(host_info)
+            if k in warm_ks:
+                max_it_time = max(max_it_time, (time() - it_start) / k)
+            warm_ks.add(k)
+            now = time()
+            if now - last_progress > 60.0:  # at most one progress line a minute
+                last_progress = now
+                parts = [f"iter {i}/{n_iterations}"]
+                for name in ("loss", "ess_ais", "ess_base", "n_valid"):
+                    if name in host_info:
+                        parts.append(f"{name}={host_info[name]:.4g}")
+                print("  ".join(parts), flush=True)
+            if i in eval_iter:
+                self.perform_eval(state, generator, i, eval_batch_size, batch_size)
+            if i in plot_iter:
+                self._plots(state, generator, i, save)
+            if i in checkpoint_iter and save:
+                self.save_checkpoint(state, i)
+            # Stop early enough that the next chunk, at the measured rate, would not
+            # overshoot; before a rate is known, plain wall-clock checking.
+            if tlimit is not None:
+                hours = (time() - start_time) / 3600
+                if hours + max_it_time * k / 3600 > tlimit:
+                    if save and i not in checkpoint_iter:
+                        self.save_checkpoint(state, i)
+                    if n_eval and i not in eval_iter:
+                        self.perform_eval(state, generator, i, eval_batch_size, batch_size)
+                    self.logger.close()
+                    print(f"Ending training at iteration {i}: tlimit reached.")
+                    return state
+        self.logger.close()
+        return state
+
+
+def _fill_buffer(trainer, generator: torch.Generator, batch_size: int, add) -> BufferTrainState:
+    """A buffer trainer's initial state: the flow and transition state initialised,
+    the buffer filled to its minimum length with AIS samples (``add(buffer_state,
+    result)`` writes one pass), and the optimizer."""
+    model, buffer = trainer.model, trainer.buffer
+    transition_state = model.init(generator)
+    buffer_state = buffer.init(trainer.dtype, trainer.device)
+    while int(buffer_state.n_added) < buffer.min_sample_length:
+        result = model.ais.sample_and_log_weights(
+            transition_state, generator, batch_size, p_target=False, tune=True
+        )
+        transition_state = result.transition_state
+        buffer_state = add(buffer_state, result)
+    return BufferTrainState(
+        transition_state=transition_state,
+        opt_state=trainer.optimizer.init(trainer.params),
+        buffer_state=buffer_state,
+        step=0,
+    )
+
+
+class BufferTrainer(Trainer):
+    """FAB with a uniform or recency-weighted replay buffer
+    (``fab_tpu/train.py:404-554``). Per iteration: one fab_alpha_div step on the fresh
+    AIS batch (the top ``clip_ais_weights_frac`` of its log-weights clipped to the
+    k-th largest), then n_batches_buffer_sampling replay steps on buffer draws (from
+    the buffer as it was before this iteration), then the AIS batch is added.
+    """
+
+    state_type = BufferTrainState
+    buffer_state_type = UniformBufferState
+
+    def __init__(
+        self,
+        model: FABModel,
+        optimizer: ClippedAdam,
+        buffer: ReplayBuffer,
+        n_batches_buffer_sampling: int = 2,
+        clip_ais_weights_frac: Optional[float] = None,
+        logger: Optional[Logger] = None,
+        plotter: Optional[Callable] = None,
+        save_path: str = "",
+        dtype=torch.float32,
+        device="cuda",
+    ):
+        super().__init__(model, optimizer, logger, plotter, save_path, dtype, device)
+        self.buffer = buffer
+        self.n_batches_buffer_sampling = n_batches_buffer_sampling
+        self.clip_ais_weights_frac = clip_ais_weights_frac
+
+    def init_state(self, generator: torch.Generator, batch_size: int = 128) -> BufferTrainState:
+        """Initialise flow and optimizer, and fill the buffer to its minimum length
+        with AIS samples."""
+        return _fill_buffer(
+            self, generator, batch_size,
+            lambda b, r: self.buffer.add(b, r.point.x, r.log_w, r.mask),
+        )
+
+    def _inner_update(self, opt_state, x, log_w, mask):
+        """One fab_alpha_div step on the given points and weights; rows whose log q
+        is not finite are probed out and zero-filled first. (opt_state, loss,
+        grad_norm)."""
+        flow = self.model.flow
+        with torch.no_grad():
+            log_q_probe = flow_log_prob(flow, x)
+        mask = mask & torch.isfinite(log_q_probe)
+        x = torch.where(mask[:, None], x, 0.0)
+        loss = losses_lib.fab_alpha_div(flow_log_prob(flow, x), log_w, self.model.alpha, mask)
+        opt_state, grad_norm, _ = self._step(loss, opt_state)
+        return opt_state, loss.detach(), grad_norm
+
+    def train_step(
+        self, state: BufferTrainState, generator: torch.Generator, batch_size: int
+    ) -> Tuple[BufferTrainState, Dict[str, Any]]:
+        result = self.model.ais.sample_and_log_weights(
+            state.transition_state, generator, batch_size, p_target=False, tune=True
+        )
+        log_w_ais = result.log_w
+        if self.clip_ais_weights_frac is not None:
+            k = max(2, int(self.clip_ais_weights_frac * batch_size))
+            log_w_ais = torch.minimum(log_w_ais, torch.topk(log_w_ais, k).values.min())
+        opt_state, loss, grad_norm = self._inner_update(
+            state.opt_state, result.point.x, log_w_ais, result.mask
+        )
+        for _ in range(self.n_batches_buffer_sampling):
+            x, log_w = self.buffer.sample(state.buffer_state, generator, batch_size)
+            opt_state, replay_loss, _ = self._inner_update(
+                opt_state, x, log_w, torch.isfinite(log_w)
+            )
+        buffer_state = self.buffer.add(
+            state.buffer_state, result.point.x, log_w_ais, result.mask
+        )
+        info = dict(result.info, loss=loss, grad_norm=grad_norm, replay_loss=replay_loss)
+        return BufferTrainState(
+            result.transition_state, opt_state, buffer_state, state.step + 1
+        ), info
+
+
+class PrioritisedBufferTrainer(Trainer):
     """FAB + prioritised replay buffer (``fab_tpu/train.py:557-784``).
 
     The flow's parameters live in ``model.flow`` and are updated in place. Per
@@ -148,6 +475,9 @@ class PrioritisedBufferTrainer:
          zero-filled), a guarded gradient step on the w-adjusted loss, and the
          priority adjustment.
     """
+
+    state_type = BufferTrainState
+    buffer_state_type = PrioritisedBufferState
 
     def __init__(
         self,
@@ -162,43 +492,17 @@ class PrioritisedBufferTrainer:
         dtype=torch.float32,
         device="cuda",
     ):
-        self.device = resolve_device(device)
-        self.model = model
-        self.optimizer = optimizer
+        super().__init__(model, optimizer, logger, plotter, save_path, dtype, device)
         self.buffer = buffer
         self.n_batches_buffer_sampling = n_batches_buffer_sampling
         self.w_adjust_max_clip = w_adjust_max_clip
-        self.logger = logger if logger is not None else ListLogger()
-        self.plotter = plotter
-        self.plots_dir = os.path.join(save_path, "plots")
-        self.checkpoints_dir = os.path.join(save_path, "model_checkpoints")
-        self.dtype = dtype
-        self.model.flow.to(device=self.device, dtype=dtype)
-
-    @property
-    def params(self) -> List[torch.nn.Parameter]:
-        """The flow's trainable parameters, in the optimizer state's order."""
-        return [p for p in self.model.flow.parameters() if p.requires_grad]
 
     def init_state(self, generator: torch.Generator, batch_size: int = 128) -> BufferTrainState:
         """Initialise flow and optimizer, and fill the buffer to its minimum length
         with AIS samples."""
-        transition_state = self.model.init(generator)
-        buffer_state = self.buffer.init(self.dtype, self.device)
-        while int(buffer_state.n_added) < self.buffer.min_sample_length:
-            result = self.model.ais.sample_and_log_weights(
-                transition_state, generator, batch_size, p_target=False, tune=True
-            )
-            transition_state = result.transition_state
-            buffer_state = self.buffer.add(
-                buffer_state, result.point.x, result.log_w, result.point.log_q,
-                result.mask,
-            )
-        return BufferTrainState(
-            transition_state=transition_state,
-            opt_state=self.optimizer.init(self.params),
-            buffer_state=buffer_state,
-            step=0,
+        return _fill_buffer(
+            self, generator, batch_size,
+            lambda b, r: self.buffer.add(b, r.point.x, r.log_w, r.point.log_q, r.mask),
         )
 
     def train_step(
@@ -206,7 +510,6 @@ class PrioritisedBufferTrainer:
     ) -> Tuple[BufferTrainState, Dict[str, Any]]:
         model, buffer, flow = self.model, self.buffer, self.model.flow
         alpha = model.alpha
-        params = self.params
 
         # 1. AIS pass + buffer add.
         result = model.ais.sample_and_log_weights(
@@ -236,10 +539,7 @@ class PrioritisedBufferTrainer:
             loss, log_w_adjust, w_pre = losses_lib.buffer_replay_loss(
                 log_q_x, log_q_old, alpha, self.w_adjust_max_clip, row_ok
             )
-            grads = torch.autograd.grad(loss, params)
-            opt_state, grad_norm, ok = guarded_update(
-                self.optimizer, grads, opt_state, params, loss
-            )
+            opt_state, grad_norm, ok = self._step(loss, opt_state)
             buffer_state = buffer.adjust(
                 buffer_state,
                 torch.where(row_ok, log_w_adjust, torch.nan),
@@ -272,54 +572,6 @@ class PrioritisedBufferTrainer:
         )
         return new_state, info
 
-    # ------------------------------------------------------------ run loop
-
-    def save_checkpoint(self, state: BufferTrainState, i: int) -> None:
-        """``<save_path>/model_checkpoints/iter_<i>/state.pkl``; the flow's
-        parameters in ``fab_tpu``'s pytree layout, Adam's moments keyed by the
-        parameters' names."""
-        names = [n for n, p in self.model.flow.named_parameters() if p.requires_grad]
-        opt = state.opt_state
-        checkpoint.save_checkpoint(
-            os.path.join(self.checkpoints_dir, f"iter_{i}", "state.pkl"),
-            {
-                "params": {
-                    "flow": to_jax_params(self.model.flow.state_dict()),
-                    "transition": dict(state.transition_state),
-                },
-                "opt_state": {
-                    "count": opt.count,
-                    "mu": dict(zip(names, opt.mu)),
-                    "nu": dict(zip(names, opt.nu)),
-                },
-                "buffer_state": state.buffer_state._asdict(),
-                "step": state.step,
-            },
-        )
-
-    def load_state(self, path: str) -> Tuple[BufferTrainState, int]:
-        """Load a checkpoint written by ``save_checkpoint``: the flow's parameters go
-        into the model in place; returns (state, step)."""
-        raw = checkpoint.load_checkpoint(path)
-        tensor = lambda a: torch.as_tensor(a, device=self.device)
-        flow = self.model.flow
-        flow.load_state_dict(from_jax_params(raw["params"]["flow"], self.device))
-        names = [n for n, p in flow.named_parameters() if p.requires_grad]
-        opt = raw["opt_state"]
-        state = BufferTrainState(
-            transition_state={k: tensor(v) for k, v in raw["params"]["transition"].items()},
-            opt_state=AdamState(
-                tensor(opt["count"]),
-                [tensor(opt["mu"][n]) for n in names],
-                [tensor(opt["nu"][n]) for n in names],
-            ),
-            buffer_state=PrioritisedBufferState(
-                **{k: tensor(v) for k, v in raw["buffer_state"].items()}
-            ),
-            step=int(raw["step"]),
-        )
-        return state, state.step
-
     def perform_eval(
         self, state: BufferTrainState, generator: torch.Generator, i: int,
         eval_batch_size: int, batch_size: int,
@@ -337,101 +589,3 @@ class PrioritisedBufferTrainer:
         eval_info.update({k + "_min_var_target": v for k, v in info_mv.items()})
         eval_info["step"] = i
         self.logger.write(eval_info)
-
-    def _plots(self, state: BufferTrainState, generator: torch.Generator, i: int,
-               save: bool) -> None:
-        """The plotter hook. Plotting is not ported yet, so this does nothing; the
-        plot schedule is kept so that a ported plotter slots in here."""
-
-    def run(
-        self,
-        generator: torch.Generator,
-        n_iterations: int,
-        batch_size: int,
-        eval_batch_size: Optional[int] = None,
-        n_eval: Optional[int] = None,
-        n_plot: Optional[int] = None,
-        n_checkpoints: Optional[int] = None,
-        save: bool = True,
-        tlimit: Optional[float] = None,
-        state: Optional[BufferTrainState] = None,
-        start_iter: int = 0,
-        log_every: int = 1,
-    ) -> BufferTrainState:
-        """Training loop with linspace-scheduled eval/plot/checkpoint and a graceful
-        stop at ``tlimit`` hours (``fab_tpu/train.py:277-394``).
-
-        Steps run in chunks of up to ``log_every`` iterations that stop at every
-        scheduled event; the logger gets the last step of each chunk. Without jit
-        there is nothing to amortise, but the schedule and the log rows stay
-        ``fab_tpu``'s. Without ``state`` the buffer is filled by ``init_state`` with
-        its default batch, as in ``fab_tpu``.
-        """
-        if save:
-            pathlib.Path(self.plots_dir).mkdir(parents=True, exist_ok=True)
-            pathlib.Path(self.checkpoints_dir).mkdir(parents=True, exist_ok=True)
-        checkpoint_iter = _schedule(n_iterations, n_checkpoints)
-        eval_iter = _schedule(n_iterations, n_eval)
-        plot_iter = _schedule(n_iterations, n_plot)
-        if n_eval and eval_batch_size is None:
-            raise ValueError("n_eval needs eval_batch_size")
-        if state is None:
-            state = self.init_state(generator)
-        events = sorted({n_iterations} | checkpoint_iter | eval_iter | plot_iter)
-        n_dists = self.model.ais.n_intermediate_distributions
-        start_time = time()
-        max_it_time = 0.0
-        # The first chunk of each length is left out of the time projection: it
-        # carries one-off costs (the kernels' first build, library handles).
-        warm_ks: set = set()
-        last_progress = 0.0
-
-        i = start_iter
-        while i < n_iterations:
-            it_start = time()
-            next_event = min(e for e in events if e > i)
-            k = max(min(log_every, next_event - i), 1)
-            for _ in range(k):
-                state, info = self.train_step(state, generator, batch_size)
-            i += k
-            host_info = {
-                name: float(v) for name, v in info.items() if name != "transition"
-            }
-            host_info.update(
-                {
-                    name: float(v)
-                    for name, v in format_transition_info(info["transition"], n_dists).items()
-                }
-            )
-            host_info["step"] = i
-            self.logger.write(host_info)
-            if k in warm_ks:
-                max_it_time = max(max_it_time, (time() - it_start) / k)
-            warm_ks.add(k)
-            now = time()
-            if now - last_progress > 60.0:  # at most one progress line a minute
-                last_progress = now
-                parts = [f"iter {i}/{n_iterations}"]
-                for name in ("loss", "ess_ais", "ess_base", "n_valid"):
-                    parts.append(f"{name}={host_info[name]:.4g}")
-                print("  ".join(parts), flush=True)
-            if i in eval_iter:
-                self.perform_eval(state, generator, i, eval_batch_size, batch_size)
-            if i in plot_iter:
-                self._plots(state, generator, i, save)
-            if i in checkpoint_iter and save:
-                self.save_checkpoint(state, i)
-            # Stop early enough that the next chunk, at the measured rate, would not
-            # overshoot; before a rate is known, plain wall-clock checking.
-            if tlimit is not None:
-                hours = (time() - start_time) / 3600
-                if hours + max_it_time * k / 3600 > tlimit:
-                    if save and i not in checkpoint_iter:
-                        self.save_checkpoint(state, i)
-                    if n_eval and i not in eval_iter:
-                        self.perform_eval(state, generator, i, eval_batch_size, batch_size)
-                    self.logger.close()
-                    print(f"Ending training at iteration {i}: tlimit reached.")
-                    return state
-        self.logger.close()
-        return state

@@ -1,4 +1,5 @@
-"""Masked importance-weight estimators (``fab_tpu/utils/numerical.py:20-64``).
+"""Masked importance-weight estimators and the expectation test function
+(``fab_tpu/utils/numerical.py``).
 
 Invalid rows are excluded from every reduction instead of being dropped, so shapes
 stay static.
@@ -6,9 +7,11 @@ stay static.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+
+from fab_tpu_torch.utils.seeding import quadratic_constants
 
 
 def masked_log_weights(log_w: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -33,8 +36,62 @@ def effective_sample_size(
     return 1.0 / (w_bar**2).sum() / _count(log_w, mask)
 
 
+def effective_sample_size_over_p(
+    log_w: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """ESS estimated from target samples, ``1 / mean(exp(log_w))`` over valid rows;
+    needs a normalised target log-prob."""
+    assert log_w.dim() == 1
+    if mask is None:
+        return 1.0 / torch.exp(log_w).mean()
+    return 1.0 / (torch.where(mask, torch.exp(log_w), 0.0).sum() / _count(log_w, mask))
+
+
 def log_z_estimate(log_w: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``logsumexp(log_w) - log N`` over valid rows."""
     n = _count(log_w, mask)
     log_n = math.log(n) if mask is None else torch.log(n.to(log_w.dtype))
     return torch.logsumexp(masked_log_weights(log_w, mask), dim=0) - log_n
+
+
+def importance_weighted_expectation(
+    f: Callable[[torch.Tensor], torch.Tensor],
+    x: torch.Tensor,
+    log_w: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Self-normalised importance-sampling estimate of E_p[f(x)] over valid rows."""
+    w_bar = torch.softmax(masked_log_weights(log_w, mask), dim=0)
+    f_x = f(x)
+    if mask is not None:
+        f_x = torch.where(mask, f_x, 0.0)
+    return (w_bar * f_x).sum(0)
+
+
+def mc_estimate_true_expectation(
+    sample_fn: Callable[[torch.Generator, int], torch.Tensor],
+    expectation_function: Callable[[torch.Tensor], torch.Tensor],
+    n_samples: int,
+    generator: torch.Generator,
+    batch_size: int = 100_000,
+) -> torch.Tensor:
+    """Plain Monte Carlo estimate of E[f(x)] from exact samples, drawn in chunks of
+    ``batch_size`` (``max(n_samples // batch_size, 1)`` of them) so that a large
+    ``n_samples`` never sits on the device at once."""
+    n_batches = max(n_samples // batch_size, 1)
+    total = None
+    for _ in range(n_batches):
+        part = expectation_function(sample_fn(generator, batch_size)).sum()
+        total = part if total is None else total + part
+    return total / (n_batches * batch_size)
+
+
+def quadratic_function(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """The fixed-seed quadratic test function of the expectation-bias metrics:
+    (x + s)^T A (x + s) + b^T (x + s), with the constants of ``utils/seeding.py``."""
+    x_shift, a_mat, b_vec = (
+        torch.as_tensor(a, dtype=x.dtype, device=x.device)
+        for a in quadratic_constants(x.shape[-1], seed)
+    )
+    x = x + x_shift
+    return torch.einsum("...i,ij,...j->...", x, a_mat, x) + torch.einsum("j,...j->...", b_vec, x)

@@ -60,15 +60,59 @@ def test_k1_kernel_matches_plain_version(card, inverse, shape):
 
 
 @pytest.mark.gpu
-def test_k1_refuses_widths_past_its_limits(card):
-    """H = 640 (ManyWell-32 at 20 nodes per dim) ran on the earlier f32-FMA kernel
-    (0953cb5); the Hopper kernel takes H up to 320 and raises before any launch."""
-    flow = _perturbed_flow(32, 2, 20, card)
+@pytest.mark.parametrize("shape", [(32, 20, 2048), (64, 10, 2048), (64, 10, 100)],
+                         ids=["d32_h640", "d64_h640", "d64_h640_b100"])
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_k1_refuses_widths_past_its_limits(card, inverse, shape):
+    """Widths the Hopper kernel refused until it split its stages (H = 640: ManyWell-32
+    at 20 nodes per dim; D = 64: a 64-dim ManyWell) now run and match the plain
+    version; only a shape past shared memory is refused (next test)."""
+    dim, nodes, batch = shape
+    flow = _perturbed_flow(dim, 10, nodes, card)
+    x = torch.randn(batch, dim, device=card)
+    before = rk.fused_realnvp_pass.launches
+    with torch.no_grad():
+        s = _stack_params(flow, inverse)
+        args = [s[k] for k in KEYS]
+        y, ld = rk.fused_realnvp_pass(x, *args, inverse)
+        y_ref, ld_ref = rk.fused_realnvp_pass_reference(x, *args, inverse)
+    torch.cuda.synchronize()
+    assert rk.fused_realnvp_pass.launches == before + 1
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_k1_takes_a_narrow_conditioner(card, inverse):
+    """D = 32 with d_cond = 8: 2 d_trans = 48 columns of W3 in two column groups."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    L, D, dc, H = 10, 32, 8, 320
+    n3 = 2 * (D - dc)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=card)
+    args = [normal(L, dc, H) * (2 / dc) ** 0.5, 0.1 * normal(L, H),
+            normal(L, H, H) * (2 / H) ** 0.5, 0.1 * normal(L, H),
+            normal(L, H, n3) * 0.1 / H ** 0.5, 0.05 * normal(L, n3),
+            torch.linalg.qr(normal(L, D, D))[0], 0.1 * normal(L, 1)]
+    x = normal(2048, D)
+    with torch.no_grad():
+        y, ld = rk.fused_realnvp_pass(x, *args, inverse)
+        y_ref, ld_ref = rk.fused_realnvp_pass_reference(x, *args, inverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld, ld_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_k1_refuses_a_chain_past_shared_memory(card):
+    """H = 2048: the 16 rows' h1 and h2 alone need 263 KB; the wrapper raises before
+    any launch."""
+    flow = _perturbed_flow(32, 2, 64, card)
     x = torch.randn(64, 32, device=card)
     before = rk.fused_realnvp_pass.launches
     with torch.no_grad():
         s = _stack_params(flow, True)
-        with pytest.raises(ValueError, match="H up to 320"):
+        with pytest.raises(ValueError, match="shared memory"):
             rk.fused_realnvp_pass(x, *(s[k] for k in KEYS), True)
     assert rk.fused_realnvp_pass.launches == before
 

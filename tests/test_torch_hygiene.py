@@ -14,8 +14,9 @@ import torch
 from fab_tpu_torch.flows import make_realnvp
 from fab_tpu_torch.ops.coupling_kernel import fused_coupling_apply
 from fab_tpu_torch.ops.realnvp_kernel import fused_realnvp_pass
-from fab_tpu_torch.targets import LogGaussianCoxProcess, ManyWellEnergy
-from fab_tpu_torch.train import PrioritisedBufferTrainer
+from fab_tpu_torch.experiments.setup_run import setup_trainer_and_run_flow
+from fab_tpu_torch.targets import GMM, LogGaussianCoxProcess, ManyWellEnergy
+from fab_tpu_torch.train import BufferTrainer, PrioritisedBufferTrainer, Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "fab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -59,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize(
-    "entry", [make_realnvp, ManyWellEnergy, LogGaussianCoxProcess, PrioritisedBufferTrainer],
+    "entry",
+    [make_realnvp, ManyWellEnergy, LogGaussianCoxProcess, GMM, Trainer, BufferTrainer,
+     PrioritisedBufferTrainer, setup_trainer_and_run_flow],
     ids=lambda e: e.__name__,
 )
 def test_entry_points_default_to_the_card(entry):
@@ -75,6 +78,8 @@ def test_entry_points_raise_without_a_card():
         make_realnvp(4, n_flow_layers=1, layer_nodes_per_dim=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LogGaussianCoxProcess(grid_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GMM(true_expectation_estimation_n_samples=10)
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():

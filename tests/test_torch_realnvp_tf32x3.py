@@ -78,6 +78,62 @@ def test_emulated_kernel_matches_pallas_kernel(inverse, monkeypatch):
     np.testing.assert_allclose(ld.numpy(), np.asarray(ld_j), atol=2e-5, rtol=0)
 
 
+def _wide_operands(D, d_cond, H, L, rng):
+    """Random float64 operands of a chain of any split: He-initialised hidden layers,
+    a small last layer (log-scales ~0.1), orthogonal LU mixes."""
+    n3 = 2 * (D - d_cond)
+    normal = lambda *shape: rng.standard_normal(shape)
+    wlin = np.stack([np.linalg.qr(normal(D, D))[0] for _ in range(L)])
+    ops = [normal(L, d_cond, H) * np.sqrt(2 / d_cond), 0.1 * normal(L, H),
+           normal(L, H, H) * np.sqrt(2 / H), 0.1 * normal(L, H),
+           normal(L, H, n3) * 0.1 / np.sqrt(H), 0.05 * normal(L, n3), wlin,
+           0.1 * normal(L, 1)]
+    return [torch.tensor(a) for a in ops]
+
+
+@pytest.mark.parametrize("shape", [(32, 16, 640), (64, 32, 640), (32, 8, 320)],
+                         ids=["d32_h640", "d64_h640", "d32_dcond8"])
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_emulated_kernel_matches_float64_chain_at_wide_widths(shape, inverse):
+    """The wide chains the kernel now takes, in its stage order (two column groups of
+    H and two 320-deep chunks of W3 at H=640; two 32-column boxes of z and Wlin at
+    D=64; two column groups of W3 at d_cond=8), within the card tolerances of the
+    float64 chain (10 layers)."""
+    D, d_cond, H = shape
+    rng = np.random.default_rng(14)
+    ops64 = _wide_operands(D, d_cond, H, 10, rng)
+    x = torch.tensor(rng.standard_normal((48, D)))
+    y64, ld64 = rk.fused_realnvp_pass_reference(x, *ops64, inverse)
+    y, ld = rk.fused_realnvp_pass_tf32x3_emulated(x.float(), *(t.float() for t in ops64),
+                                                  inverse)
+    assert torch.isfinite(y64).all() and float(y64.abs().max()) > 1.0
+    torch.testing.assert_close(y.double(), y64, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld.double(), ld64, atol=1e-3, rtol=0)
+    y32, _ = rk.fused_realnvp_pass_reference(x.float(), *(t.float() for t in ops64), inverse)
+    err, err_plain = (float((t.double() - y64).abs().max()) for t in (y, y32))
+    assert err <= 4 * err_plain + 1e-6, (err, err_plain)
+
+
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_wide_emulation_matches_pallas_kernel(inverse, monkeypatch):
+    """fab_tpu's K1 in interpret mode against the kernel's arithmetic at a small
+    shape with every split of the wide layout: D=72 (three 32-column boxes of z and
+    Wlin), d_cond=40 (two 32-deep W1 stages), 2 d_trans = 64 (two W3 column groups),
+    H=352 (two column groups, two W3 depth chunks)."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    rng = np.random.default_rng(15)
+    ops = [t.float() for t in _wide_operands(72, 40, 352, 2, rng)]
+    x = rng.standard_normal((64, 72)).astype(np.float32)
+    y_j, ld_j = jax_rk.fused_realnvp_pass(
+        jnp.asarray(x), *(jnp.asarray(t.numpy()) for t in ops), inverse=inverse, tile_b=32
+    )
+    plan = rk.plan_launch(64, 72, 40, 352, 2)
+    assert plan.groups == 2 and len(plan.stages) == 31
+    y, ld = rk.fused_realnvp_pass_tf32x3_emulated(torch.tensor(x), *ops, inverse)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(ld.numpy(), np.asarray(ld_j), atol=2e-5, rtol=0)
+
+
 def test_per_stage_sums_beat_one_truncating_accumulator_at_depth_320():
     """Why W2's 32-deep stages are summed apart: in the model of the tensor cores'
     truncating accumulation, one accumulator over K1's depth of 320 errs several
@@ -163,16 +219,78 @@ def test_plan_pads_shapes_tma_cannot_address(shape, kernel_shape):
 
 @pytest.mark.parametrize(
     "shape, words",
-    [((100, 36, 18, 320, 2), "D up to 32"), ((100, 32, 15, 320, 2), "D up to 32"),
-     ((100, 32, 8, 320, 2), "d_trans up to 16"), ((100, 32, 16, 324, 2), "H up to 320"),
-     ((100, 32, 16, 640, 2), "H up to 320"), ((100, 8, 8, 32, 2), "d_cond"),
+    [((100, 32, 16, 2048, 2), "shared memory"), ((100, 32, 16, 1280, 2), "shared memory"),
+     ((100, 256, 128, 64, 2), "shared memory"), ((100, 8, 8, 32, 2), "d_cond"),
      ((0, 8, 4, 32, 2), "B=0")],
-    ids=["wide", "wide_after_pad", "wide_trans", "ragged_h", "deep_h", "no_trans",
-         "no_rows"],
+    ids=["deep_h", "wide_h", "wide_d", "no_trans", "no_rows"],
 )
 def test_plan_refuses_shapes_the_kernel_cannot_take(shape, words):
+    """Only a shape whose 16 rows of activations and a 2-slot ring miss the 227 KB of
+    shared memory (or that has no rows or no transformed half) is refused."""
     with pytest.raises(ValueError, match=words):
         rk.plan_launch(*shape)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(100, 36, 18, 320, 2), (100, 32, 15, 320, 2), (100, 32, 8, 320, 2),
+     (100, 32, 16, 324, 2), (100, 32, 16, 640, 2)],
+    ids=["wide", "wide_after_pad", "wide_trans", "ragged_h", "deep_h"],
+)
+def test_plan_takes_shapes_the_earlier_hopper_kernel_refused(shape):
+    """D > 32, 2 d_trans > 32 and H > 320 (after padding) run, with at least a
+    2-slot ring and within shared memory."""
+    plan = rk.plan_launch(*shape)
+    assert plan.slots >= 2 and plan.smem_bytes <= rk.MAX_SMEM
+
+
+@pytest.mark.parametrize(
+    "shape, layout",
+    [((2048, 32, 16, 640, 10), dict(groups=2, z_stride=40, slots=3, smem=212016,
+                                     stages=[("w1", 10, 16)] * 2 + [("w2", 10, 32)] * 40
+                                     + [("w3", 10, 32)] * 2 + [("wlin", 1, 32)])),
+     ((2048, 64, 32, 640, 10), dict(groups=2, z_stride=72, slots=3, smem=216112,
+                                     stages=[("w1", 10, 32)] * 2 + [("w2", 10, 32)] * 40
+                                     + [("w3", 10, 32)] * 4 + [("wlin", 2, 64)])),
+     ((2048, 32, 8, 320, 10), dict(groups=1, z_stride=40, slots=4, smem=215616,
+                                    stages=[("w1", 10, 8), *[("w2", 10, 32)] * 10,
+                                            ("w3", 10, 32), ("w3", 10, 32), ("wlin", 1, 32)])),
+     ((64, 72, 40, 352, 2), dict(groups=2, z_stride=104, slots=3, smem=None,
+                                 stages=[("w1", 10, 32), ("w1", 10, 32), ("w1", 1, 32),
+                                         ("w1", 1, 32)] + [("w2", 10, 32)] * 11
+                                 + [("w2", 1, 32)] * 11 + [("w3", 10, 32), ("w3", 1, 32)] * 2
+                                 + [("wlin", 3, 72)]))],
+    ids=["d32_h640", "d64_h640", "d32_dcond8", "small_wide"],
+)
+def test_plan_splits_wide_chains_into_bounded_stages(shape, layout):
+    """Every ring stage is at most 32 deep and 320 wide: W1 and W2 per 320-column
+    group of H (W1 in 32-deep stages), W3 per 32-column group and 320-deep chunk,
+    Wlin over D's 32-column boxes; the slot is the largest stage."""
+    B, D, d_cond, H, L = shape
+    plan = rk.plan_launch(*shape)
+    assert (plan.D, plan.d_cond, plan.H) == (D, d_cond, H)
+    assert (plan.groups, plan.z_stride, plan.slots) == (
+        layout["groups"], layout["z_stride"], layout["slots"])
+    assert list(plan.stages) == layout["stages"]
+    if layout["smem"] is not None:
+        assert plan.smem_bytes == layout["smem"]
+    assert plan.smem_bytes <= rk.MAX_SMEM
+    assert all(n <= rk.GROUP // 32 for kind, n, rows in plan.stages if kind != "wlin")
+    assert all(rows <= 32 for kind, n, rows in plan.stages if kind != "wlin")
+    assert plan.slot_bytes == max(n * rows * 128 for _, n, rows in plan.stages)
+    assert plan.tma_bytes_per_pass == L * sum(n * rows * 128 for _, n, rows in plan.stages)
+
+
+def test_w3_slices_cover_each_chunk_once():
+    """W3's depth at H=640: two 320-deep chunks, each split over the 8 warps; every
+    8-deep step is summed by exactly one warp, inside one chunk."""
+    ranges = rk._w3_step_ranges(640)
+    steps = sorted(k for mine in ranges for s0, s1 in mine for k in range(s0, s1))
+    assert steps == list(range(80))
+    for mine in ranges:
+        assert len(mine) == 2
+        assert all(s1 <= 40 for s0, s1 in mine[:1]) and all(s0 >= 40 for s0, s1 in mine[1:])
+    assert rk._w3_step_ranges(320) == [[(5 * w, 5 * w + 5)] for w in range(8)]
 
 
 def _random_operands(dim, layers, nodes, rng, dtype=torch.float64):

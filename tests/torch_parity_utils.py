@@ -98,22 +98,48 @@ def ais_noise(key, n_dists: int, n_outer: int, batch: int, dim: int, dtype):
     return noise
 
 
+def metropolis_ais_noise(key, n_dists: int, n_updates: int, batch: int, dim: int, dtype):
+    """All draws of one AIS pass with Metropolis, in the port's call order: the flow
+    draw, then per distribution and update a proposal (normal) and an acceptance
+    uniform (ais.py, metropolis.py)."""
+    key_init, key_chain = jax.random.split(key)
+    noise = {"normal": [np.asarray(jax.random.normal(key_init, (batch, dim), dtype))],
+             "uniform": []}
+    for key_d in jax.random.split(key_chain, n_dists):
+        for key_n in jax.random.split(key_d, n_updates):
+            key_prop, key_acc = jax.random.split(key_n)
+            noise["normal"].append(np.asarray(jax.random.normal(key_prop, (batch, dim), dtype)))
+            noise["uniform"].append(np.asarray(jax.random.uniform(key_acc, (batch,), dtype)))
+    return noise
+
+
 class NoiseReplay:
-    """Replaces the port's random draws with given arrays, in call order."""
+    """Replaces the port's random draws with given arrays, in call order (kinds:
+    normal, exponential, gumbel, uniform and randint)."""
 
     def __init__(self, monkeypatch, noise):
         self.queues = {k: list(v) for k, v in noise.items()}
-        for kind in ("normal", "exponential", "gumbel"):
+        for kind in ("normal", "exponential", "gumbel", "uniform"):
             monkeypatch.setattr(port_random, kind, self._draw(kind))
+        monkeypatch.setattr(port_random, "randint", self._randint)
+
+    def _pop(self, kind, shape):
+        value = self.queues[kind].pop(0)
+        assert tuple(value.shape) == tuple(shape), (kind, value.shape, shape)
+        return value
 
     def _draw(self, kind):
         def draw(generator, shape, dtype, device):
             del generator
-            value = self.queues[kind].pop(0)
-            assert tuple(value.shape) == tuple(shape), (kind, value.shape, shape)
-            return torch.tensor(value, dtype=dtype, device=device)
+            return torch.tensor(self._pop(kind, shape), dtype=dtype, device=device)
 
         return draw
+
+    def _randint(self, generator, low, high, shape, device):
+        del generator
+        value = self._pop("randint", shape)
+        assert ((value >= low) & (value < high)).all()
+        return torch.tensor(value, dtype=torch.int64, device=device)
 
     def assert_consumed(self):
         left = {k: len(v) for k, v in self.queues.items() if v}
