@@ -54,9 +54,17 @@ Phases:
  10. The ManyWell runner on experiments/configs/many_well.yaml (f64, the plain flow
      setup_run builds, prioritised buffer) for 2 iterations with one eval, so the
      exact-sample metrics run on the card.
-  The runner paths launch no kernel (fab_tpu's runners build no fused flow; K2 is
-  reached through flow.fused_coupling=true on lgcp.yaml, phases 6-7): their counts
-  are zeroed before and asserted 0 after.
+ 11. The alanine-dipeptide experiment (experiments/configs/aldp.yaml: 60-D internal
+     coordinates, implicit solvent, 12 circular spline blocks of width 256 with 8
+     bins, HMC 8 x 4 leapfrog steps of 0.1, batch 1024, buffer 512 / 8 batches, 8
+     replay updates, the chirality filter, cosine schedule with 1000 warm-up
+     updates), f32, cut in length only (ALDP_CUTS, printed): the model built
+     directly (minimisation, test set, init_state and 5 steps timed, the LR of
+     every update printed, a profiled step), then the runner with one eval and the
+     final evaluation, its resume for one iteration, and aldp_ml.yaml for 2.
+  The runner and ALDP paths launch no kernel (fab_tpu's runners build no fused
+  flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases 6-7; the
+  ALDP flow is a spline chain): their counts are zeroed before and asserted 0 after.
 
 Prints the kernel JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero on any failure, and without a card.
@@ -679,6 +687,181 @@ def many_well_runner(card, tmp):
           f"{time.time() - t0:.1f} s; eval " + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
 
 
+# ------------------------------------------------------------------------ ALDP
+
+# aldp.yaml cut in length only; every width, the buffer's size, the schedule and the
+# filter stay the config's.
+ALDP_CUTS = ["training.max_iter=5", "training.replay_buffer.min_length=8",
+             "training.n_test_samples=2000", "training.test_mcmc_steps=100",
+             "training.final_eval_samples=2000", "training.n_eval=1",
+             "training.n_checkpoints=1"]
+
+
+def _finite_metrics(metrics, label):
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(float(v))}
+    assert not bad, f"{label}: non-finite metrics {bad}"
+    return ", ".join(f"{k} {float(v):.4g}" for k, v in metrics.items())
+
+
+def aldp_path(device, gen, card, tmp):
+    """The ALDP experiment (aldp.yaml: implicit solvent, 12 spline blocks, HMC 8 x 4,
+    batch 1024, buffer 512 / 8 batches, 8 replay updates, the chirality filter, the
+    cosine schedule with warm-up), f32: the model built directly for timing, counting
+    and profiling; then the runner, its resume and the ML variant. No kernel runs on
+    this path (asserted)."""
+    import numpy as np
+    import torch
+
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.experiments import run_aldp
+    from fab_tpu_torch.experiments.make_aldp_model import make_aldp_model
+    from fab_tpu_torch.experiments.setup_run import setup_precision
+    from fab_tpu_torch.train import PrioritisedBufferTrainer
+    from fab_tpu_torch.utils.training import apply_overrides, load_config
+
+    config = os.path.join(CONFIGS, "aldp.yaml")
+    root = os.path.join(tmp, "aldp")
+    os.makedirs(root)
+    full = load_config(config)
+    for cut in ALDP_CUTS:
+        key, value = cut.split("=")
+        old = full
+        for part in key.split("."):
+            old = old.get(part, "unset") if old != "unset" else old
+        if key == "training.test_mcmc_steps" and old == "unset":
+            old = "unset, the runner's default 400"
+        print(f"[{card}] ALDP cut (length only): {key} = {value} (aldp.yaml: {old})")
+    cfg = apply_overrides(full, ALDP_CUTS)
+    t, rb = cfg.training, cfg.training.replay_buffer
+    batch = t.batch_size
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The model, its reference configuration by 4000 steps of gradient descent, the
+    # test set by HMC, then init_state and 5 steps, each timed.
+    setup_precision(cfg)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model, target = make_aldp_model(cfg, torch.float32, device)
+    torch.cuda.synchronize()
+    minimise_s = time.time() - t0
+    ref_path = os.path.join(tmp, "aldp_reference.npy")
+    np.save(ref_path, target.ref_cartesian)
+    t0 = time.time()
+    z_test = run_aldp.generate_test_set(target, gen, int(t.n_test_samples), int(t.test_mcmc_steps))
+    torch.cuda.synchronize()
+    test_set_s = time.time() - t0
+    assert z_test.shape == (int(t.n_test_samples), 60) and np.isfinite(z_test).all()
+    np.save(os.path.join(root, "test_set.npy"), z_test)
+    print(f"[{card}] ALDP set-up: target with its 4000-step minimisation {minimise_s:.2f} s; "
+          f"test set ({len(z_test)} rows, {t.test_mcmc_steps} HMC sweeps of 10 leapfrog "
+          f"steps) {test_set_s:.2f} s")
+
+    buffer = PrioritisedReplayBuffer(dim=target.dim, max_length=rb.max_length * batch,
+                                     min_sample_length=rb.min_length * batch)
+    trainer = PrioritisedBufferTrainer(
+        model, run_aldp._optimizer(t), buffer, n_batches_buffer_sampling=rb.n_updates,
+        w_adjust_max_clip=rb.max_adjust_w_clip, device=device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = trainer.init_state(gen, batch_size=batch)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    print(f"[{card}] ALDP init_state: buffer filled to {int(state.buffer_state.n_added)} rows "
+          f"(8 AIS passes of {batch}) in {init_s:.2f} s")
+    step_ms = []
+    for _ in range(N_STEPS):
+        count = int(state.opt_state.count)
+        t0 = time.time()
+        state, info = trainer.train_step(state, gen, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        lrs = [float(trainer.optimizer.learning_rate(torch.tensor(c)))
+               for c in range(count, int(state.opt_state.count))]
+        loss, n_valid = float(info["loss"]), int(info["n_valid"])
+        frac = float(info["frac_filter_pass"])
+        print(f"ALDP step {state.step}: {step_ms[-1]:.1f} ms, replay loss {loss:.4f}, n_valid "
+              f"{n_valid}, frac_filter_pass {frac:.4f}, ess_ais {float(info['ess_ais']):.4f}; "
+              f"LR of its {len(lrs)} updates: " + ", ".join(f"{lr:.4g}" for lr in lrs))
+        assert math.isfinite(loss), "ALDP: non-finite loss"
+        assert n_valid > 0, "ALDP: no valid AIS row"
+        assert math.isfinite(frac), "ALDP: no frac_filter_pass"
+    steady = statistics.median(step_ms[1:])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] ALDP FAB+buffer train step: median {steady:.1f} ms over steps 2-{N_STEPS} "
+          f"(all: {', '.join(f'{v:.1f}' for v in step_ms)}), {batch / steady * 1e3:.1f} AIS "
+          f"samples/s; peak device memory {peak_gib:.2f} GiB")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.ais.sample_and_log_weights(state.transition_state, gen, batch, p_target=False,
+                                     tune=False)
+    torch.cuda.synchronize()
+    ais_ms = (time.time() - t0) * 1e3
+    print(f"[{card}] ALDP AIS pass alone: {ais_ms:.1f} ms ({ais_ms / steady:.1%} of the "
+          "median step)")
+    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, "ALDP", {
+        "GEMMs": ["gemm", "cutlass", "sm90_xmma"], "reductions": ["reduce"],
+        "gather / scatter": ["index", "gather", "scatter"]})
+    del trainer, state, model
+    _no_kernel_launched("the ALDP steps")
+
+    # The runner on aldp.yaml with the cuts, on the reference and test set above; its
+    # resume for one more iteration; the ML variant (aldp_ml.yaml, its own vacuum
+    # minimisation and sets).
+    common = ["--device", "cuda", *ALDP_CUTS, f"training.save_root={root}",
+              f"data.transform={ref_path}"]
+    starts = []
+    run = PrioritisedBufferTrainer.run
+
+    def recording_run(self, *args, **kw):
+        starts.append(kw["start_iter"])
+        return run(self, *args, **kw)
+
+    PrioritisedBufferTrainer.run = recording_run
+    try:
+        t0 = time.time()
+        runner, r_state, metrics = run_aldp.main(["--config", config, *common])
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        assert isinstance(runner, PrioritisedBufferTrainer) and r_state.step == 5
+        rows = [r for r in _csv_rows_in(root) if r.get("loss")]
+        shown = _finite_columns(rows[-1], ("loss", "n_valid", "frac_filter_pass"))
+        print(f"[{card}] ALDP runner (aldp.yaml, the cuts above): init_state, 5 iterations, one "
+              f"eval and one checkpoint, the final evaluation in {run_s:.1f} s; last logged step "
+              + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
+        print(f"[{card}] ALDP final evaluation (2000 flow samples against the test set): "
+              + _finite_metrics(metrics, "ALDP final evaluation"))
+        t0 = time.time()
+        _, r_state, metrics = run_aldp.main(["--config", config, *common, "training.max_iter=6"])
+        torch.cuda.synchronize()
+        assert starts == [0, 5] and r_state.step == 6, (starts, r_state.step)
+        _finite_metrics(metrics, "ALDP resumed evaluation")
+        print(f"[{card}] ALDP runner resumed at iteration {starts[-1]} for 1 iteration "
+              f"({time.time() - t0:.1f} s)")
+    finally:
+        PrioritisedBufferTrainer.run = run
+    t0 = time.time()
+    ml_root = os.path.join(tmp, "aldp_ml")
+    _, _, ml_metrics = run_aldp.main([
+        "--config", os.path.join(CONFIGS, "aldp_ml.yaml"), "--device", "cuda",
+        "training.max_iter=2", "training.n_train_samples=2000", "training.n_test_samples=2000",
+        "training.test_mcmc_steps=100", "training.final_eval_samples=2000",
+        f"training.save_root={ml_root}"])
+    torch.cuda.synchronize()
+    print(f"[{card}] ALDP ML runner (aldp_ml.yaml, vacuum: its own minimisation, test and "
+          f"training sets of 2000, 2 iterations) in {time.time() - t0:.1f} s; evaluation "
+          + _finite_metrics(ml_metrics, "ALDP ML evaluation"))
+    _no_kernel_launched("the ALDP phase")
+    return {"steady_ms": steady, "busy": busy, "ais_ms": ais_ms, "init_s": init_s,
+            "minimise_s": minimise_s, "test_set_s": test_set_s, "groups": groups,
+            "run_s": run_s}
+
+
+def _csv_rows_in(run_dir):
+    with open(os.path.join(run_dir, "logging_hist.csv")) as f:
+        return list(csv.DictReader(f))
+
+
 # ---------------------------------------------------------------- K2 / LGCP-1600
 
 
@@ -952,7 +1135,7 @@ def time_k2(k2, name, card):
 
 
 def drive(device, gen, name, card) -> list:
-    """Phases 2-10; returns the kernel records."""
+    """Phases 2-11; returns the kernel records."""
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
     mw = manywell_path(device, gen, card)
@@ -973,6 +1156,10 @@ def drive(device, gen, name, card) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         gmm = gmm_runner(device, gen, card, tmp)
         many_well_runner(card, tmp)
+
+    # ------------------------------------------------ 11. ALDP
+    with tempfile.TemporaryDirectory() as tmp:
+        aldp = aldp_path(device, gen, card, tmp)
 
     kernels = [
         {
@@ -1034,6 +1221,9 @@ def drive(device, gen, name, card) -> list:
     print(f"[{card}] GMM-40 runner path (no kernel): median step {gmm['steady_ms']:.1f} ms, "
           f"{128 / gmm['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
           f"{gmm['busy']:.1%} of the median step")
+    print(f"[{card}] ALDP path (no kernel): median step {aldp['steady_ms']:.1f} ms, "
+          f"{1024 / aldp['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
+          f"{aldp['busy']:.1%} of the median step")
     return kernels
 
 

@@ -2,8 +2,9 @@
 
 ``PrioritisedReplayBuffer``:
 - add: ring write at (arange + cursor) % max_length; invalid rows get priority -inf.
-- sample: without replacement by Gumbel-top-k over log_w; unwritten and killed rows
-  carry -inf and are never drawn while finite rows remain.
+- sample: priority ~ softmax(log_w), without replacement by Gumbel-top-k, or with
+  replacement (``sample_with_replacement``) by a categorical draw; unwritten and
+  killed rows carry -inf and are never drawn while finite rows remain.
 - adjust: log_w += adjustment and log_q_old refreshed at the sampled rows; rows whose
   adjustment or log q is non-finite are killed (priority -inf).
 
@@ -11,8 +12,7 @@
 replacement, by recency weight (1 / rank)^temperature over the written rows (rank 1
 is the newest).
 
-Every method returns a new state and leaves its argument untouched. The prioritised
-buffer's sampling with replacement is not ported yet.
+Every method returns a new state and leaves its argument untouched.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ class PrioritisedReplayBuffer:
     dim: int
     max_length: int
     min_sample_length: int
+    sample_with_replacement: bool = False
 
     def __post_init__(self):
         if not self.min_sample_length < self.max_length:
@@ -54,6 +55,9 @@ class PrioritisedReplayBuffer:
             cursor=torch.zeros((), dtype=torch.int32, device=device),
             n_added=torch.zeros((), dtype=torch.int32, device=device),
         )
+
+    def can_sample(self, state: PrioritisedBufferState) -> torch.Tensor:
+        return state.n_added >= self.min_sample_length
 
     def add(
         self,
@@ -82,11 +86,16 @@ class PrioritisedReplayBuffer:
     def sample(
         self, state: PrioritisedBufferState, generator: torch.Generator, batch_size: int
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Priority ~ softmax(log_w), without replacement (Gumbel-top-k).
-        Returns (x, log_w, log_q_old, indices)."""
-        g = random.gumbel(generator, state.log_w.shape, state.log_w.dtype, state.log_w.device)
-        perturbed = torch.where(torch.isfinite(state.log_w), state.log_w + g, -math.inf)
-        indices = torch.topk(perturbed, batch_size).indices
+        """Priority ~ softmax(log_w): without replacement by Gumbel-top-k, or with
+        replacement by a categorical draw. Returns (x, log_w, log_q_old, indices)."""
+        if self.sample_with_replacement:
+            indices = random.categorical(generator, state.log_w, batch_size)
+        else:
+            g = random.gumbel(
+                generator, state.log_w.shape, state.log_w.dtype, state.log_w.device
+            )
+            perturbed = torch.where(torch.isfinite(state.log_w), state.log_w + g, -math.inf)
+            indices = torch.topk(perturbed, batch_size).indices
         return state.x[indices], state.log_w[indices], state.log_q_old[indices], indices
 
     def sample_n_batches(

@@ -25,14 +25,15 @@ def _tensor(a, device=None) -> torch.Tensor:
 
 
 def from_jax_params(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
-    """Flow state dict from ``fab_tpu``'s flow params (diagonal-Gaussian base,
-    AffineCoupling, LULinear and ActNorm layers)."""
-    state = {
-        "base.loc": _tensor(tree["base"]["loc"], device),
-        "base.log_scale": _tensor(tree["base"]["log_scale"], device),
-    }
+    """Flow state dict from ``fab_tpu``'s flow params: a diagonal-Gaussian base or a
+    base without parameters (``UniformGaussianBase``), and AffineCoupling,
+    SplineCoupling (an MLP each), LULinear, ActNorm and parameter-free
+    (``PeriodicShift``) layers."""
+    state = {f"base.{k}": _tensor(v, device) for k, v in tree["base"].items()}
     for i, layer in enumerate(tree["layers"]):
         prefix = f"bijectors.{i}."
+        if not layer:
+            continue
         if "mlp" in layer:
             for j, dense in enumerate(layer["mlp"]):
                 state[f"{prefix}mlp.{j}.w"] = _tensor(dense["w"], device)
@@ -48,9 +49,11 @@ def from_jax_params(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor
     return state
 
 
-def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+def to_jax_params(state: Mapping[str, torch.Tensor], n_layers: int = 0) -> Dict[str, Any]:
     """``fab_tpu``'s flow pytree, with numpy leaves, from a port Flow's state dict:
-    ``{"base": {...}, "layers": ({"mlp": [{"w", "b"}, ...]} | {"lower", ...}, ...)}``."""
+    ``{"base": {...}, "layers": ({"mlp": [{"w", "b"}, ...]} | {"lower", ...}, ...)}``.
+    A layer without parameters has no key in the state dict: ``n_layers`` (the
+    flow's bijector count) gives it its empty dict."""
     base, layers = {}, {}
     for name, value in state.items():
         leaf = value.detach().cpu().numpy()
@@ -68,7 +71,8 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     for layer in layers.values():
         if "mlp" in layer:
             layer["mlp"] = [layer["mlp"][j] for j in sorted(layer["mlp"])]
-    return {"base": base, "layers": tuple(layers[i] for i in sorted(layers))}
+    n_layers = max([n_layers] + [i + 1 for i in layers])
+    return {"base": base, "layers": tuple(layers.get(i, {}) for i in range(n_layers))}
 
 
 def transition_state_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:

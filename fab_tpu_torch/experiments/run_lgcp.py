@@ -18,7 +18,7 @@ def main(argv=None):
     cfg, device = parse_args(argv, "experiments/configs/lgcp.yaml")
     if cfg.target.get("in_graph_kernel"):
         raise NotImplementedError(
-            "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 8: the port "
+            "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 7: the port "
             "keeps chol(K)^T on the device, built once)"
         )
     target = LogGaussianCoxProcess(grid_size=cfg.target.grid_size,

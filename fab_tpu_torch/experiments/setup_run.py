@@ -85,7 +85,7 @@ def setup_mesh(cfg: ConfigDict) -> None:
     if mesh_cfg.get("n_model", 1) == 1 and mesh_cfg.get("n_data") in (None, 1):
         return
     raise NotImplementedError(
-        "a multi-device mesh is not ported yet (ROADMAP Queue 1, item 9: parallelism)"
+        "a multi-device mesh is not ported yet (ROADMAP Queue 1, item 6: parallelism)"
     )
 
 
@@ -103,12 +103,12 @@ def setup_model(cfg: ConfigDict, target, dtype=torch.float32, device="cuda") -> 
     """Flow + transition operator + FABModel, in ``dtype`` on ``device``."""
     if cfg.flow.get("resampled_base"):
         raise NotImplementedError(
-            "flow.resampled_base is not ported yet (ROADMAP Queue 1, item 6: the "
+            "flow.resampled_base is not ported yet (ROADMAP Queue 1, item 2: the "
             "resampled (LARS) base)"
         )
     if cfg.flow.get("use_snf"):
         raise NotImplementedError(
-            "flow.use_snf is not ported yet (ROADMAP Queue 1, item 6: SNF flows)"
+            "flow.use_snf is not ported yet (ROADMAP Queue 1, item 2: SNF flows)"
         )
     flow = make_realnvp(
         cfg.target.dim,

@@ -63,8 +63,48 @@ class DiagGaussianBase(nn.Module):
         return log_norm - 0.5 * (eps**2).sum(-1)
 
 
+class UniformGaussianBase(nn.Module):
+    """Uniform on [-pi, pi] on the circular dims and standard normal elsewhere, with
+    no parameters (``fab_tpu/flows/base.py:99-146``; the ALDP flow's base).
+
+    Its log density is -inf outside [-pi, pi] on a circular dim. The module holds
+    no state to save; an empty buffer carries its dtype and device, which
+    ``Flow.to`` sets.
+    """
+
+    def __init__(self, dim: int, circular_dims: Sequence[int], dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dim = dim
+        self.circular_dims = tuple(int(i) for i in circular_dims)
+        circ = torch.zeros((dim,), dtype=torch.bool, device=device)
+        circ[list(self.circular_dims)] = True
+        self.register_buffer("circular", circ, persistent=False)
+        self.register_buffer("_like", torch.zeros((0,), dtype=dtype, device=device),
+                             persistent=False)
+
+    def reset_parameters(self) -> None:
+        pass
+
+    def sample_and_log_prob(
+        self, n: int, generator: torch.Generator
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dtype, device, b = self._like.dtype, self._like.device, math.pi
+        gauss = random.normal(generator, (n, self.dim), dtype, device)
+        uni = (random.uniform(generator, (n, self.dim), dtype, device) * (2 * b) - b).clamp(min=-b)
+        z = torch.where(self.circular, uni, gauss)
+        return z, self.log_prob(z)
+
+    def log_prob(self, z: torch.Tensor) -> torch.Tensor:
+        b = math.pi
+        log_gauss = -0.5 * z**2 - 0.5 * math.log(2 * math.pi)
+        log_uni = torch.where(z.abs() <= b, z.new_full((), -math.log(2 * b)), -math.inf)
+        return torch.where(self.circular, log_uni, log_gauss).sum(-1)
+
+
 class Flow(nn.Module):
-    """A normalizing flow q: trainable diagonal-Gaussian base + chain of bijectors."""
+    """A normalizing flow q: a base (trainable diagonal Gaussian, or
+    ``UniformGaussianBase``) + chain of bijectors."""
 
     def __init__(self, dim: int, bijectors: Sequence[Bijector], base: nn.Module):
         super().__init__()

@@ -56,6 +56,16 @@ class GMM(TargetDistribution):
             expectation_generator,
         )
 
+    def save_as_numpy(self, path: str) -> None:
+        """Write the mixture's parameters to an ``.npz`` (locs, scales, uniform
+        weights), as ``fab_tpu``'s ``GMM.save_as_numpy`` does."""
+        np.savez(
+            path,
+            locs=self.locs.cpu().numpy(),
+            scales=self.scales.cpu().numpy(),
+            weights=np.full((self.n_mixes,), 1.0 / self.n_mixes),
+        )
+
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         diff = x[..., None, :] - self.locs  # [..., K, D]
         log_comp = (

@@ -1,8 +1,8 @@
 """FAB trainers, guarded update and optimizer (``fab_tpu/train.py``).
 
-The optimizer is a small functional Adam with global-norm clipping that keeps
-the JAX package's semantics (``fab_tpu/train.py:57-156``), which ``torch.optim``
-does not:
+The optimizer is a small functional Adam (or Adamax) with global-norm clipping and
+an optional LR schedule that keeps the JAX package's semantics
+(``fab_tpu/train.py:57-156``), which ``torch.optim`` does not:
 
 - ``clip_by_global_norm`` scales by ``max_norm / g_norm`` only when
   ``g_norm >= max_norm`` (no ``+1e-6`` in the divisor);
@@ -19,10 +19,11 @@ recency-weighted replay buffer) and ``PrioritisedBufferTrainer``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import pathlib
 from time import time
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,20 +53,118 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
+# The pieces take the integer update count and keep the dtypes fab_tpu's schedules
+# have: the linear and exponential pieces divide an int32 count, which gives
+# float32; the cosine gives the default float (float64 here). A float32 piece makes
+# the whole joined schedule float32 (``LRSchedule.__call__``).
+
+
+def _linear(count, init: float, end: float, steps: int):
+    """Linear from init to end over ``steps`` updates, then end."""
+    frac = 1 - count.clamp(0, steps).to(torch.float32) / steps
+    return (init - end) * frac + end
+
+
+def _cosine(count, init: float, steps: int, alpha: float):
+    """Cosine decay from init to alpha * init over ``steps`` updates, then flat."""
+    count = count.to(torch.float64).clamp(max=float(steps))
+    return init * ((1 - alpha) * (0.5 * (1 + torch.cos(math.pi * count / steps))) + alpha)
+
+
+def _exponential(count, init: float, steps: int, rate: float):
+    """Exponential decay: init * rate ** (count / steps)."""
+    p = count.to(torch.float32) / steps
+    return torch.where(count <= 0, init, init * rate**p)
+
+
+def _join(pieces, boundaries, count):
+    """Joined schedules: piece i+1 takes over at boundary i, with its count
+    restarted there."""
+    out = pieces[0](count)
+    for boundary, piece in zip(boundaries, pieces[1:]):
+        out = torch.where(count < boundary, out, piece(count - boundary))
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
-class ClippedAdam:
-    """Global-norm clipping then Adam, with a constant lr (``fab_tpu/train.py:146-156``)."""
+class LRSchedule:
+    """The learning rate per optimizer update (``fab_tpu/train.py:106-144``):
+    ``"cosine"`` (to ``decay_rate * lr`` at ``total_steps``), ``"cosine_restart"``
+    (cosines of ``restart_period`` updates, default ``total_steps // 4``, joined),
+    ``"exponential"`` (``lr * decay_rate ** (t / total_steps)``) or None (constant),
+    each after an optional linear warm-up from 0 over ``warmup_steps``.
+
+    Called with the update count before its increment, as fab_tpu's is, so with a
+    warm-up the first update has learning rate 0. Evaluated on the device: no step
+    waits for the host.
+    """
 
     lr: float
+    schedule: Optional[str] = None
+    total_steps: Optional[int] = None
+    warmup_steps: int = 0
+    decay_rate: float = 0.1
+    restart_period: Optional[int] = None
+
+    def __post_init__(self):
+        if self.schedule not in (None, "cosine", "cosine_restart", "exponential"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.schedule and self.total_steps is None:
+            raise ValueError("scheduled LR needs total_steps")
+
+    def _main(self, count):
+        lr, rate = self.lr, float(self.decay_rate)
+        span = max((self.total_steps or 0) - self.warmup_steps, 1)
+        if self.schedule == "cosine":
+            return _cosine(count, lr, span, rate)
+        if self.schedule == "cosine_restart":
+            period = int(self.restart_period or max(self.total_steps // 4, 1))
+            n_pieces = -(-self.total_steps // period)
+            return _join(
+                [lambda c: _cosine(c, lr, period, rate)] * n_pieces,
+                [period * (i + 1) for i in range(self.total_steps // period)],
+                count,
+            )
+        if self.schedule == "exponential":
+            return _exponential(count, lr, span, rate)
+        return torch.full(count.shape, lr, dtype=torch.float64, device=count.device)
+
+    def __call__(self, count: torch.Tensor) -> torch.Tensor:
+        count = count.to(torch.int64)
+        if self.warmup_steps > 0:
+            lr = _join(
+                [lambda c: _linear(c, 0.0, self.lr, self.warmup_steps), self._main],
+                [self.warmup_steps],
+                count,
+            )
+        else:
+            lr = self._main(count)
+        if self.warmup_steps > 0 or self.schedule == "exponential":
+            lr = lr.to(torch.float32)
+        return lr
+
+
+@dataclasses.dataclass(frozen=True)
+class ClippedAdam:
+    """Global-norm clipping then Adam, or Adamax with ``adamax``
+    (``fab_tpu/train.py:146-156``). ``lr`` is a constant or an ``LRSchedule`` read
+    at the update count."""
+
+    lr: Union[float, LRSchedule]
     max_gradient_norm: Optional[float] = None
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    adamax: bool = False
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
         zeros = lambda: [torch.zeros_like(p) for p in params]
         count = torch.zeros((), dtype=torch.int32, device=params[0].device)
         return AdamState(count, zeros(), zeros())
+
+    def learning_rate(self, count: torch.Tensor):
+        """The learning rate of the update made at ``count`` (before increment)."""
+        return self.lr(count) if isinstance(self.lr, LRSchedule) else self.lr
 
     def update(
         self, grads: Sequence[torch.Tensor], state: AdamState
@@ -77,7 +176,12 @@ class ClippedAdam:
                 torch.where(trigger, g, g / g_norm * self.max_gradient_norm) for g in grads
             ]
         mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(grads, state.mu)]
-        nu = [(1 - self.b2) * g * g + self.b2 * v for g, v in zip(grads, state.nu)]
+        if self.adamax:
+            # Infinity norm: no bias correction and no square root.
+            nu = [torch.maximum(g.abs() + self.eps, self.b2 * v) for g, v in zip(grads, state.nu)]
+        else:
+            nu = [(1 - self.b2) * g * g + self.b2 * v for g, v in zip(grads, state.nu)]
+        lr = self.learning_rate(state.count)
         count = torch.where(
             state.count < 2**31 - 1, state.count + 1, state.count
         ).to(torch.int32)
@@ -85,16 +189,37 @@ class ClippedAdam:
         for m, v in zip(mu, nu):
             c = count.to(m.dtype)
             m_hat = m / (1 - self.b1**c)
-            v_hat = v / (1 - self.b2**c)
-            updates.append(-self.lr * (m_hat / (torch.sqrt(v_hat) + self.eps)))
+            if self.adamax:
+                direction = m_hat / v
+            else:
+                direction = m_hat / (torch.sqrt(v / (1 - self.b2**c)) + self.eps)
+            step = -lr if isinstance(lr, float) else -lr.to(m.dtype)
+            updates.append(step * direction)
         return updates, AdamState(count, mu, nu)
 
 
-def make_optimizer(lr: float, max_gradient_norm: Optional[float] = None) -> ClippedAdam:
-    """Constant-LR Adam with optional global-norm clipping. The LR schedules and
-    Adamax of ``fab_tpu/train.py:make_optimizer`` are not ported yet."""
+def make_optimizer(
+    lr: float,
+    max_gradient_norm: Optional[float] = None,
+    optimizer: str = "adam",
+    schedule: Optional[str] = None,
+    total_steps: Optional[int] = None,
+    warmup_steps: int = 0,
+    decay_rate: float = 0.1,
+    restart_period: Optional[int] = None,
+) -> ClippedAdam:
+    """Adam or Adamax with optional global-norm clipping and an optional LR schedule
+    (``fab_tpu/train.py:make_optimizer``; see ``LRSchedule``). ``total_steps``
+    counts optimizer updates: a buffer trainer makes several per iteration."""
+    if optimizer not in ("adam", "adamax"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    lr = float(lr)
+    if schedule or warmup_steps > 0:
+        lr = LRSchedule(lr, schedule, total_steps, int(warmup_steps), float(decay_rate),
+                        restart_period)
     return ClippedAdam(
-        float(lr), None if max_gradient_norm is None else float(max_gradient_norm)
+        lr, None if max_gradient_norm is None else float(max_gradient_norm),
+        adamax=optimizer == "adamax",
     )
 
 
@@ -218,7 +343,9 @@ class Trainer:
         opt = state.opt_state
         payload = {
             "params": {
-                "flow": to_jax_params(self.model.flow.state_dict()),
+                "flow": to_jax_params(
+                    self.model.flow.state_dict(), len(self.model.flow.bijectors)
+                ),
                 "transition": dict(state.transition_state),
             },
             "opt_state": {
@@ -469,11 +596,13 @@ class PrioritisedBufferTrainer(Trainer):
 
     The flow's parameters live in ``model.flow`` and are updated in place. Per
     iteration:
-      1. an AIS pass targeting g = p^alpha q^(1-alpha), added to the buffer;
+      1. an AIS pass targeting g = p^alpha q^(1-alpha), added to the buffer; rows the
+         model's train-time ``sample_filter`` rejects go in with priority -inf;
       2. one Gumbel-top-k draw of n_batches_buffer_sampling x batch rows;
       3. per replay batch: a no-grad probe of log q (non-finite rows are masked and
          zero-filled), a guarded gradient step on the w-adjusted loss, and the
-         priority adjustment.
+         priority adjustment, or, with ``w_adjust_in_buffer_after_update``, one
+         adjustment pass over every replay batch after the last step.
     """
 
     state_type = BufferTrainState
@@ -486,6 +615,7 @@ class PrioritisedBufferTrainer(Trainer):
         buffer: PrioritisedReplayBuffer,
         n_batches_buffer_sampling: int = 2,
         w_adjust_max_clip: Optional[float] = 10.0,
+        w_adjust_in_buffer_after_update: bool = False,
         logger: Optional[Logger] = None,
         plotter: Optional[Callable] = None,
         save_path: str = "",
@@ -496,10 +626,11 @@ class PrioritisedBufferTrainer(Trainer):
         self.buffer = buffer
         self.n_batches_buffer_sampling = n_batches_buffer_sampling
         self.w_adjust_max_clip = w_adjust_max_clip
+        self.w_adjust_in_buffer_after_update = w_adjust_in_buffer_after_update
 
     def init_state(self, generator: torch.Generator, batch_size: int = 128) -> BufferTrainState:
         """Initialise flow and optimizer, and fill the buffer to its minimum length
-        with AIS samples."""
+        with AIS samples (unfiltered, as ``fab_tpu``'s fill is)."""
         return _fill_buffer(
             self, generator, batch_size,
             lambda b, r: self.buffer.add(b, r.point.x, r.log_w, r.point.log_q, r.mask),
@@ -511,13 +642,17 @@ class PrioritisedBufferTrainer(Trainer):
         model, buffer, flow = self.model, self.buffer, self.model.flow
         alpha = model.alpha
 
-        # 1. AIS pass + buffer add.
+        # 1. AIS pass + buffer add, the train-time filter's rejects at -inf.
         result = model.ais.sample_and_log_weights(
             state.transition_state, generator, batch_size, p_target=False, tune=True
         )
+        add_mask = model.filter_batch(result.point.x, result.mask)
+        filter_info = {}
+        if model.sample_filter is not None:
+            n_valid = result.mask.sum().clamp(min=1)
+            filter_info["frac_filter_pass"] = (add_mask & result.mask).sum() / n_valid
         buffer_state = buffer.add(
-            state.buffer_state, result.point.x, result.log_w, result.point.log_q,
-            result.mask,
+            state.buffer_state, result.point.x, result.log_w, result.point.log_q, add_mask
         )
         # 2. Replay batches, each [n_batches, batch, ...].
         xs, log_ws, log_q_olds, idxs = buffer.sample_n_batches(
@@ -540,12 +675,13 @@ class PrioritisedBufferTrainer(Trainer):
                 log_q_x, log_q_old, alpha, self.w_adjust_max_clip, row_ok
             )
             opt_state, grad_norm, ok = self._step(loss, opt_state)
-            buffer_state = buffer.adjust(
-                buffer_state,
-                torch.where(row_ok, log_w_adjust, torch.nan),
-                log_q_x.detach(),
-                idx,
-            )
+            if not self.w_adjust_in_buffer_after_update:
+                buffer_state = buffer.adjust(
+                    buffer_state,
+                    torch.where(row_ok, log_w_adjust, torch.nan),
+                    log_q_x.detach(),
+                    idx,
+                )
             # fab_tpu logs the last replay batch's values.
             step_info = {
                 "loss": loss.detach(),
@@ -556,10 +692,24 @@ class PrioritisedBufferTrainer(Trainer):
                 "w_adjust_max": torch.where(row_ok, w_pre, -torch.inf).max(),
                 "log_q_x_mean": torch.where(row_ok, log_q_x.detach(), 0.0).mean(),
             }
+        if self.w_adjust_in_buffer_after_update:
+            # One adjustment pass over the same replay batches with the final flow:
+            # the raw rows (not the zero-filled ones), as fab_tpu does.
+            for x, log_w_b, log_q_old, idx in zip(xs, log_ws, log_q_olds, idxs):
+                with torch.no_grad():
+                    log_q_new = flow_log_prob(flow, x)
+                log_w_adjust = (1 - alpha) * (log_q_new - log_q_old)
+                buffer_state = buffer.adjust(
+                    buffer_state,
+                    torch.where(torch.isfinite(log_w_b), log_w_adjust, torch.nan),
+                    log_q_new,
+                    idx,
+                )
 
         sampled_log_w = torch.where(torch.isfinite(log_ws), log_ws, 0.0)
         info = dict(
             result.info,
+            **filter_info,
             **step_info,
             sampled_log_w_mean=sampled_log_w.mean(),
             sampled_log_w_std=sampled_log_w.std(correction=0),

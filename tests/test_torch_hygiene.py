@@ -14,8 +14,10 @@ import torch
 from fab_tpu_torch.flows import make_realnvp
 from fab_tpu_torch.ops.coupling_kernel import fused_coupling_apply
 from fab_tpu_torch.ops.realnvp_kernel import fused_realnvp_pass
+from fab_tpu_torch.experiments.make_aldp_model import make_aldp_flow, make_aldp_model
 from fab_tpu_torch.experiments.setup_run import setup_trainer_and_run_flow
 from fab_tpu_torch.targets import GMM, LogGaussianCoxProcess, ManyWellEnergy
+from fab_tpu_torch.targets.aldp import AldpBoltzmann
 from fab_tpu_torch.train import BufferTrainer, PrioritisedBufferTrainer, Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -62,7 +64,8 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize(
     "entry",
     [make_realnvp, ManyWellEnergy, LogGaussianCoxProcess, GMM, Trainer, BufferTrainer,
-     PrioritisedBufferTrainer, setup_trainer_and_run_flow],
+     PrioritisedBufferTrainer, setup_trainer_and_run_flow, AldpBoltzmann, make_aldp_flow,
+     make_aldp_model],
     ids=lambda e: e.__name__,
 )
 def test_entry_points_default_to_the_card(entry):
@@ -80,6 +83,10 @@ def test_entry_points_raise_without_a_card():
         LogGaussianCoxProcess(grid_size=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GMM(true_expectation_estimation_n_samples=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AldpBoltzmann()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_aldp_flow(6, (1,), n_blocks=1, hidden_units=4)
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():

@@ -4,6 +4,8 @@ Parameters and inputs are made with numpy from a seed and handed to both package
 JAX's random draws are regenerated by replaying fab_tpu's key splits and fed to the
 port through ``fab_tpu_torch.random``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,13 +86,20 @@ def hmc_noise(key, n_outer: int, shape, dtype):
     return {"normal": normals, "exponential": exps}
 
 
-def ais_noise(key, n_dists: int, n_outer: int, batch: int, dim: int, dtype):
-    """All draws of one AIS pass with HMC, in the port's call order (ais.py:81,133)."""
+def ais_noise(key, n_dists: int, n_outer: int, batch: int, dim: int, dtype,
+              uniform_base: bool = False):
+    """All draws of one AIS pass with HMC, in the port's call order (ais.py:81,133).
+    ``uniform_base``: the flow's base is a ``UniformGaussianBase``, which splits its
+    key into a normal and a uniform draw."""
     key_init, key_chain = jax.random.split(key)
     noise = {
         "normal": [np.asarray(jax.random.normal(key_init, (batch, dim), dtype))],
         "exponential": [],
     }
+    if uniform_base:
+        key_g, key_u = jax.random.split(key_init)
+        noise["normal"] = [np.asarray(jax.random.normal(key_g, (batch, dim), dtype))]
+        noise["uniform"] = [np.asarray(jax.random.uniform(key_u, (batch, dim), dtype))]
     for key_d in jax.random.split(key_chain, n_dists):
         step = hmc_noise(key_d, n_outer, (batch, dim), dtype)
         noise["normal"] += step["normal"]
@@ -180,27 +189,37 @@ def assert_buffer(state, state_j, tol):
 
 
 def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_batches,
-                     hmc_kw, tol=1e-8):
+                     hmc_kw, tol=1e-8, filters=None, trainer_kw=None,
+                     with_replacement=False, optimizer_kw=None, uniform_base=False):
     """One full f64 PrioritisedBufferTrainer step of the port against fab_tpu's, on
     a shared buffer (192 rows, some dead) and shared noise: flow parameters, Adam
     state, HMC state, buffer and logged info agree to ``tol``.
 
     ``flow_pair`` is (jax flow, jax params, port flow); ``targets`` is (jax target,
-    port target). Returns the port's info.
+    port target); ``filters`` an optional (jax, port) train-time sample filter;
+    ``trainer_kw`` and ``optimizer_kw`` go to both trainers and both
+    ``make_optimizer``s; ``with_replacement`` makes both buffers draw with
+    replacement; ``uniform_base`` replays a ``UniformGaussianBase``'s draws. Returns
+    (port info, port state, fab_tpu's info, fab_tpu's state).
     """
     jax_flow, params, flow = flow_pair
     target_j, target = targets
+    trainer_kw = trainer_kw or {}
+    optimizer_kw = optimizer_kw or {}
     rng = np.random.default_rng(9)
     with jax.enable_x64():
         model_j = JaxFABModel.create(
             jax_flow, target_j, transition_operator=JaxHMC(**hmc_kw),
             n_intermediate_distributions=n_dists,
         )
-        buf_j = JaxBuffer(dim=dim, max_length=512, min_sample_length=128)
+        if filters is not None:
+            model_j = dataclasses.replace(model_j, sample_filter=filters[0])
+        buf_j = JaxBuffer(dim=dim, max_length=512, min_sample_length=128,
+                          sample_with_replacement=with_replacement)
         trainer_j = JaxTrainer(
-            model_j, jax_make_optimizer(1e-2, 100.0), buf_j,
+            model_j, jax_make_optimizer(1e-2, 100.0, **optimizer_kw), buf_j,
             n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
-            dtype=jnp.float64,
+            dtype=jnp.float64, **trainer_kw,
         )
         buffer_j = buf_j.init(jnp.float64)
         for _ in range(3):
@@ -215,19 +234,24 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
         )
         key = jax.random.key(5)
         key_ais, key_sample = jax.random.split(key)
-        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64)
-        noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, (512,), jnp.float64))]
+        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64, uniform_base)
+        gumbel_shape = (n_batches * batch, 512) if with_replacement else (512,)
+        noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, gumbel_shape,
+                                                        jnp.float64))]
         new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key))
 
     model = FABModel.create(
         flow, target, transition_operator=HamiltonianMonteCarlo(**hmc_kw),
         n_intermediate_distributions=n_dists,
     )
+    if filters is not None:
+        model = dataclasses.replace(model, sample_filter=filters[1])
     trainer = PrioritisedBufferTrainer(
-        model, make_optimizer(1e-2, 100.0),
-        PrioritisedReplayBuffer(dim=dim, max_length=512, min_sample_length=128),
+        model, make_optimizer(1e-2, 100.0, **optimizer_kw),
+        PrioritisedReplayBuffer(dim=dim, max_length=512, min_sample_length=128,
+                                sample_with_replacement=with_replacement),
         n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
-        dtype=torch.float64, device="cpu",
+        dtype=torch.float64, device="cpu", **trainer_kw,
     )
     state = BufferTrainState(
         transition_state=transition_state_from_jax(trans_j),
@@ -255,6 +279,9 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
     for k in ("loss", "grad_norm", "n_valid", "w_adjust_mean", "sampled_log_w_mean",
               "sampled_log_w_std", "ess_ais"):
         assert_close(info[k], info_j[k], tol, k)
+    if filters is not None:
+        assert_close(info["frac_filter_pass"], info_j["frac_filter_pass"], 0.0,
+                     "frac_filter_pass")
     assert bool(info["update_applied"]) and bool(info_j["update_applied"])
     assert float(info["loss"]) != 0.0 and int(info["n_valid"]) > 0
-    return info
+    return info, new, info_j, new_j
