@@ -60,11 +60,27 @@ Phases:
      replay updates, the chirality filter, cosine schedule with 1000 warm-up
      updates), f32, cut in length only (ALDP_CUTS, printed): the model built
      directly (minimisation, test set, init_state and 5 steps timed, the LR of
-     every update printed, a profiled step), then the runner with one eval and the
-     final evaluation, its resume for one iteration, and aldp_ml.yaml for 2.
-  The runner and ALDP paths launch no kernel (fab_tpu's runners build no fused
-  flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases 6-7; the
-  ALDP flow is a spline chain): their counts are zeroed before and asserted 0 after.
+     every update printed, a profiled step), then the runner for 3 iterations with
+     one eval and the final evaluation, and its resume for one iteration.
+ 12. The resampled (LARS) base and stochastic normalizing flows, f32/f64 as each
+     config sets, cut in length only (LARS_SNF_CUTS, printed beside each config's
+     value): aldp_rbd.yaml (vacuum; the LARS base, acceptance net 2 x 256, T = 100,
+     1024 points; 12 spline blocks of width 256, 8 bins; HMC 8 x 4; batch 1024;
+     prioritised buffer; the chirality filter) and aldp_snf.yaml (the same flow over
+     the gauss-uni base with 3 MH layers of 10 steps of the vacuum force field, so
+     30 target evaluations inside every log q) through run_aldp: init_state and 3
+     timed steps, one eval (the SNF none, and its buffer starts at one batch:
+     SNF_CUTS), the final evaluation, a profiled step, and the LARS acceptance (Z
+     and the mean a(z)); aldp_ml.yaml
+     (vacuum, ML) for 2 iterations between them. The three share rbd's vacuum
+     reference frame and test set. Then GMM-40 through run_gmm on gmm.yaml with
+     flow.resampled_base=true and with flow.use_snf=true (5 MH layers of one step
+     of 5.0): 5 iterations, one eval, 5 timed steps, one more with CUDA's sync
+     debug mode on "error" (the log-q keys wait for no device).
+  The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
+  fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
+  6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
+  counts are zeroed before and asserted 0 after.
 
 Prints the kernel JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero on any failure, and without a card.
@@ -77,6 +93,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -219,34 +236,38 @@ def _train(trainer, gen, batch, card, label):
 
 
 def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
-    """One more step under torch.profiler: device busy time (device-side events
-    only; one stream, so they do not overlap) against the step, the top device ops,
+    """One more step under torch.profiler, recording the device: its busy time
+    (one stream, so kernels do not overlap) against the step, the top device ops,
     and the share of named groups of ops (an op counts in the first group whose
     words its name holds). Returns the state, the busy share and each group's ms."""
     import torch
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         state, _ = trainer.train_step(state, gen, batch)
         torch.cuda.synchronize()
         prof_ms = (time.time() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    n_ops = sum(e.count for e in events)
+    # The raw device events summed by name: building the profiler's FunctionEvents
+    # (key_averages) takes minutes for a step of a million kernels.
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    n_ops = sum(count for _, count in by_name.values())
     assert n_ops > 0, "the profiler saw no device work"
     print(f"[{card}] {label} profiled step: wall {prof_ms:.1f} ms (profiler on), device "
           f"busy {busy_ms:.1f} ms ({busy_ms / prof_ms:.1%} of the profiled wall, "
           f"{busy_ms / steady:.1%} of the median step), {n_ops} device ops")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"    {ms:8.2f} ms  x{count:<6d} {name[:90]}")
     group_ms = dict.fromkeys(groups, 0.0)
-    for e in events:
+    for name, (ms, _) in by_name.items():
         group = next((g for g, words in groups.items()
-                      if any(w in e.key.lower() for w in words)), None)
+                      if any(w in name.lower() for w in words)), None)
         if group is not None:
-            group_ms[group] += e.self_device_time_total / 1e3
+            group_ms[group] += ms
     for group, ms in group_ms.items():
         print(f"    group {group}: {ms:.2f} ms ({ms / busy_ms:.1%} of device busy)")
     return state, busy_ms / steady, group_ms
@@ -690,11 +711,28 @@ def many_well_runner(card, tmp):
 # ------------------------------------------------------------------------ ALDP
 
 # aldp.yaml cut in length only; every width, the buffer's size, the schedule and the
-# filter stay the config's.
-ALDP_CUTS = ["training.max_iter=5", "training.replay_buffer.min_length=8",
+# filter stay the config's. The buffer starts at one batch: the first steps' replay
+# draws of 8 x 1024 rows then take rows not yet written (priority -inf, masked out
+# of the loss), which cost the same flow passes as written ones.
+ALDP_GROUPS = {"GEMMs": ["gemm", "cutlass", "sm90_xmma"], "reductions": ["reduce"],
+               "gather / scatter": ["index", "gather", "scatter"]}
+ALDP_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=1",
              "training.n_test_samples=2000", "training.test_mcmc_steps=100",
              "training.final_eval_samples=2000", "training.n_eval=1",
              "training.n_checkpoints=1"]
+
+
+def _print_cuts(full, cuts, config_name, card) -> None:
+    """Each cut beside the config's own value."""
+    for cut in cuts:
+        key, value = cut.split("=")
+        old = full
+        for part in key.split("."):
+            old = old.get(part, "unset") if old != "unset" else old
+        if key == "training.test_mcmc_steps" and old == "unset":
+            old = "unset, the runner's default 400"
+        print(f"[{card}] {config_name} cut (length only): {key} = {value} "
+              f"({config_name}: {old})")
 
 
 def _finite_metrics(metrics, label):
@@ -723,14 +761,7 @@ def aldp_path(device, gen, card, tmp):
     root = os.path.join(tmp, "aldp")
     os.makedirs(root)
     full = load_config(config)
-    for cut in ALDP_CUTS:
-        key, value = cut.split("=")
-        old = full
-        for part in key.split("."):
-            old = old.get(part, "unset") if old != "unset" else old
-        if key == "training.test_mcmc_steps" and old == "unset":
-            old = "unset, the runner's default 400"
-        print(f"[{card}] ALDP cut (length only): {key} = {value} (aldp.yaml: {old})")
+    _print_cuts(full, ALDP_CUTS, "aldp.yaml", card)
     cfg = apply_overrides(full, ALDP_CUTS)
     t, rb = cfg.training, cfg.training.replay_buffer
     batch = t.batch_size
@@ -768,7 +799,8 @@ def aldp_path(device, gen, card, tmp):
     torch.cuda.synchronize()
     init_s = time.time() - t0
     print(f"[{card}] ALDP init_state: buffer filled to {int(state.buffer_state.n_added)} rows "
-          f"(8 AIS passes of {batch}) in {init_s:.2f} s")
+          f"({int(state.buffer_state.n_added) // batch} AIS passes of {batch}) in "
+          f"{init_s:.2f} s")
     step_ms = []
     for _ in range(N_STEPS):
         count = int(state.opt_state.count)
@@ -799,9 +831,8 @@ def aldp_path(device, gen, card, tmp):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] ALDP AIS pass alone: {ais_ms:.1f} ms ({ais_ms / steady:.1%} of the "
           "median step)")
-    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, "ALDP", {
-        "GEMMs": ["gemm", "cutlass", "sm90_xmma"], "reductions": ["reduce"],
-        "gather / scatter": ["index", "gather", "scatter"]})
+    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, "ALDP",
+                                    ALDP_GROUPS)
     del trainer, state, model
     _no_kernel_launched("the ALDP steps")
 
@@ -823,34 +854,23 @@ def aldp_path(device, gen, card, tmp):
         runner, r_state, metrics = run_aldp.main(["--config", config, *common])
         torch.cuda.synchronize()
         run_s = time.time() - t0
-        assert isinstance(runner, PrioritisedBufferTrainer) and r_state.step == 5
+        assert isinstance(runner, PrioritisedBufferTrainer) and r_state.step == 3
         rows = [r for r in _csv_rows_in(root) if r.get("loss")]
         shown = _finite_columns(rows[-1], ("loss", "n_valid", "frac_filter_pass"))
-        print(f"[{card}] ALDP runner (aldp.yaml, the cuts above): init_state, 5 iterations, one "
+        print(f"[{card}] ALDP runner (aldp.yaml, the cuts above): init_state, 3 iterations, one "
               f"eval and one checkpoint, the final evaluation in {run_s:.1f} s; last logged step "
               + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
         print(f"[{card}] ALDP final evaluation (2000 flow samples against the test set): "
               + _finite_metrics(metrics, "ALDP final evaluation"))
         t0 = time.time()
-        _, r_state, metrics = run_aldp.main(["--config", config, *common, "training.max_iter=6"])
+        _, r_state, metrics = run_aldp.main(["--config", config, *common, "training.max_iter=4"])
         torch.cuda.synchronize()
-        assert starts == [0, 5] and r_state.step == 6, (starts, r_state.step)
+        assert starts == [0, 3] and r_state.step == 4, (starts, r_state.step)
         _finite_metrics(metrics, "ALDP resumed evaluation")
         print(f"[{card}] ALDP runner resumed at iteration {starts[-1]} for 1 iteration "
               f"({time.time() - t0:.1f} s)")
     finally:
         PrioritisedBufferTrainer.run = run
-    t0 = time.time()
-    ml_root = os.path.join(tmp, "aldp_ml")
-    _, _, ml_metrics = run_aldp.main([
-        "--config", os.path.join(CONFIGS, "aldp_ml.yaml"), "--device", "cuda",
-        "training.max_iter=2", "training.n_train_samples=2000", "training.n_test_samples=2000",
-        "training.test_mcmc_steps=100", "training.final_eval_samples=2000",
-        f"training.save_root={ml_root}"])
-    torch.cuda.synchronize()
-    print(f"[{card}] ALDP ML runner (aldp_ml.yaml, vacuum: its own minimisation, test and "
-          f"training sets of 2000, 2 iterations) in {time.time() - t0:.1f} s; evaluation "
-          + _finite_metrics(ml_metrics, "ALDP ML evaluation"))
     _no_kernel_launched("the ALDP phase")
     return {"steady_ms": steady, "busy": busy, "ais_ms": ais_ms, "init_s": init_s,
             "minimise_s": minimise_s, "test_set_s": test_set_s, "groups": groups,
@@ -860,6 +880,236 @@ def aldp_path(device, gen, card, tmp):
 def _csv_rows_in(run_dir):
     with open(os.path.join(run_dir, "logging_hist.csv")) as f:
         return list(csv.DictReader(f))
+
+
+# ------------------------------------------------------------ LARS base and SNF
+
+# aldp_rbd.yaml and aldp_snf.yaml cut in length only: every width, the buffer's
+# size, the 8 replay updates, the schedule and the filter stay each config's. The
+# rbd buffer starts at 7 batches, so that with the first step's AIS batch it holds
+# the 8 x 1024 rows that step's replay draws.
+LARS_SNF_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=7",
+                 "training.n_test_samples=2000", "training.test_mcmc_steps=50",
+                 "training.final_eval_samples=2000", "training.n_eval=1",
+                 "training.n_checkpoints=1"]
+# The SNF's AIS pass takes ~30 s, so its buffer starts at one batch, like phase
+# 11's (the first steps' replay draws take unwritten rows, at the same cost), and
+# it leaves out the trainer's eval: two more AIS passes whose only output on ALDP is
+# two ESS values (the target has no eval metrics of its own; the final evaluation
+# runs). GMM-40 with flow.use_snf=true runs an eval.
+SNF_CUTS = (LARS_SNF_CUTS[:1] + ["training.replay_buffer.min_length=1"] + LARS_SNF_CUTS[2:5]
+            + ["training.n_eval=0"] + LARS_SNF_CUTS[6:])
+
+
+def _lars_share(base, gen, card, label) -> dict:
+    """The LARS base after a run: Z (the mean a(z) over its 1024 fixed proposal
+    points), the mean a(z) over fresh proposals and over the base's own draws."""
+    import torch
+
+    with torch.no_grad():
+        big_z = float(base.z_estimate())
+        z_prop = torch.randn((8192, base.dim), generator=gen, device=base.z_points.device,
+                             dtype=base.z_points.dtype)
+        a_prop = float(base.accept_prob(z_prop).mean())
+        z, _ = base.sample_and_log_prob(8192, gen)
+        a_drawn = float(base.accept_prob(z).mean())
+    assert all(math.isfinite(v) and 0 < v < 1 for v in (big_z, a_prop, a_drawn))
+    print(f"[{card}] {label} LARS acceptance: Z estimate {big_z:.6f} (mean a(z) over the "
+          f"1024 fixed points), mean a(z) over 8192 fresh proposals {a_prop:.6f}, over 8192 "
+          f"of the base's draws {a_drawn:.6f}")
+    return {"z_estimate": big_z, "mean_a_proposals": a_prop, "mean_a_drawn": a_drawn}
+
+
+def _timed_aldp_runner(argv, card, label):
+    """run_aldp.main with the prioritised trainer's init_state and every train step
+    timed (each ends in a synchronize). Returns (trainer, state, metrics, times)."""
+    import torch
+
+    from fab_tpu_torch.experiments import run_aldp
+    from fab_tpu_torch.train import PrioritisedBufferTrainer
+
+    times = {"steps_ms": []}
+    init, step = PrioritisedBufferTrainer.init_state, PrioritisedBufferTrainer.train_step
+
+    def timed_init(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = init(self, *args, **kw)
+        torch.cuda.synchronize()
+        times["init_s"] = time.time() - t0
+        return out
+
+    def timed_step(self, *args, **kw):
+        t0 = time.time()
+        out = step(self, *args, **kw)
+        torch.cuda.synchronize()
+        times["steps_ms"].append((time.time() - t0) * 1e3)
+        print(f"{label} step {out[0].step}: {times['steps_ms'][-1]:.1f} ms, replay loss "
+              f"{float(out[1]['loss']):.4f}, n_valid {int(out[1]['n_valid'])}, "
+              f"frac_filter_pass {float(out[1]['frac_filter_pass']):.4f}", flush=True)
+        return out
+
+    PrioritisedBufferTrainer.init_state = timed_init
+    PrioritisedBufferTrainer.train_step = timed_step
+    try:
+        t0 = time.time()
+        trainer, state, metrics = run_aldp.main(argv)
+        torch.cuda.synchronize()
+        times["run_s"] = time.time() - t0
+    finally:
+        PrioritisedBufferTrainer.init_state = init
+        PrioritisedBufferTrainer.train_step = step
+    return trainer, state, metrics, times
+
+
+def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
+    """One ALDP variant through run_aldp with ``cuts`` (and ``extra`` overrides):
+    init_state and 3 timed steps, the evals the cuts leave, the final evaluation;
+    then one profiled step."""
+    import torch
+
+    from fab_tpu_torch.train import PrioritisedBufferTrainer
+    from fab_tpu_torch.utils.training import load_config
+
+    config = os.path.join(CONFIGS, config_name)
+    root = os.path.join(tmp, label)
+    os.makedirs(root, exist_ok=True)
+    full = load_config(config)
+    _print_cuts(full, cuts, config_name, card)
+    batch = full.training.batch_size
+    torch.cuda.reset_peak_memory_stats()
+    trainer, state, metrics, times = _timed_aldp_runner(
+        ["--config", config, "--device", "cuda", *cuts, f"training.save_root={root}", *extra],
+        card, label)
+    assert isinstance(trainer, PrioritisedBufferTrainer) and state.step == 3
+    assert len(times["steps_ms"]) == 3, times
+    steady = statistics.median(times["steps_ms"])
+    rows = _csv_rows_in(root)
+    shown = _finite_columns([r for r in rows if r.get("loss")][-1],
+                            ("loss", "n_valid", "frac_filter_pass"))
+    evals = [r for r in rows if r.get("eval_ess_ais_p_target")]
+    assert len(evals) == ("training.n_eval=1" in cuts), rows
+    eval_shown = {}
+    if evals:
+        eval_shown = _finite_columns(evals[0], (
+            "eval_ess_flow_p_target", "eval_ess_ais_p_target", "eval_ess_ais_min_var_target"))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] {label} ({config_name}, the cuts above): init_state {times['init_s']:.2f} s "
+          f"(buffer filled to {int(state.buffer_state.n_added)} rows); train step median "
+          f"{steady:.1f} ms over 3 steps (all: {', '.join(f'{v:.1f}' for v in times['steps_ms'])}"
+          f"), {batch / steady * 1e3:.1f} AIS samples/s; the whole run {times['run_s']:.1f} s; "
+          f"peak device memory {peak_gib:.2f} GiB; last step "
+          + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()) + "; eval "
+          + (", ".join(f"{k} {v:.4g}" for k, v in eval_shown.items()) or "cut"))
+    print(f"[{card}] {label} final evaluation (2000 flow samples against the test set): "
+          + _finite_metrics(metrics, f"{label} final evaluation"))
+    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, label,
+                                    ALDP_GROUPS)
+    return trainer, root, {"steady_ms": steady, "busy": busy, "groups": groups,
+                           "init_s": times["init_s"], "run_s": times["run_s"],
+                           "steps_ms": times["steps_ms"], "peak_gib": peak_gib}
+
+
+def lars_snf_path(device, gen, card, tmp):
+    """Phase 12: aldp_rbd.yaml (the LARS base) and aldp_snf.yaml (3 MH layers of 10
+    steps of the vacuum force field inside every log q) through run_aldp at full
+    width, then GMM-40 with flow.resampled_base=true and with flow.use_snf=true. The
+    two ALDP runs share one vacuum reference frame and test set. No kernel runs on
+    this path (asserted)."""
+    import numpy as np
+    import torch
+
+    from fab_tpu_torch.experiments import run_aldp, run_gmm
+    from fab_tpu_torch.flows import ResampledGaussianBase, StochasticFlow
+    from fab_tpu_torch.train import Trainer
+
+    _zero_counts()
+    out = {}
+    trainer, rbd_root, out["rbd"] = _aldp_variant("aldp_rbd.yaml", LARS_SNF_CUTS, [], gen,
+                                                  card, "ALDP-rbd", tmp)
+    base = trainer.model.flow.base
+    assert isinstance(base, ResampledGaussianBase) and base.T == 100
+    assert base.sizes == [60, 256, 256, 1] and tuple(base.z_points.shape) == (1024, 60)
+    out["rbd"]["lars"] = _lars_share(base, gen, card, "ALDP-rbd")
+    ref_path = os.path.join(tmp, "aldp_vacuum_reference.npy")
+    np.save(ref_path, trainer.model.target.ref_cartesian)
+    del trainer
+    _no_kernel_launched("the ALDP rbd run")
+    for label in ("ALDP-snf", "ALDP-ml"):
+        os.makedirs(os.path.join(tmp, label))
+        shutil.copy(os.path.join(rbd_root, "test_set.npy"), os.path.join(tmp, label))
+
+    # aldp_ml.yaml (vacuum too) on the same frame and test set, its own training set.
+    t0 = time.time()
+    _, _, ml_metrics = run_aldp.main([
+        "--config", os.path.join(CONFIGS, "aldp_ml.yaml"), "--device", "cuda",
+        "training.max_iter=2", "training.n_train_samples=2000", "training.test_mcmc_steps=50",
+        "training.final_eval_samples=2000", f"data.transform={ref_path}",
+        f"training.save_root={os.path.join(tmp, 'ALDP-ml')}"])
+    torch.cuda.synchronize()
+    print(f"[{card}] ALDP ML runner (aldp_ml.yaml, vacuum, on the frame and test set above: a "
+          f"training set of 2000, 2 iterations) in {time.time() - t0:.1f} s; evaluation "
+          + _finite_metrics(ml_metrics, "ALDP ML evaluation"))
+    _no_kernel_launched("the ALDP ML run")
+
+    trainer, _, out["snf"] = _aldp_variant(
+        "aldp_snf.yaml", SNF_CUTS, [f"data.transform={ref_path}"], gen, card, "ALDP-snf", tmp)
+    flow = trainer.model.flow
+    mh = [(b.lam, b.n_steps, b.proposal_scale) for b in flow.bijectors if hasattr(b, "lam")]
+    assert isinstance(flow, StochasticFlow) and mh == [
+        (4 / 12, 10, 0.1), (8 / 12, 10, 0.1), (1.0, 10, 0.1)], mh
+    print(f"[{card}] ALDP-snf flow: MH layers (lam, steps, proposal scale) {mh}, each log q "
+          "runs 30 MH steps of the vacuum force field")
+    del trainer, flow
+    _no_kernel_launched("the ALDP snf run")
+
+    config = ["--config", os.path.join(CONFIGS, "gmm.yaml"), *RUNNER_COMMON,
+              "training.n_iterations=5", "evaluation.n_checkpoints=0"]
+    for flag, label in (("flow.resampled_base=true", "GMM-40-rbd"),
+                        ("flow.use_snf=true", "GMM-40-snf")):
+        t0 = time.time()
+        g_trainer, g_state = run_gmm.main(config + [
+            flag, f"evaluation.save_path={os.path.join(tmp, label)}"])
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        assert type(g_trainer) is Trainer and g_state.step == 5
+        rows = _csv_rows(os.path.join(tmp, label))
+        eval_rows = [r for r in rows if r.get("eval_ess_ais")]
+        assert len(eval_rows) == 1, rows
+        losses = [float(r["loss"]) for r in rows if r.get("loss")]
+        assert losses and all(math.isfinite(v) for v in losses), losses
+        shown = _finite_columns(eval_rows[0], (
+            "eval_ess_flow", "eval_ess_ais", "flow_test_set_mean_log_prob", "flow_kl_forward",
+            "flow_bias_normed", "ais_bias_normed"))
+        g_flow = g_trainer.model.flow
+        if label == "GMM-40-rbd":
+            assert isinstance(g_flow.base, ResampledGaussianBase)
+            out["gmm_rbd_lars"] = _lars_share(g_flow.base, gen, card, label)
+        else:
+            n_mh = sum(hasattr(b, "lam") for b in g_flow.bijectors)
+            assert isinstance(g_flow, StochasticFlow) and n_mh == 5, n_mh
+        step_ms = []
+        for _ in range(N_STEPS):
+            t0 = time.time()
+            g_state, info = g_trainer.train_step(g_state, gen, 128)
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+            assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0
+        steady = statistics.median(step_ms[1:])
+        # The log-q keys are host-side generator state: a step waits for no device.
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g_state, _ = g_trainer.train_step(g_state, gen, 128)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[label] = {"steady_ms": steady, "run_s": run_s}
+        print(f"[{card}] {label} runner (gmm.yaml, {flag}, f64, Trainer): 5 iterations and "
+              f"one eval in {run_s:.1f} s, loss {losses[-1]:.4f}; train step median "
+              f"{steady:.1f} ms over steps 2-{N_STEPS} (all: "
+              f"{', '.join(f'{t:.1f}' for t in step_ms)}), one more step with no host sync "
+              "(sync debug mode 'error'); eval " + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
+    _no_kernel_launched("the LARS and SNF phase")
+    return out
 
 
 # ---------------------------------------------------------------- K2 / LGCP-1600
@@ -1135,11 +1385,13 @@ def time_k2(k2, name, card):
 
 
 def drive(device, gen, name, card) -> list:
-    """Phases 2-11; returns the kernel records."""
+    """Phases 2-12; returns the kernel records."""
+    t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
     mw = manywell_path(device, gen, card)
     k1_timing, k1_bounds = time_k1(k1, name, card)
+    phase_s["2-4 K1, ManyWell"] = time.time() - t0
 
     # ------------------------------------------------ 5-7. K2 and the LGCP path
     k2 = check_k2(device, gen)
@@ -1148,18 +1400,27 @@ def drive(device, gen, name, card) -> list:
         lgcp_run_entry(trainer, state, gen, card, tmp)
     del trainer, state
     k2_timing, k2_bounds, k2_library, k2_rebuild = time_k2(k2, name, card)
+    phase_s["5-7 K2, LGCP"] = time.time() - t0
 
     # ------------------------------------------------ 8. K1 at the wide chains
     k1_wide = check_k1_wide(device, gen, name, card)
+    phase_s["8 K1 wide"] = time.time() - t0
 
     # ------------------------------------------------ 9-10. the YAML runners
     with tempfile.TemporaryDirectory() as tmp:
         gmm = gmm_runner(device, gen, card, tmp)
         many_well_runner(card, tmp)
+    phase_s["9-10 runners"] = time.time() - t0
 
     # ------------------------------------------------ 11. ALDP
     with tempfile.TemporaryDirectory() as tmp:
         aldp = aldp_path(device, gen, card, tmp)
+    phase_s["11 ALDP"] = time.time() - t0
+
+    # ------------------------------------------------ 12. the LARS base and SNF
+    with tempfile.TemporaryDirectory() as tmp:
+        lars_snf = lars_snf_path(device, gen, card, tmp)
+    phase_s["12 LARS and SNF"] = time.time() - t0
 
     kernels = [
         {
@@ -1224,6 +1485,13 @@ def drive(device, gen, name, card) -> list:
     print(f"[{card}] ALDP path (no kernel): median step {aldp['steady_ms']:.1f} ms, "
           f"{1024 / aldp['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
           f"{aldp['busy']:.1%} of the median step")
+    for label, key in (("ALDP-rbd", "rbd"), ("ALDP-snf", "snf")):
+        run = lars_snf[key]
+        print(f"[{card}] {label} path (no kernel): median step {run['steady_ms']:.1f} ms, "
+              f"{1024 / run['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
+              f"{run['busy']:.1%} of the median step")
+    print(f"[{card}] wall time by phase (s, cumulative from phase 2): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     return kernels
 
 

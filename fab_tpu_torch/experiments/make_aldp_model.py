@@ -5,7 +5,9 @@
 internal vector they transform; circular dims (methyl rotors, phi/psi, ...) use
 circular splines with a pi bound and enter the conditioners as (sin, cos); a
 periodic shift with a seeded random offset follows each block; the base is uniform
-on the circular dims and Gaussian elsewhere (``gauss-uni``).
+on the circular dims and Gaussian elsewhere (``gauss-uni``), a trainable diagonal
+Gaussian or the LARS resampled base; ``flow.snf`` adds Metropolis sampling layers
+(the SNF variant).
 """
 from __future__ import annotations
 
@@ -17,13 +19,13 @@ import torch
 
 from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import DiagGaussianBase, Flow, UniformGaussianBase
+from fab_tpu_torch.flows.resampled import ResampledGaussianBase
+from fab_tpu_torch.flows.snf import MetropolisSamplingLayer, StochasticFlow
 from fab_tpu_torch.flows.splines import PeriodicShift, SplineCoupling
 from fab_tpu_torch.model import FABModel
 from fab_tpu_torch.sampling import HamiltonianMonteCarlo, Metropolis
 from fab_tpu_torch.targets.aldp import AldpBoltzmann
 from fab_tpu_torch.utils.aldp_eval import chirality_scale_shift, make_chirality_filter
-
-_LARS_SNF = "(ROADMAP Queue 1, item 2: the resampled (LARS) base and SNF)"
 
 
 def make_aldp_flow(
@@ -37,15 +39,17 @@ def make_aldp_flow(
     seed: int = 0,
     base_type: str = "gauss-uni",
     snf_every: int = 0,
+    snf_steps: int = 10,
+    snf_proposal_scale: float = 0.1,
+    target_log_prob=None,
     dtype=torch.float32,
     device="cuda",
 ) -> Flow:
-    """base_type: 'gauss-uni' (circular dims uniform) or 'gauss' (trainable
-    diagonal Gaussian). The resampled base and SNF layers are not ported yet."""
-    if base_type == "resampled":
-        raise NotImplementedError(f"flow.base.type=resampled is not ported yet {_LARS_SNF}")
-    if snf_every:
-        raise NotImplementedError(f"flow.snf is not ported yet {_LARS_SNF}")
+    """base_type: 'gauss-uni' (circular dims uniform), 'gauss' (trainable diagonal
+    Gaussian) or 'resampled' (the LARS base with its defaults: 2 x 256, T = 100,
+    1024 points). ``snf_every`` > 0 puts a Metropolis sampling layer on
+    ``target_log_prob`` (lam = (i+1)/n_blocks) after every ``snf_every`` spline
+    blocks and returns a ``StochasticFlow``."""
     device = resolve_device(device)
     d = (dim + 1) // 2
     circ = set(circular_dims)
@@ -64,10 +68,21 @@ def make_aldp_flow(
             bijectors.append(PeriodicShift(
                 dim, circular_dims, shift=float(rng.uniform(-np.pi, np.pi)), device=device,
             ))
-    if base_type == "gauss":
+        if snf_every and (i + 1) % snf_every == 0:
+            if target_log_prob is None:
+                raise ValueError("SNF layers need target_log_prob")
+            bijectors.append(MetropolisSamplingLayer(
+                target_log_prob, lam=(i + 1) / n_blocks, n_steps=snf_steps,
+                proposal_scale=snf_proposal_scale,
+            ))
+    if base_type == "resampled":
+        base = ResampledGaussianBase(dim, dtype=dtype, device=device)
+    elif base_type == "gauss":
         base = DiagGaussianBase(dim, dtype=dtype, device=device)
     else:
         base = UniformGaussianBase(dim, circular_dims, dtype=dtype, device=device)
+    if snf_every:
+        return StochasticFlow(dim, bijectors, base)
     return Flow(dim, bijectors, base)
 
 
@@ -97,6 +112,9 @@ def make_aldp_model(cfg, dtype=torch.float32, device="cuda") -> Tuple[FABModel, 
         seed=cfg.training.seed,
         base_type=cfg.flow.get("base", {}).get("type", "gauss-uni"),
         snf_every=snf_cfg.every if snf_cfg else 0,
+        snf_steps=snf_cfg.get("steps", 10) if snf_cfg else 10,
+        snf_proposal_scale=snf_cfg.get("proposal_scale", 0.1) if snf_cfg else 0.1,
+        target_log_prob=target.log_prob if snf_cfg else None,
         dtype=dtype,
         device=device,
     )

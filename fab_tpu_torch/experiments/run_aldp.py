@@ -25,6 +25,7 @@ from fab_tpu_torch.convert import to_jax_params
 from fab_tpu_torch.experiments.make_aldp_model import make_aldp_model
 from fab_tpu_torch.experiments.run_gmm import parse_args
 from fab_tpu_torch.experiments.setup_run import setup_precision
+from fab_tpu_torch.flows.base import log_q_noise
 from fab_tpu_torch.sampling import HamiltonianMonteCarlo, create_point
 from fab_tpu_torch.train import PrioritisedBufferTrainer, Trainer, guarded_update, make_optimizer
 from fab_tpu_torch.utils.aldp_eval import (
@@ -138,7 +139,7 @@ def run_ml_training(cfg, model, target, z_train: torch.Tensor, z_test: np.ndarra
     n_train = z_train.shape[0]
     for i in range(t.max_iter):
         idx = random.randint(generator, 0, n_train, (t.batch_size,), z_train.device)
-        loss = model.forward_kl_loss(z_train[idx])
+        loss = model.forward_kl_loss(z_train[idx], log_q_noise(flow, generator))
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         opt_state, _, _ = guarded_update(optimizer, grads, opt_state, params, loss.detach())

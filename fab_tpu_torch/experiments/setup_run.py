@@ -18,7 +18,12 @@ import torch
 from fab_tpu_torch.buffer import PrioritisedReplayBuffer, ReplayBuffer
 from fab_tpu_torch.checkpoint import latest_checkpoint
 from fab_tpu_torch.device import resolve_device
-from fab_tpu_torch.flows import data_dependent_init, make_realnvp
+from fab_tpu_torch.flows import (
+    data_dependent_init,
+    make_realnvp,
+    make_resampled_realnvp,
+    make_snf_model,
+)
 from fab_tpu_torch.model import FABModel
 from fab_tpu_torch.sampling import HamiltonianMonteCarlo, Metropolis
 from fab_tpu_torch.train import BufferTrainer, PrioritisedBufferTrainer, Trainer, make_optimizer
@@ -100,27 +105,36 @@ def setup_precision(cfg: ConfigDict) -> None:
 
 
 def setup_model(cfg: ConfigDict, target, dtype=torch.float32, device="cuda") -> FABModel:
-    """Flow + transition operator + FABModel, in ``dtype`` on ``device``."""
-    if cfg.flow.get("resampled_base"):
-        raise NotImplementedError(
-            "flow.resampled_base is not ported yet (ROADMAP Queue 1, item 2: the "
-            "resampled (LARS) base)"
+    """Flow + transition operator + FABModel, in ``dtype`` on ``device``: RealNVP,
+    over the LARS base with ``flow.resampled_base``, or with MH sampling layers
+    (``flow.snf``: ``it_snf_layer``, ``step_size``, ``num_steps``) with
+    ``flow.use_snf``."""
+    dim, flow_cfg = cfg.target.dim, cfg.flow
+    init_mode = flow_cfg.get("init_mode", "he_normal")
+    if flow_cfg.get("resampled_base"):
+        flow = make_resampled_realnvp(
+            dim, n_flow_layers=flow_cfg.n_layers,
+            layer_nodes_per_dim=flow_cfg.layer_nodes_per_dim, act_norm=flow_cfg.act_norm,
+            init_mode=init_mode, dtype=dtype, device=device,
         )
-    if cfg.flow.get("use_snf"):
-        raise NotImplementedError(
-            "flow.use_snf is not ported yet (ROADMAP Queue 1, item 2: SNF flows)"
+    elif flow_cfg.get("use_snf"):
+        snf_cfg = flow_cfg.snf
+        flow = make_snf_model(
+            dim, target_log_prob=target.log_prob, n_flow_layers=flow_cfg.n_layers,
+            layer_nodes_per_dim=flow_cfg.layer_nodes_per_dim, act_norm=flow_cfg.act_norm,
+            it_snf_layer=snf_cfg.get("it_snf_layer", 2),
+            mh_prop_scale=snf_cfg.get("step_size", 0.1),
+            mh_steps=snf_cfg.get("num_steps", 10), init_mode=init_mode, dtype=dtype,
+            device=device,
         )
-    flow = make_realnvp(
-        cfg.target.dim,
-        n_flow_layers=cfg.flow.n_layers,
-        layer_nodes_per_dim=cfg.flow.layer_nodes_per_dim,
-        act_norm=cfg.flow.act_norm,
-        scale_cap=cfg.flow.get("scale_cap", 0.0),
-        fused_coupling=bool(cfg.flow.get("fused_coupling", False)),
-        init_mode=cfg.flow.get("init_mode", "he_normal"),
-        dtype=dtype,
-        device=device,
-    )
+    else:
+        flow = make_realnvp(
+            dim, n_flow_layers=flow_cfg.n_layers,
+            layer_nodes_per_dim=flow_cfg.layer_nodes_per_dim, act_norm=flow_cfg.act_norm,
+            scale_cap=flow_cfg.get("scale_cap", 0.0),
+            fused_coupling=bool(flow_cfg.get("fused_coupling", False)),
+            init_mode=init_mode, dtype=dtype, device=device,
+        )
     to_cfg = cfg.fab.transition_operator
     if to_cfg.type == "hmc":
         transition_operator = HamiltonianMonteCarlo(

@@ -146,9 +146,25 @@ class Flow(nn.Module):
         return self.base.log_prob(z) + log_det
 
 
-def flow_log_prob(flow: Flow, x: torch.Tensor) -> torch.Tensor:
-    """log q(x). Deterministic flows only; stochastic (SNF) flows are not ported."""
+def is_stochastic(flow) -> bool:
+    """Whether ``flow``'s log q draws noise (an SNF declares ``is_stochastic``)."""
+    return getattr(flow, "is_stochastic", False)
+
+
+def flow_log_prob(flow, x: torch.Tensor, generator: torch.Generator = None) -> torch.Tensor:
+    """log q(x). A stochastic flow gets ``generator`` as the key of its noise (the
+    same key gives the same noise, see ``random.restart``); a deterministic flow
+    ignores it."""
+    if is_stochastic(flow):
+        return flow.log_prob(x, generator)
     return flow.log_prob(x)
+
+
+def log_q_noise(flow, generator: torch.Generator):
+    """The key for one role's log-q calls (one AIS pass, one loss re-evaluation, one
+    replay batch, one evaluation): split from ``generator`` for a stochastic flow;
+    None for a deterministic one, which then draws nothing and launches nothing."""
+    return random.split(generator) if is_stochastic(flow) else None
 
 
 @contextlib.contextmanager

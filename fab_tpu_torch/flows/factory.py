@@ -12,6 +12,7 @@ from fab_tpu_torch.flows.coupling import AffineCoupling
 from fab_tpu_torch.flows.fused import FusedRealNVPFlow
 from fab_tpu_torch.flows.large_coupling import LargeFusedCoupling
 from fab_tpu_torch.flows.linear import ActNorm, LULinear
+from fab_tpu_torch.flows.resampled import ResampledGaussianBase
 
 
 def make_realnvp(
@@ -61,6 +62,34 @@ def make_realnvp(
     return flow
 
 
+def make_resampled_realnvp(
+    dim: int,
+    n_flow_layers: int = 5,
+    layer_nodes_per_dim: int = 10,
+    act_norm: bool = False,
+    a_hidden_units: int = 256,
+    a_hidden_layers: int = 2,
+    T: int = 100,
+    init_mode: str = "he_normal",
+    generator: torch.Generator = None,
+    dtype=torch.float32,
+    device="cuda",
+) -> Flow:
+    """The unfused RealNVP of ``make_realnvp`` over a LARS resampled-Gaussian base
+    (acceptance net ``a_hidden_layers`` x ``a_hidden_units``, truncation ``T``),
+    which initialises from its own seed."""
+    flow = make_realnvp(
+        dim, n_flow_layers=n_flow_layers, layer_nodes_per_dim=layer_nodes_per_dim,
+        act_norm=act_norm, init_mode=init_mode, generator=generator, dtype=dtype,
+        device=device,
+    )
+    flow.base = ResampledGaussianBase(
+        dim, hidden_units=a_hidden_units, n_hidden_layers=a_hidden_layers, T=T,
+        init_mode=init_mode, dtype=dtype, device=flow.base.loc.device,
+    )
+    return flow
+
+
 def data_dependent_init(
     flow: Flow,
     generator: torch.Generator,
@@ -81,5 +110,8 @@ def data_dependent_init(
                 log_scale = -torch.log(std)
                 bij.log_scale.copy_(log_scale)
                 bij.shift.copy_(-z.mean(0) * torch.exp(log_scale))
-            z, _ = bij.forward_and_log_det(z)
+            if getattr(bij, "is_stochastic", False):
+                z, _ = bij.forward_and_log_det(z, generator)
+            else:
+                z, _ = bij.forward_and_log_det(z)
     return flow

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from fab_tpu_torch import losses
-from fab_tpu_torch.flows.base import Flow, flow_log_prob
+from fab_tpu_torch.flows.base import Flow, flow_log_prob, is_stochastic, log_q_noise
 from fab_tpu_torch.sampling.ais import AnnealedImportanceSampler
 from fab_tpu_torch.targets.base import TargetDistribution
 from fab_tpu_torch.utils.numerical import effective_sample_size
@@ -97,7 +97,7 @@ class FABModel:
             # Zero-fill invalid rows BEFORE the differentiated evaluation, so no NaN
             # cotangent reaches the parameters.
             x_safe = torch.where(mask[:, None], result.point.x, 0.0)
-            log_q_x = flow_log_prob(self.flow, x_safe)
+            log_q_x = flow_log_prob(self.flow, x_safe, log_q_noise(self.flow, generator))
             if self.loss_type == "fab_alpha_div":
                 loss = losses.fab_alpha_div(log_q_x, result.log_w, self.alpha, mask)
             else:
@@ -107,7 +107,8 @@ class FABModel:
             return loss, result.transition_state, dict(result.info)
         if self.loss_type == "target_forward_kl":
             x_p = self.target.sample(generator, batch_size)
-            return self.forward_kl_loss(x_p), transition_state, {}
+            return (self.forward_kl_loss(x_p, log_q_noise(self.flow, generator)),
+                    transition_state, {})
         if self.loss_type not in ("flow_reverse_kl", "flow_alpha_2_div",
                                   "flow_alpha_2_div_unbiased", "flow_alpha_2_div_nis"):
             raise NotImplementedError(self.loss_type)  # forward_kl: see forward_kl_loss
@@ -119,9 +120,18 @@ class FABModel:
             return loss_fn(log_q, log_p, mask=mask), transition_state, {}
         return loss_fn(log_q, log_p), transition_state, {}
 
-    def forward_kl_loss(self, x_p: torch.Tensor) -> torch.Tensor:
-        """Forward KL (up to a constant) on target samples x_p."""
-        return losses.forward_kl(flow_log_prob(self.flow, x_p))
+    def forward_kl_loss(
+        self, x_p: torch.Tensor, generator: torch.Generator = None
+    ) -> torch.Tensor:
+        """Forward KL (up to a constant) on target samples x_p. ``generator`` is the
+        key of a stochastic flow's log-q noise (``log_q_noise``); such a flow
+        without one raises here."""
+        if generator is None and is_stochastic(self.flow):
+            raise ValueError(
+                "forward_kl_loss of a stochastic (SNF) flow requires a generator for "
+                "its log-q noise"
+            )
+        return losses.forward_kl(flow_log_prob(self.flow, x_p, generator))
 
     def generate_eval_data(
         self,
@@ -192,9 +202,10 @@ class FABModel:
                 ),
             }
             if not ais_only:
+                key_lq = log_q_noise(self.flow, generator)
                 flow_info = self.target.performance_metrics(
                     on_device(base_x), on_device(base_log_w),
-                    lambda x: flow_log_prob(self.flow, x),
+                    lambda x: flow_log_prob(self.flow, x, key_lq),
                     batch_size=inner_batch_size, mask=on_device(base_mask),
                     generator=generator,
                 )

@@ -5,12 +5,36 @@ replay noise drawn elsewhere (for example by ``fab_tpu``). ``categorical`` and
 ``bernoulli`` are built on ``gumbel`` and ``uniform``, in the forms ``jax.random``
 uses (Gumbel-max over the logits; a uniform below p), so replaying those draws
 replays them too.
+
+A stochastic flow's log q takes a *key*: a generator made by ``split`` and read
+through ``restart``, so that every log-q call given one key draws the same noise, as
+a JAX key does. Both work on the generators' host-side state only (a CUDA
+generator's state is its Philox seed and offset), so neither waits for the device
+nor launches anything.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Sequence
 
 import torch
+
+
+def split(generator: torch.Generator) -> torch.Generator:
+    """A new key, seeded from ``generator``'s state; ``generator`` is re-seeded from
+    the same state, so it moves on and the next split gives another key."""
+    digest = hashlib.blake2b(generator.get_state().numpy().tobytes(), digest_size=16).digest()
+    generator.manual_seed(int.from_bytes(digest[8:], "little") >> 1)
+    key = torch.Generator(device=generator.device)
+    return key.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+
+
+def restart(key: torch.Generator) -> torch.Generator:
+    """A generator at ``key``'s state. Drawing from it leaves ``key`` where it is, so
+    every restart of one key gives the same draws."""
+    generator = torch.Generator(device=key.device)
+    generator.set_state(key.get_state())
+    return generator
 
 
 def normal(generator: torch.Generator, shape: Sequence[int], dtype, device) -> torch.Tensor:

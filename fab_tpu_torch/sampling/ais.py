@@ -14,7 +14,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from fab_tpu_torch.flows.base import Flow, flow_log_prob, frozen
+from fab_tpu_torch.flows.base import Flow, flow_log_prob, frozen, log_q_noise
 from fab_tpu_torch.sampling.point import create_point, intermediate_log_prob
 from fab_tpu_torch.sampling.schedules import beta_schedule
 from fab_tpu_torch.typing import LogProbFn, Point
@@ -61,8 +61,13 @@ class AnnealedImportanceSampler:
         trans_op = self.transition_operator
         flow = self.flow
 
+        # A stochastic flow's log q draws its noise from one key per pass, made
+        # before the flow sample: every log-q call of the pass sees the same noise.
+        # A deterministic flow gets None and the pass's draws are unchanged.
+        key_lq = log_q_noise(flow, generator)
+
         def log_q_fn(x):
-            return flow_log_prob(flow, x)
+            return flow_log_prob(flow, x, key_lq)
 
         with frozen(flow):
             with torch.no_grad():

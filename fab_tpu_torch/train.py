@@ -38,7 +38,7 @@ from fab_tpu_torch.buffer import (
 )
 from fab_tpu_torch.convert import from_jax_params, to_jax_params
 from fab_tpu_torch.device import resolve_device
-from fab_tpu_torch.flows.base import flow_log_prob
+from fab_tpu_torch.flows.base import flow_log_prob, log_q_noise
 from fab_tpu_torch.model import FABModel, format_transition_info
 from fab_tpu_torch.utils.logging import ListLogger, Logger
 
@@ -551,16 +551,19 @@ class BufferTrainer(Trainer):
             lambda b, r: self.buffer.add(b, r.point.x, r.log_w, r.mask),
         )
 
-    def _inner_update(self, opt_state, x, log_w, mask):
+    def _inner_update(self, opt_state, x, log_w, mask, generator):
         """One fab_alpha_div step on the given points and weights; rows whose log q
-        is not finite are probed out and zero-filled first. (opt_state, loss,
-        grad_norm)."""
+        is not finite are probed out and zero-filled first. One log-q key (a
+        stochastic flow's noise) is drawn from ``generator`` for the probe and the
+        differentiated pass. (opt_state, loss, grad_norm)."""
         flow = self.model.flow
+        key_lq = log_q_noise(flow, generator)
         with torch.no_grad():
-            log_q_probe = flow_log_prob(flow, x)
+            log_q_probe = flow_log_prob(flow, x, key_lq)
         mask = mask & torch.isfinite(log_q_probe)
         x = torch.where(mask[:, None], x, 0.0)
-        loss = losses_lib.fab_alpha_div(flow_log_prob(flow, x), log_w, self.model.alpha, mask)
+        loss = losses_lib.fab_alpha_div(flow_log_prob(flow, x, key_lq), log_w,
+                                        self.model.alpha, mask)
         opt_state, grad_norm, _ = self._step(loss, opt_state)
         return opt_state, loss.detach(), grad_norm
 
@@ -575,12 +578,12 @@ class BufferTrainer(Trainer):
             k = max(2, int(self.clip_ais_weights_frac * batch_size))
             log_w_ais = torch.minimum(log_w_ais, torch.topk(log_w_ais, k).values.min())
         opt_state, loss, grad_norm = self._inner_update(
-            state.opt_state, result.point.x, log_w_ais, result.mask
+            state.opt_state, result.point.x, log_w_ais, result.mask, generator
         )
         for _ in range(self.n_batches_buffer_sampling):
             x, log_w = self.buffer.sample(state.buffer_state, generator, batch_size)
             opt_state, replay_loss, _ = self._inner_update(
-                opt_state, x, log_w, torch.isfinite(log_w)
+                opt_state, x, log_w, torch.isfinite(log_w), generator
             )
         buffer_state = self.buffer.add(
             state.buffer_state, result.point.x, log_w_ais, result.mask
@@ -658,19 +661,22 @@ class PrioritisedBufferTrainer(Trainer):
         xs, log_ws, log_q_olds, idxs = buffer.sample_n_batches(
             buffer_state, generator, batch_size, self.n_batches_buffer_sampling
         )
+        # One log-q key per replay batch (a stochastic flow's noise), shared by its
+        # probe, its differentiated pass and its adjustment.
+        keys = [log_q_noise(flow, generator) for _ in range(self.n_batches_buffer_sampling)]
         # 3. Replay gradient steps.
         opt_state = state.opt_state
         step_info: Dict[str, Any] = {}
-        for x, log_w_b, log_q_old, idx in zip(xs, log_ws, log_q_olds, idxs):
+        for x, log_w_b, log_q_old, idx, key_lq in zip(xs, log_ws, log_q_olds, idxs, keys):
             row_ok = torch.isfinite(log_w_b)  # killed / unwritten rows
             # Probe: rows whose log q is non-finite are excluded from the loss and
             # killed in the buffer, and zero-filled before the differentiated pass.
             with torch.no_grad():
-                log_q_probe = flow_log_prob(flow, x)
+                log_q_probe = flow_log_prob(flow, x, key_lq)
             row_ok = row_ok & torch.isfinite(log_q_probe)
             x = torch.where(row_ok[:, None], x, 0.0)
 
-            log_q_x = flow_log_prob(flow, x)
+            log_q_x = flow_log_prob(flow, x, key_lq)
             loss, log_w_adjust, w_pre = losses_lib.buffer_replay_loss(
                 log_q_x, log_q_old, alpha, self.w_adjust_max_clip, row_ok
             )
@@ -695,9 +701,9 @@ class PrioritisedBufferTrainer(Trainer):
         if self.w_adjust_in_buffer_after_update:
             # One adjustment pass over the same replay batches with the final flow:
             # the raw rows (not the zero-filled ones), as fab_tpu does.
-            for x, log_w_b, log_q_old, idx in zip(xs, log_ws, log_q_olds, idxs):
+            for x, log_w_b, log_q_old, idx, key_lq in zip(xs, log_ws, log_q_olds, idxs, keys):
                 with torch.no_grad():
-                    log_q_new = flow_log_prob(flow, x)
+                    log_q_new = flow_log_prob(flow, x, key_lq)
                 log_w_adjust = (1 - alpha) * (log_q_new - log_q_old)
                 buffer_state = buffer.adjust(
                     buffer_state,

@@ -7,10 +7,11 @@
   for this comparison (``fab_tpu_torch/flows/splines.py`` says why they differ).
 - One ``generate_test_set`` HMC sweep on replayed noise: 1e-8; the port's whole
   ``generate_test_set`` keeps L-form rows only.
-- ``run_aldp`` on aldp.yaml (with a resume), aldp_fab_no_buff.yaml, aldp_kld.yaml,
-  aldp_al2div.yaml and aldp_ml.yaml at a tiny size: finite ``logging_hist.csv`` and
-  ``metrics.csv`` columns; aldp_rbd.yaml and aldp_snf.yaml raise
-  NotImplementedError naming ROADMAP Queue 1 item 2.
+- The LARS + SNF ALDP flow (``make_aldp_flow``, tiny) on replayed noise: 1e-8.
+- ``run_aldp`` on all seven configs (aldp.yaml with a resume, aldp_fab_no_buff.yaml,
+  aldp_kld.yaml, aldp_al2div.yaml, aldp_ml.yaml, aldp_rbd.yaml with the LARS base and
+  aldp_snf.yaml with MH layers) at a tiny size: finite ``logging_hist.csv`` and
+  ``metrics.csv`` columns.
 """
 import csv
 import math
@@ -29,10 +30,11 @@ from fab_tpu.sampling import create_point as jax_create_point
 from fab_tpu.targets.aldp import AldpBoltzmann as JaxAldp
 from fab_tpu.utils.aldp_eval import chirality_scale_shift as jax_scale_shift
 from fab_tpu.utils.aldp_eval import make_chirality_filter_jax
+from fab_tpu_torch import random as port_random
 from fab_tpu_torch.convert import from_jax_params
 from fab_tpu_torch.experiments import run_aldp
 from fab_tpu_torch.experiments.make_aldp_model import make_aldp_flow
-from fab_tpu_torch.flows import splines
+from fab_tpu_torch.flows import ResampledGaussianBase, StochasticFlow, splines
 from fab_tpu_torch.sampling import HamiltonianMonteCarlo, create_point
 from fab_tpu_torch.targets.aldp import AldpBoltzmann
 from fab_tpu_torch.train import PrioritisedBufferTrainer, Trainer
@@ -41,7 +43,15 @@ from fab_tpu_torch.utils.aldp_eval import (
     filter_chirality,
     make_chirality_filter,
 )
-from torch_parity_utils import NoiseReplay, assert_close, check_train_step, hmc_noise, to_np
+from torch_parity_utils import (
+    NoiseReplay,
+    assert_close,
+    check_train_step,
+    flow_sample_noise,
+    hmc_noise,
+    snf_log_prob_noise,
+    to_np,
+)
 
 DT = torch.float64
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -90,11 +100,49 @@ def test_prioritised_trainer_step_on_aldp_matches(targets, monkeypatch):
     hmc_kw = dict(n_ais_intermediate_distributions=2, n_outer=1, n_leapfrog=2, epsilon=0.1)
     info, new, _, _ = check_train_step(
         monkeypatch, (jax_flow, params, flow), targets, 60, 64, 2, n_batches=2,
-        hmc_kw=hmc_kw, filters=filters, uniform_base=True,
+        hmc_kw=hmc_kw, filters=filters,
         optimizer_kw=dict(schedule="cosine", total_steps=10, warmup_steps=3),
     )
     assert 0.0 < float(info["frac_filter_pass"]) < 1.0
     assert int(new.opt_state.count) == 2
+
+
+def test_lars_snf_aldp_flow_matches(targets, monkeypatch):
+    """make_aldp_flow with the LARS base and an MH layer (lam 1/2, 1) after each of 2
+    blocks, on the implicit-solvent target: the layers at fab_tpu's indexes, a
+    replayed draw and a keyed log q."""
+    target_j, target = targets
+    monkeypatch.setattr(splines, "CIRCULAR_BOUND", F32_PI)  # fab_tpu's float32 pi
+    circ = target.transform.circular_flow_dims
+    kw = dict(n_blocks=2, hidden_units=16, n_bins=4, seed=0, base_type="resampled",
+              snf_every=1, snf_steps=2, snf_proposal_scale=0.05)
+    n, key = 16, jax.random.key(4)
+    rng = np.random.default_rng(1)
+    jax_flow = jax_make_aldp_flow(60, circ, target_log_prob=target_j.log_prob, **kw)
+    with jax.enable_x64():
+        params = to_np(jax_flow.init(jax.random.key(0), jnp.float64))
+        params = jax.tree.map(lambda a: a + 0.05 * rng.standard_normal(a.shape), params)
+        x_in = _z_ref(target) + 0.02 * rng.standard_normal((n, 60))
+        # Jitted: eager dispatch of the force field inside the MH layers is slow.
+        x_j, lq_j, lp_j = to_np(jax.jit(lambda p, k, x: (
+            *jax_flow.sample_and_log_prob(p, k, n), jax_flow.log_prob(p, x, key=k)
+        ))(params, key, jnp.asarray(x_in)))
+        sample_noise = flow_sample_noise(jax_flow, key, n, 60, jnp.float64)
+        lp_noise = snf_log_prob_noise(jax_flow, key, (n, 60), jnp.float64)
+    flow = make_aldp_flow(60, circ, target_log_prob=target.log_prob, dtype=DT, device="cpu",
+                          **kw)
+    assert [type(b).__name__ for b in flow.bijectors] == [
+        type(b).__name__ for b in jax_flow.layers]
+    assert [b.lam for b in flow.bijectors if hasattr(b, "lam")] == [0.5, 1.0]
+    flow.load_state_dict(from_jax_params(params))
+    replay = NoiseReplay(monkeypatch, sample_noise, keys=[lp_noise])
+    with torch.no_grad():
+        x, lq = flow.sample_and_log_prob(n, None)
+        lp = flow.log_prob(torch.tensor(x_in), port_random.split(None))
+    replay.assert_consumed()
+    assert_close(x, x_j, 1e-8, "x")
+    assert_close(lq, lq_j, 1e-8, "sample log q")
+    assert_close(lp, lp_j, 1e-8, "log_prob")
 
 
 def test_generate_test_set_sweep_matches(targets, monkeypatch):
@@ -199,9 +247,15 @@ def test_runner_aldp_yaml_runs_and_resumes(tmp_path, ref_path):
     assert len(_rows(root / "metrics" / "metrics.csv")) == 2
 
 
+# The SNF variant at the tiny depth: an MH layer of 2 steps after each of the 2
+# blocks (aldp_snf.yaml: after every 4th of 12, 10 steps).
+VARIANT_EXTRA = {"aldp_snf.yaml": ["flow.snf.every=1", "flow.snf.steps=2"]}
+
+
 @pytest.mark.parametrize("config,trainer_type", [
     ("aldp_fab_no_buff.yaml", Trainer), ("aldp_kld.yaml", Trainer),
     ("aldp_al2div.yaml", Trainer), ("aldp_ml.yaml", None),
+    ("aldp_rbd.yaml", PrioritisedBufferTrainer), ("aldp_snf.yaml", PrioritisedBufferTrainer),
 ])
 def test_runner_variants_run(config, trainer_type, tmp_path, ref_path):
     root = tmp_path / "run"
@@ -212,7 +266,8 @@ def test_runner_variants_run(config, trainer_type, tmp_path, ref_path):
     np.save(root / "test_set.npy", z)
     shutil.copy(root / "test_set.npy", root / "train_set.npy")
     trainer, state, metrics = _run(config, root, ref_path, "training.max_iter=2",
-                                   "training.n_train_samples=200")
+                                   "training.n_train_samples=200",
+                                   *VARIANT_EXTRA.get(config, []))
     assert all(math.isfinite(v) for v in metrics.values())
     assert len(_rows(root / "metrics" / "metrics.csv")) == 1
     if trainer_type is None:
@@ -220,11 +275,12 @@ def test_runner_variants_run(config, trainer_type, tmp_path, ref_path):
         return
     assert type(trainer) is trainer_type and state.step == 2
     rows = _rows(root / "logging_hist.csv")
-    _finite(rows, ("loss", "grad_norm", "eval_ess_flow"))
+    _finite(rows, ("loss", "grad_norm", "eval_ess_flow", "eval_ess_ais_p_target",
+                   "frac_filter_pass"))
     assert [r["step"] for r in rows if r.get("loss")] == ["1.0", "2.0"]
+    flow = trainer.model.flow
+    assert isinstance(flow.base, ResampledGaussianBase) == (config == "aldp_rbd.yaml")
+    assert isinstance(flow, StochasticFlow) == (config == "aldp_snf.yaml")
+    if config == "aldp_snf.yaml":
+        assert [b.n_steps for b in flow.bijectors if hasattr(b, "lam")] == [2, 2]
 
-
-@pytest.mark.parametrize("config", ["aldp_rbd.yaml", "aldp_snf.yaml"])
-def test_lars_and_snf_configs_are_refused(config, tmp_path, ref_path):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        _run(config, tmp_path, ref_path, "training.max_iter=1")

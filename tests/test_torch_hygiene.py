@@ -11,7 +11,12 @@ import sys
 import pytest
 import torch
 
-from fab_tpu_torch.flows import make_realnvp
+from fab_tpu_torch.flows import (
+    make_masked_affine_maf,
+    make_realnvp,
+    make_resampled_realnvp,
+    make_snf_model,
+)
 from fab_tpu_torch.ops.coupling_kernel import fused_coupling_apply
 from fab_tpu_torch.ops.realnvp_kernel import fused_realnvp_pass
 from fab_tpu_torch.experiments.make_aldp_model import make_aldp_flow, make_aldp_model
@@ -65,7 +70,7 @@ def test_importing_the_port_loads_no_jax():
     "entry",
     [make_realnvp, ManyWellEnergy, LogGaussianCoxProcess, GMM, Trainer, BufferTrainer,
      PrioritisedBufferTrainer, setup_trainer_and_run_flow, AldpBoltzmann, make_aldp_flow,
-     make_aldp_model],
+     make_aldp_model, make_resampled_realnvp, make_snf_model, make_masked_affine_maf],
     ids=lambda e: e.__name__,
 )
 def test_entry_points_default_to_the_card(entry):
@@ -87,6 +92,12 @@ def test_entry_points_raise_without_a_card():
         AldpBoltzmann()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_aldp_flow(6, (1,), n_blocks=1, hidden_units=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_resampled_realnvp(4, n_flow_layers=1, layer_nodes_per_dim=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_snf_model(4, lambda x: x.sum(-1), n_flow_layers=1, layer_nodes_per_dim=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_masked_affine_maf(4, n_layers=1, hidden_units=4)
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():

@@ -5,8 +5,10 @@
   configs itself), and its dotted overrides against fab_tpu's.
 - ``get_n_iterations`` against fab_tpu's on the configs ``setup_run`` reads, with
   the iteration budget and the flow-forward-pass budget.
-- Each runner end to end at a tiny size via overrides: GMM (plain ``Trainer``; and
-  ``BufferTrainer``), ManyWell (prioritised buffer, pickle log) and LGCP
+- ``setup_model`` with ``flow.resampled_base`` and ``flow.use_snf`` building the
+  layers fab_tpu's does.
+- Each runner end to end at a tiny size via overrides: GMM (plain ``Trainer``;
+  ``BufferTrainer``; the LARS base; SNF), ManyWell (prioritised buffer, pickle log) and LGCP
   (``flow.fused_coupling=true``, K2's plain version), each writing its log and a
   checkpoint, with finite eval columns, and resuming from the checkpoint.
 """
@@ -15,16 +17,21 @@ import math
 import pathlib
 import pickle
 
+import jax
 import pytest
 import torch
 import yaml
 
 from experiments.setup_run import get_n_iterations as jax_get_n_iterations
+from experiments.setup_run import setup_model as jax_setup_model
+from fab_tpu.targets import GMM as JaxGMM
 from fab_tpu.utils.training import apply_overrides as jax_apply_overrides
 from fab_tpu.utils.training import load_config as jax_load_config
 from fab_tpu_torch.experiments import run_gmm, run_lgcp, run_many_well
 from fab_tpu_torch.experiments.setup_run import get_n_iterations, setup_model
+from fab_tpu_torch.flows import ResampledGaussianBase, StochasticFlow, is_stochastic
 from fab_tpu_torch.ops.coupling_kernel import FusedCoupling
+from fab_tpu_torch.targets import GMM
 from fab_tpu_torch.train import BufferTrainer, PrioritisedBufferTrainer, Trainer
 from fab_tpu_torch.utils.training import apply_overrides, load_config, read_yaml
 
@@ -78,10 +85,54 @@ def test_get_n_iterations_matches_fab_tpu(path, budget, capsys):
 
 
 @pytest.mark.parametrize("key", ["resampled_base", "use_snf"])
-def test_unported_flows_raise_naming_the_roadmap_item(key):
+def test_setup_model_builds_lars_and_snf_flows_as_fab_tpu(key):
+    """gmm.yaml with the switch on: the same layers as fab_tpu's setup_model (15
+    couplings; the LARS base 2 x 256, T 100, 1024 points; or 5 MH layers of one
+    step of 5.0, every 3rd block)."""
     cfg = apply_overrides(load_config(str(RUN_CONFIGS[0])), [f"flow.{key}=true"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        setup_model(cfg, None, device="cpu")
+    model = setup_model(cfg, GMM(true_expectation_estimation_n_samples=10, device="cpu"),
+                        device="cpu")
+    with jax.enable_x64():
+        model_j = jax_setup_model(cfg, JaxGMM(true_expectation_estimation_n_samples=10))
+    flow, flow_j = model.flow, model_j.flow
+    layers_j = flow_j.layers if key == "use_snf" else flow_j.bijectors
+    assert [type(b).__name__ for b in flow.bijectors] == [type(b).__name__ for b in layers_j]
+    if key == "resampled_base":
+        base, base_j = flow.base, flow_j.base
+        assert isinstance(base, ResampledGaussianBase) and not is_stochastic(flow)
+        assert (base.T, base.sizes, base.z_points.shape) == (
+            base_j.T, [2, base_j.hidden_units, base_j.hidden_units, 1], (1024, 2))
+        return
+    mh = [(b.lam, b.n_steps, b.proposal_scale) for b in flow.bijectors if hasattr(b, "lam")]
+    assert isinstance(flow, StochasticFlow) and len(mh) == 5
+    assert mh == [(b.lam, b.n_steps, b.proposal_scale) for b in layers_j if hasattr(b, "lam")]
+    assert mh[0] == (0.2, 1, 5.0)
+
+
+@pytest.mark.parametrize("key", ["resampled_base", "use_snf"])
+def test_gmm_runner_with_lars_and_snf_flows(key, tmp_path):
+    """run_gmm with flow.resampled_base=true or flow.use_snf=true (an MH layer after
+    each of the 2 blocks here): 2 iterations, an eval with finite columns and a
+    checkpoint that restores the flow (the LARS base's proposal points included)."""
+    extra = ["flow.snf.it_snf_layer=1"] if key == "use_snf" else []
+    trainer, state = run_gmm.main(
+        ["--config", str(RUN_CONFIGS[0]), "--device", "cpu", *GMM_TINY, *extra,
+         "training.n_iterations=2", f"evaluation.save_path={tmp_path}", f"flow.{key}=true"])
+    assert type(trainer) is Trainer and state.step == 2
+    flow = trainer.model.flow
+    assert isinstance(flow.base, ResampledGaussianBase) == (key == "resampled_base")
+    assert sum(hasattr(b, "lam") for b in flow.bijectors) == (2 if key == "use_snf" else 0)
+    rows = _rows(tmp_path)
+    assert all(math.isfinite(float(r["loss"])) for r in rows if r.get("loss"))
+    _finite_eval(rows[-1])
+    (ckpt,) = pathlib.Path(tmp_path).glob("*/model_checkpoints/iter_2/state.pkl")
+    saved = {k: v.clone() for k, v in flow.state_dict().items()}
+    with torch.no_grad():
+        for v in flow.state_dict().values():
+            v.zero_()
+    trainer.load_state(str(ckpt))
+    for name, value in flow.state_dict().items():
+        assert torch.equal(value, saved[name]), name
 
 
 def test_runners_default_to_the_card():

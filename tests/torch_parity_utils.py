@@ -86,20 +86,84 @@ def hmc_noise(key, n_outer: int, shape, dtype):
     return {"normal": normals, "exponential": exps}
 
 
-def ais_noise(key, n_dists: int, n_outer: int, batch: int, dim: int, dtype,
-              uniform_base: bool = False):
+def _extend(noise, more):
+    for kind, values in more.items():
+        noise.setdefault(kind, []).extend(values)
+    return noise
+
+
+def mh_layer_noise(key, n_steps: int, shape, dtype):
+    """The draws of one SNF Metropolis layer run (snf.py ``_mcmc``): per step a
+    proposal normal [B, D], then an acceptance uniform [B]."""
+    noise = {"normal": [], "uniform": []}
+    for key_t in jax.random.split(key, n_steps):
+        key_prop, key_acc = jax.random.split(key_t)
+        noise["normal"].append(np.asarray(jax.random.normal(key_prop, shape, dtype)))
+        noise["uniform"].append(np.asarray(jax.random.uniform(key_acc, shape[:-1], dtype)))
+    return noise
+
+
+def snf_log_prob_noise(flow, key, shape, dtype):
+    """The draws of a ``StochasticFlow.log_prob(params, x, key)`` on x of ``shape``, in
+    the port's order: the MH layers in reverse, each on ``fold_in(key, i)`` with i
+    its index in the reversed chain."""
+    noise = {"normal": [], "uniform": []}
+    for i, layer in enumerate(reversed(flow.layers)):
+        if getattr(layer, "is_stochastic", False):
+            _extend(noise, mh_layer_noise(jax.random.fold_in(key, i), layer.n_steps, shape,
+                                          dtype))
+    return noise
+
+
+def base_sample_noise(base, key, n: int, dim: int, dtype):
+    """The draws of a fab_tpu base's ``sample_and_log_prob(params, key, n)``: a
+    diagonal Gaussian's normal; a ``UniformGaussianBase``'s normal and uniform; the
+    LARS base's initial proposal (in JAX's default float, as fab_tpu draws it) and
+    its T-1 rounds of (proposal, uniform)."""
+    from fab_tpu.flows import ResampledGaussianBase, UniformGaussianBase
+
+    if isinstance(base, UniformGaussianBase):
+        key_g, key_u = jax.random.split(key)
+        return {"normal": [np.asarray(jax.random.normal(key_g, (n, dim), dtype))],
+                "uniform": [np.asarray(jax.random.uniform(key_u, (n, dim), dtype))]}
+    if isinstance(base, ResampledGaussianBase):
+        key_init, key_scan = jax.random.split(key)
+        z0 = jax.random.normal(key_init, (n, dim))
+        z_dtype = jnp.promote_types(z0.dtype, dtype)
+        noise = {"normal": [np.asarray(z0)], "uniform": []}
+        for key_t in jax.random.split(key_scan, base.T - 1):
+            key_prop, key_u = jax.random.split(key_t)
+            noise["normal"].append(np.asarray(jax.random.normal(key_prop, (n, dim), z0.dtype)))
+            noise["uniform"].append(np.asarray(jax.random.uniform(key_u, (n,), z_dtype)))
+        return noise
+    return {"normal": [np.asarray(jax.random.normal(key, (n, dim), dtype))]}
+
+
+def flow_sample_noise(flow, key, n: int, dim: int, dtype):
+    """The draws of a fab_tpu flow's ``sample_and_log_prob(params, key, n)`` in the
+    port's order: the base, then (a ``StochasticFlow``) each MH layer in forward
+    order on ``fold_in(key_layers, i)``."""
+    if not getattr(flow, "is_stochastic", False):
+        return base_sample_noise(flow.base, key, n, dim, dtype)
+    key_base, key_layers = jax.random.split(key)
+    noise = base_sample_noise(flow.base, key_base, n, dim, dtype)
+    for i, layer in enumerate(flow.layers):
+        if getattr(layer, "is_stochastic", False):
+            _extend(noise, mh_layer_noise(jax.random.fold_in(key_layers, i), layer.n_steps,
+                                          (n, dim), dtype))
+    return noise
+
+
+def ais_noise(key, n_dists: int, n_outer: int, batch: int, dim: int, dtype, flow=None):
     """All draws of one AIS pass with HMC, in the port's call order (ais.py:81,133).
-    ``uniform_base``: the flow's base is a ``UniformGaussianBase``, which splits its
-    key into a normal and a uniform draw."""
+    ``flow``: the fab_tpu flow, whose ``flow_sample_noise`` makes the first draw (any
+    base, SNF layers); without it, the draw of a diagonal-Gaussian base."""
     key_init, key_chain = jax.random.split(key)
-    noise = {
-        "normal": [np.asarray(jax.random.normal(key_init, (batch, dim), dtype))],
-        "exponential": [],
-    }
-    if uniform_base:
-        key_g, key_u = jax.random.split(key_init)
-        noise["normal"] = [np.asarray(jax.random.normal(key_g, (batch, dim), dtype))]
-        noise["uniform"] = [np.asarray(jax.random.uniform(key_u, (batch, dim), dtype))]
+    if flow is None:
+        noise = {"normal": [np.asarray(jax.random.normal(key_init, (batch, dim), dtype))]}
+    else:
+        noise = flow_sample_noise(flow, key_init, batch, dim, dtype)
+    noise["exponential"] = []
     for key_d in jax.random.split(key_chain, n_dists):
         step = hmc_noise(key_d, n_outer, (batch, dim), dtype)
         noise["normal"] += step["normal"]
@@ -124,23 +188,42 @@ def metropolis_ais_noise(key, n_dists: int, n_updates: int, batch: int, dim: int
 
 class NoiseReplay:
     """Replaces the port's random draws with given arrays, in call order (kinds:
-    normal, exponential, gumbel, uniform and randint)."""
+    normal, exponential, gumbel, uniform and randint).
 
-    def __init__(self, monkeypatch, noise):
+    ``keys``: the draws of each log-q key (``random.split``), in the order the port
+    splits them. Every ``random.restart`` of a key replays that key's draws from
+    the start; a split past the last key fails, so a log-q call that split a key of
+    its own would fail here."""
+
+    def __init__(self, monkeypatch, noise, keys=()):
         self.queues = {k: list(v) for k, v in noise.items()}
+        self.keys = list(keys)
+        self.cursors = []
         for kind in ("normal", "exponential", "gumbel", "uniform"):
             monkeypatch.setattr(port_random, kind, self._draw(kind))
         monkeypatch.setattr(port_random, "randint", self._randint)
+        monkeypatch.setattr(port_random, "split", self._split)
+        monkeypatch.setattr(port_random, "restart", self._restart)
 
-    def _pop(self, kind, shape):
-        value = self.queues[kind].pop(0)
+    def _split(self, generator):
+        assert self.keys, "a log-q key was split past the replayed ones"
+        return _ReplayKey(self.keys.pop(0))
+
+    def _restart(self, key):
+        assert isinstance(key, _ReplayKey), key
+        cursor = _Cursor({k: list(v) for k, v in key.noise.items()})
+        self.cursors.append(cursor)
+        return cursor
+
+    def _pop(self, kind, shape, generator=None):
+        queues = generator.queues if isinstance(generator, _Cursor) else self.queues
+        value = queues[kind].pop(0)
         assert tuple(value.shape) == tuple(shape), (kind, value.shape, shape)
         return value
 
     def _draw(self, kind):
         def draw(generator, shape, dtype, device):
-            del generator
-            return torch.tensor(self._pop(kind, shape), dtype=dtype, device=device)
+            return torch.tensor(self._pop(kind, shape, generator), dtype=dtype, device=device)
 
         return draw
 
@@ -153,6 +236,20 @@ class NoiseReplay:
     def assert_consumed(self):
         left = {k: len(v) for k, v in self.queues.items() if v}
         assert not left, f"unused replayed draws: {left}"
+        assert not self.keys, f"{len(self.keys)} replayed log-q keys never split"
+        for cursor in self.cursors:
+            left = {k: len(v) for k, v in cursor.queues.items() if v}
+            assert not left, f"a log-q call left draws of its key: {left}"
+
+
+class _ReplayKey:
+    def __init__(self, noise):
+        self.noise = noise
+
+
+class _Cursor:
+    def __init__(self, queues):
+        self.queues = queues
 
 
 def assert_close(actual, expected, tol, what=""):
@@ -190,7 +287,7 @@ def assert_buffer(state, state_j, tol):
 
 def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_batches,
                      hmc_kw, tol=1e-8, filters=None, trainer_kw=None,
-                     with_replacement=False, optimizer_kw=None, uniform_base=False):
+                     with_replacement=False, optimizer_kw=None):
     """One full f64 PrioritisedBufferTrainer step of the port against fab_tpu's, on
     a shared buffer (192 rows, some dead) and shared noise: flow parameters, Adam
     state, HMC state, buffer and logged info agree to ``tol``.
@@ -199,7 +296,9 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
     port target); ``filters`` an optional (jax, port) train-time sample filter;
     ``trainer_kw`` and ``optimizer_kw`` go to both trainers and both
     ``make_optimizer``s; ``with_replacement`` makes both buffers draw with
-    replacement; ``uniform_base`` replays a ``UniformGaussianBase``'s draws. Returns
+    replacement. The flow's draws (any base, an SNF's layers) are replayed from the
+    fab_tpu flow, and so are an SNF's log-q keys, one per AIS pass and per replay
+    batch. Returns
     (port info, port state, fab_tpu's info, fab_tpu's state).
     """
     jax_flow, params, flow = flow_pair
@@ -234,7 +333,13 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
         )
         key = jax.random.key(5)
         key_ais, key_sample = jax.random.split(key)
-        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64, uniform_base)
+        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64, flow=jax_flow)
+        keys = []
+        if getattr(jax_flow, "is_stochastic", False):
+            # One log-q key per AIS pass (fold_in 0x10C9) and per replay batch.
+            keys = [snf_log_prob_noise(jax_flow, k, (batch, dim), jnp.float64) for k in (
+                [jax.random.fold_in(key_ais, 0x10C9)]
+                + list(jax.random.split(jax.random.fold_in(key, 0x11A7), n_batches)))]
         gumbel_shape = (n_batches * batch, 512) if with_replacement else (512,)
         noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, gumbel_shape,
                                                         jnp.float64))]
@@ -259,7 +364,7 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
         buffer_state=buffer_state_from_jax(to_np(buffer_j)),
         step=0,
     )
-    replay = NoiseReplay(monkeypatch, noise)
+    replay = NoiseReplay(monkeypatch, noise, keys)
     new, info = trainer.train_step(state, None, batch)
     replay.assert_consumed()
 
