@@ -5,8 +5,8 @@
 
 Phases:
   1. Environment: the card's name and power limit, torch and CUDA versions; build
-     every kernel from the sources in this checkout (one nvcc per source, started
-     together).
+     every kernel from the sources in this checkout (one nvcc per source), and the
+     host C++ ALDP energy server (g++), all started together.
   2. K1 (fused RealNVP chain: 3xTF32 mma.sync products, weights streamed by TMA
      and multicast across clusters of 2 blocks) against its plain PyTorch version
      on the card at ManyWell-32 shapes, with every parameter perturbed (a fresh
@@ -76,7 +76,21 @@ Phases:
      reference frame and test set. Then GMM-40 through run_gmm on gmm.yaml with
      flow.resampled_base=true and with flow.use_snf=true (5 MH layers of one step
      of 5.0): 5 iterations, one eval, 5 timed steps, one more with CUDA's sync
-     debug mode on "error" (the log-q keys wait for no device).
+     debug mode on "error" (the log-q keys wait for no device); each writes one
+     checkpoint for phase 13.
+ 13. (a) The host C++ energy server (system.backend: host_cpp) against the torch
+     force field on the card (1024 test-set positions of phase 11, implicit
+     solvent, f64), then aldp.yaml (phase 11's cuts and reference frame) on the jax
+     (on-device) backend and on host_cpp: init_state, 3 timed steps each, taken in
+     turns (HOST_ORDER), and a profiled one: median step, device busy, device ops
+     and server calls per step. (b) profile_aldp at batch 1024 on both backends, its repeats
+     cut to 2 (printed). (c) evaluate.py on phase 9's GMM-40 checkpoint and phase
+     12's as rsb_* and snf_*, and on the LGCP-1600 flow of phases 6-7 with
+     flow.fused_coupling=true (K2 launches counted, > 0 asserted);
+     evaluate_expectation.py on the GMM-40 checkpoint (20 repeats of 100);
+     sample_aldp.py and reeval_aldp.py on phase 11's run; every CSV and .npz value
+     finite. (d) Without matplotlib (the card machine has none), the "plots off"
+     line, and no PNG written anywhere.
   The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
   fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
   6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
@@ -239,7 +253,8 @@ def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
     """One more step under torch.profiler, recording the device: its busy time
     (one stream, so kernels do not overlap) against the step, the top device ops,
     and the share of named groups of ops (an op counts in the first group whose
-    words its name holds). Returns the state, the busy share and each group's ms."""
+    words its name holds). Returns the state, the busy share, each group's ms and
+    the device op count."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -270,7 +285,7 @@ def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
             group_ms[group] += ms
     for group, ms in group_ms.items():
         print(f"    group {group}: {ms:.2f} ms ({ms / busy_ms:.1%} of device busy)")
-    return state, busy_ms / steady, group_ms
+    return state, busy_ms / steady, group_ms, n_ops
 
 
 # ------------------------------------------------------------------- K1 / ManyWell
@@ -444,9 +459,9 @@ def manywell_path(device, gen, card):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] ManyWell-32 AIS pass alone: {ais_ms:.1f} ms "
           f"({ais_ms / run['steady_ms']:.1%} of the median step)")
-    _, busy, groups = _profile_step(trainer, state, gen, MW_BATCH, run["steady_ms"], card,
-                                 "ManyWell-32",
-                                 {"K1": ["k1_tf32x3"], "triangular solves": ["trsm"]})
+    _, busy, groups, _ = _profile_step(trainer, state, gen, MW_BATCH, run["steady_ms"], card,
+                                    "ManyWell-32",
+                                    {"K1": ["k1_tf32x3"], "triangular solves": ["trsm"]})
     assert groups["K1"] > 0, "the profiler saw no K1 kernel"
     run["busy"], run["k1_group_ms"] = busy, groups["K1"]
     return run
@@ -638,7 +653,7 @@ def gmm_runner(device, gen, card, tmp):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] GMM-40 AIS pass alone: {ais_ms:.1f} ms ({ais_ms / steady:.1%} of the "
           "median step)")
-    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, "GMM-40", {
+    _, busy, groups, _ = _profile_step(trainer, state, gen, batch, steady, card, "GMM-40", {
         "triangular solves": ["trsm"], "GEMMs": ["gemm", "cutlass", "sm90_xmma"]})
     _no_kernel_launched("the GMM-40 steps")
 
@@ -831,8 +846,8 @@ def aldp_path(device, gen, card, tmp):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] ALDP AIS pass alone: {ais_ms:.1f} ms ({ais_ms / steady:.1%} of the "
           "median step)")
-    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, "ALDP",
-                                    ALDP_GROUPS)
+    _, busy, groups, _ = _profile_step(trainer, state, gen, batch, steady, card, "ALDP",
+                                       ALDP_GROUPS)
     del trainer, state, model
     _no_kernel_launched("the ALDP steps")
 
@@ -1003,8 +1018,8 @@ def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
           + (", ".join(f"{k} {v:.4g}" for k, v in eval_shown.items()) or "cut"))
     print(f"[{card}] {label} final evaluation (2000 flow samples against the test set): "
           + _finite_metrics(metrics, f"{label} final evaluation"))
-    _, busy, groups = _profile_step(trainer, state, gen, batch, steady, card, label,
-                                    ALDP_GROUPS)
+    _, busy, groups, _ = _profile_step(trainer, state, gen, batch, steady, card, label,
+                                       ALDP_GROUPS)
     return trainer, root, {"steady_ms": steady, "busy": busy, "groups": groups,
                            "init_s": times["init_s"], "run_s": times["run_s"],
                            "steps_ms": times["steps_ms"], "peak_gib": peak_gib}
@@ -1064,7 +1079,7 @@ def lars_snf_path(device, gen, card, tmp):
     _no_kernel_launched("the ALDP snf run")
 
     config = ["--config", os.path.join(CONFIGS, "gmm.yaml"), *RUNNER_COMMON,
-              "training.n_iterations=5", "evaluation.n_checkpoints=0"]
+              "training.n_iterations=5", "evaluation.n_checkpoints=1"]
     for flag, label in (("flow.resampled_base=true", "GMM-40-rbd"),
                         ("flow.use_snf=true", "GMM-40-snf")):
         t0 = time.time()
@@ -1109,6 +1124,309 @@ def lars_snf_path(device, gen, card, tmp):
               f"{', '.join(f'{t:.1f}' for t in step_ms)}), one more step with no host sync "
               "(sync debug mode 'error'); eval " + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
     _no_kernel_launched("the LARS and SNF phase")
+    return out
+
+
+# ------------------------------------- host C++ server, profiler, evaluation, sampling
+
+# aldp.yaml's phase-13 steps and profile: cut in length only, as phase 11 (ALDP_CUTS);
+# the profiler's repeats cut from 20 (10 for the train step) to PROFILE_REPEATS.
+PROFILE_REPEATS = 2
+# aldp.yaml's steps on the two backends, 3 each, in turns (ABBAAB).
+HOST_ORDER = ("jax", "host_cpp", "host_cpp", "jax", "jax", "host_cpp")
+ALDP_BATCH = 1024  # aldp.yaml's
+
+
+def _host_server_check(target, z_test, device, card) -> dict:
+    """The C++ server against the torch force field on the card, implicit solvent,
+    f64, on 1024 test-set positions: energies rtol 1e-9, forces rtol 1e-6 / atol
+    1e-8 (tests/test_aldp.py's f64 tolerances)."""
+    import torch
+
+    from fab_tpu_torch.targets.aldp_ff import energy_kcal, gb_energy_kcal
+
+    z = torch.as_tensor(z_test[:1024], dtype=torch.float64, device=device)
+    with torch.no_grad():
+        x, _ = target.transform.flow_to_cartesian(z.to(target.dtype))
+    pos = x.double().reshape(-1, 22, 3).requires_grad_(True)
+    e_ref = energy_kcal(target.tables, pos) + gb_energy_kcal(target.tables, pos)
+    (g_ref,) = torch.autograd.grad(e_ref.sum(), pos)
+    server = target._server
+    t0 = time.time()
+    e, f = server.energy_and_force(pos.detach().cpu().numpy())
+    call_ms = (time.time() - t0) * 1e3
+    e = torch.as_tensor(e, device=device)
+    f = torch.as_tensor(f, device=device)
+    rel_e = float(((e - e_ref.detach()).abs() / e_ref.detach().abs()).max())
+    torch.testing.assert_close(e, e_ref.detach(), rtol=1e-9, atol=0)
+    torch.testing.assert_close(-f, g_ref, rtol=1e-6, atol=1e-8)
+    err_f = float((-f - g_ref).abs().max())
+    print(f"[{card}] host C++ server vs the torch force field on the card (1024 aldp.yaml "
+          f"test-set positions, implicit solvent, f64): max relative energy error "
+          f"{rel_e:.3e} (rtol 1e-9), max force error {err_f:.3e} kcal/mol/A (rtol 1e-6, "
+          f"atol 1e-8); one server call of 1024 rows {call_ms:.1f} ms on "
+          f"{server.n_threads} threads")
+    return {"max_rel_energy_err": rel_e, "max_abs_force_err": err_f, "call_ms": call_ms}
+
+
+def _host_backend_trainer(cfg, backend, device, gen) -> dict:
+    """aldp.yaml's model and prioritised trainer with ``system.backend`` set, and its
+    init_state (timed)."""
+    import torch
+
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.experiments import run_aldp
+    from fab_tpu_torch.experiments.make_aldp_model import make_aldp_model
+    from fab_tpu_torch.train import PrioritisedBufferTrainer
+    from fab_tpu_torch.utils.training import apply_overrides
+
+    cfg = apply_overrides(cfg, [f"system.backend={backend}"])
+    t, rb = cfg.training, cfg.training.replay_buffer
+    batch = t.batch_size
+    model, target = make_aldp_model(cfg, torch.float32, device)
+    assert target.backend == backend
+    trainer = PrioritisedBufferTrainer(
+        model, run_aldp._optimizer(t), PrioritisedReplayBuffer(
+            dim=target.dim, max_length=rb.max_length * batch,
+            min_sample_length=rb.min_length * batch),
+        n_batches_buffer_sampling=rb.n_updates, w_adjust_max_clip=rb.max_adjust_w_clip,
+        device=device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = trainer.init_state(gen, batch_size=batch)
+    torch.cuda.synchronize()
+    return {"trainer": trainer, "state": state, "batch": batch, "init_s": time.time() - t0,
+            "steps_ms": [], "calls": []}
+
+
+def host_cpp_path(device, gen, card, tmp) -> dict:
+    """13(a): build the C++ server, hold it against the torch force field on the
+    card, and take aldp.yaml steps on both backends in this call, in turns, on
+    phase 11's minimised structure: median step, server calls per step, device
+    busy and device ops of a profiled step."""
+    import numpy as np
+    import torch
+
+    from fab_tpu_torch import native
+    from fab_tpu_torch.experiments.make_aldp_model import make_aldp_model
+    from fab_tpu_torch.native import AldpEnergyServer
+    from fab_tpu_torch.utils.training import apply_overrides, load_config
+
+    t0 = time.time()
+    lib = native.build()
+    build_s = time.time() - t0
+    full = load_config(os.path.join(CONFIGS, "aldp.yaml"))
+    cfg = apply_overrides(full, ALDP_CUTS + [
+        f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}"])
+    print(f"[{card}] host C++ server: {lib.name} built or found in {build_s:.2f} s; "
+          f"os.cpu_count() {os.cpu_count()}, n_threads {cfg.system.n_threads} "
+          f"(aldp.yaml system.n_threads)")
+    out = {"build_s": build_s, "n_threads": cfg.system.n_threads, "cpu_count": os.cpu_count()}
+    _, target = make_aldp_model(apply_overrides(cfg, ["system.backend=host_cpp"]),
+                                torch.float32, device)
+    z_test = np.load(os.path.join(tmp, "aldp", "test_set.npy"))
+    out["check"] = _host_server_check(target, z_test, device, card)
+    del target
+
+    # Both trainers live at once; only one target is host_cpp, so the server's
+    # process-global tables stay its own. Steps in turns, so that a drift of the
+    # host's speed in the call reaches both backends alike.
+    runs = {b: _host_backend_trainer(cfg, b, device, gen) for b in ("jax", "host_cpp")}
+    for backend in HOST_ORDER:
+        run = runs[backend]
+        before = AldpEnergyServer.calls
+        t0 = time.time()
+        run["state"], info = run["trainer"].train_step(run["state"], gen, run["batch"])
+        torch.cuda.synchronize()
+        run["steps_ms"].append((time.time() - t0) * 1e3)
+        run["calls"].append(AldpEnergyServer.calls - before)
+        assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0, backend
+    for backend, run in runs.items():
+        label = f"ALDP-{backend}"
+        steady = statistics.median(run["steps_ms"])
+        before = AldpEnergyServer.calls
+        _, busy, _, n_ops = _profile_step(run["trainer"], run["state"], gen, run["batch"],
+                                          steady, card, label, ALDP_GROUPS)
+        run["calls"].append(AldpEnergyServer.calls - before)
+        print(f"[{card}] {label} (aldp.yaml, system.backend={backend}): init_state "
+              f"{run['init_s']:.2f} s; train step median {steady:.1f} ms over "
+              f"{len(run['steps_ms'])} steps taken in turns with the other backend (all: "
+              f"{', '.join(f'{v:.1f}' for v in run['steps_ms'])}), "
+              f"{run['batch'] / steady * 1e3:.1f} AIS samples/s; device busy {busy:.1%} of "
+              f"the median step, {n_ops} device ops per step; server calls per step "
+              f"{run['calls']}")
+        out[backend] = {"steady_ms": steady, "steps_ms": run["steps_ms"], "busy": busy,
+                        "device_ops": n_ops, "server_calls_per_step": run["calls"][-1],
+                        "init_s": run["init_s"]}
+    return out
+
+
+def profile_aldp_path(device, card, tmp) -> dict:
+    """13(b): profile_aldp on aldp.yaml at batch 1024 for both backends, its repeats
+    cut (printed) and its buffer at one batch."""
+    from fab_tpu_torch.experiments import profile_aldp
+
+    print(f"[{card}] profile_aldp cut: --repeats {PROFILE_REPEATS} (the script's default "
+          f"20, 10 for the train step; its 3 warm-up calls kept) and "
+          f"training.replay_buffer.min_length=1 (aldp.yaml: 64); a full-length run is "
+          "python3 -m fab_tpu_torch.experiments.profile_aldp [system.backend=host_cpp]")
+    out = {}
+    for backend in ("jax", "host_cpp"):
+        t0 = time.time()
+        rows = profile_aldp.main([
+            "--config", os.path.join(CONFIGS, "aldp.yaml"), "--device", str(device),
+            "--batch", str(ALDP_BATCH),
+            "--repeats", str(PROFILE_REPEATS), "training.replay_buffer.min_length=1",
+            f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}",
+            f"system.backend={backend}"])
+        assert len(rows) == 9 and all(math.isfinite(s) and s > 0 for _, s, _ in rows), rows
+        out[backend] = {name: s * 1e3 for name, s, _ in rows}
+        print(f"[{card}] profile_aldp system.backend={backend}: {time.time() - t0:.1f} s")
+    return out
+
+
+def _finite_csv(path) -> list:
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        bad = [k for k, v in r.items() if k != "model_name" and not math.isfinite(float(v))]
+        assert not bad, f"{path}: not finite {bad}"
+    return rows
+
+
+def _save_flow_checkpoint(trainer, state, path) -> None:
+    """The flow parameters and transition state (no optimizer, no buffer) in the
+    checkpoint layout, for the evaluation script."""
+    from fab_tpu_torch import checkpoint
+    from fab_tpu_torch.convert import to_jax_params
+
+    flow = trainer.model.flow
+    checkpoint.save_checkpoint(path, {
+        "params": {"flow": to_jax_params(flow.state_dict(), len(flow.bijectors)),
+                   "transition": dict(state.transition_state)},
+        "step": state.step})
+
+
+def evaluation_path(device, card, tmp) -> dict:
+    """13(c): evaluate.py on phase 9's GMM-40 checkpoint and phase 12's rbd and SNF
+    ones, and on the LGCP-1600 checkpoint of phases 6-7 through K2;
+    evaluate_expectation.py on the GMM-40 checkpoint; sample_aldp.py and
+    reeval_aldp.py on phase 11's run directory. Every CSV and .npz value finite."""
+    import numpy as np
+    import torch
+
+    from fab_tpu_torch.experiments import (
+        evaluate,
+        evaluate_expectation,
+        reeval_aldp,
+        sample_aldp,
+    )
+
+    def run_dir(name):
+        (stamp,) = os.listdir(os.path.join(tmp, name))
+        return os.path.join(tmp, name, stamp)
+
+    out = {}
+    _zero_counts()
+    t0 = time.time()
+    csv_path = os.path.join(tmp, "gmm_eval.csv")
+    evaluate.main(["--config", os.path.join(CONFIGS, "gmm.yaml"), "--out", csv_path,
+                   "--device", str(device), "--run", f"fab_seed0={run_dir('gmm')}",
+                   "--run", f"rsb_seed0={run_dir('GMM-40-rbd')}",
+                   "--run", f"snf_seed0={run_dir('GMM-40-snf')}"])
+    torch.cuda.synchronize()
+    out["gmm_eval_s"] = time.time() - t0
+    rows = _finite_csv(csv_path)
+    assert [r["model_name"] for r in rows] == ["fab_seed0", "rsb_seed0", "snf_seed0"]
+    print(f"[{card}] evaluate.py on gmm.yaml (10000 samples, inner batch 500; phase 9's "
+          f"checkpoint, phase 12's resampled-base and SNF ones): {out['gmm_eval_s']:.1f} s; "
+          + "; ".join(f"{r['model_name']} eval_ess_ais {float(r['eval_ess_ais']):.4g}, "
+                      f"flow_kl_forward {float(r['flow_kl_forward']):.4g}" for r in rows))
+    _no_kernel_launched("the GMM evaluation")
+
+    t0 = time.time()
+    csv_path = os.path.join(tmp, "gmm_expectation.csv")
+    evaluate_expectation.main(["--config", os.path.join(CONFIGS, "gmm.yaml"), "--out",
+                               csv_path, "--n-repeats", "20", "--device", str(device),
+                               "--run", f"fab_seed0={run_dir('gmm')}"])
+    torch.cuda.synchronize()
+    out["expectation_s"] = time.time() - t0
+    rows = _finite_csv(csv_path)
+    assert [r["model_name"] for r in rows] == ["target", "fab_seed0"]
+    print(f"[{card}] evaluate_expectation.py on gmm.yaml (1000 samples, --n-repeats 20 of "
+          f"the script's 100): {out['expectation_s']:.1f} s; " + "; ".join(
+              f"{r['model_name']} bias {float(r['bias']):.4g}" for r in rows))
+    _no_kernel_launched("the expectation estimates")
+
+    # LGCP-1600 through K2.
+    csv_path = os.path.join(tmp, "lgcp_eval.csv")
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    evaluate.main(["--config", os.path.join(CONFIGS, "lgcp.yaml"), "--out", csv_path,
+                   "--device", str(device), "--num-samples", str(2 * LG_BATCH),
+                   "--inner-batch", str(LG_BATCH),
+                   "--run", f"fab_seed0={os.path.join(tmp, 'lgcp_checkpoint', 'state.pkl')}",
+                   "flow.fused_coupling=true"])
+    torch.cuda.synchronize()
+    out["lgcp_eval_s"] = time.time() - t0
+    counts = _counts()
+    out["k2_launches"] = counts["k2"]
+    assert counts["k2"] > 0 and counts["k1"] == 0, counts
+    (row,) = _finite_csv(csv_path)
+    print(f"[{card}] evaluate.py on lgcp.yaml with flow.fused_coupling=true (the phase 6-7 "
+          f"flow; {2 * LG_BATCH} samples in AIS passes of {LG_BATCH}): "
+          f"{out['lgcp_eval_s']:.1f} s, K2 "
+          f"launches {counts['k2']}, prepared-weight rebuilds {counts['k2_rebuilds']}; "
+          f"eval_ess_flow {float(row['eval_ess_flow']):.4g}, eval_ess_ais "
+          f"{float(row['eval_ess_ais']):.4g}")
+
+    aldp = ["--config", os.path.join(CONFIGS, "aldp.yaml"), "--device", str(device),
+            "--run", os.path.join(tmp, "aldp")]
+    reference = f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}"
+    _zero_counts()
+    t0 = time.time()
+    npz = sample_aldp.main(aldp + ["--n-samples", str(2 * ALDP_BATCH), "--batch",
+                                   str(ALDP_BATCH), "--out",
+                                   os.path.join(tmp, "aldp_samples.npz"), reference])
+    torch.cuda.synchronize()
+    out["sample_s"] = time.time() - t0
+    with np.load(npz) as data:
+        shapes = {k: data[k].shape for k in data}
+        bad = [k for k in data if not np.isfinite(data[k]).all()]
+    assert sorted(shapes) == ["ais_log_w", "ais_samples", "flow_log_p", "flow_log_q",
+                              "flow_samples"] and shapes["flow_samples"] == (2 * ALDP_BATCH, 60), shapes
+    assert not bad, f"sample_aldp: not finite {bad}"
+    print(f"[{card}] sample_aldp.py on phase 11's run (2 batches of {ALDP_BATCH} flow and "
+          f"AIS samples): {out['sample_s']:.1f} s; {shapes}")
+    t0 = time.time()
+    metrics = reeval_aldp.main(aldp + ["--n-samples", "2000", "--out-dir",
+                                       os.path.join(tmp, "aldp_reeval"), reference])
+    torch.cuda.synchronize()
+    out["reeval_s"] = time.time() - t0
+    _finite_csv(os.path.join(tmp, "aldp_reeval", "metrics", "metrics.csv"))
+    print(f"[{card}] reeval_aldp.py on phase 11's run (2000 flow samples, L-form test rows): "
+          f"{out['reeval_s']:.1f} s; " + _finite_metrics(metrics, "reeval_aldp"))
+    _no_kernel_launched("the ALDP sampling and re-evaluation")
+    return out
+
+
+def tools_path(device, gen, card, tmp) -> dict:
+    """Phase 13: the host C++ energy server, profile_aldp, the evaluation and
+    sampling entry points, and the plots switch."""
+    from fab_tpu_torch.utils.plotting import PLOTS_OFF, plots_available
+
+    out = {"host_cpp": host_cpp_path(device, gen, card, tmp)}
+    out["profile"] = profile_aldp_path(device, card, tmp)
+    out["eval"] = evaluation_path(device, card, tmp)
+    pngs = [os.path.join(d, f) for d, _, files in os.walk(tmp) for f in files
+            if f.endswith(".png")]
+    if plots_available():
+        assert pngs, "matplotlib is installed but no plot was written"
+    else:
+        print(f"[{card}] {PLOTS_OFF}: the runners, reeval_aldp and run_aldp wrote no PNG "
+              f"({len(pngs)} found)")
+        assert not pngs, pngs
     return out
 
 
@@ -1310,7 +1628,7 @@ def lgcp_path(device, gen, card, save_path):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] LGCP-1600 AIS pass alone: {ais_ms:.1f} ms "
           f"({ais_ms / run['steady_ms']:.1%} of the median step)")
-    state, busy, groups = _profile_step(
+    state, busy, groups, _ = _profile_step(
         trainer, state, gen, LG_BATCH, run["steady_ms"], card, "LGCP-1600",
         {"K2": ["k2_"], "triangular solves": ["trsm"],
          "cuBLAS GEMMs": ["gemm", "cutlass", "sm90_xmma"]},
@@ -1385,7 +1703,7 @@ def time_k2(k2, name, card):
 
 
 def drive(device, gen, name, card) -> list:
-    """Phases 2-12; returns the kernel records."""
+    """Phases 2-13; returns the kernel records."""
     t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
@@ -1393,34 +1711,39 @@ def drive(device, gen, name, card) -> list:
     k1_timing, k1_bounds = time_k1(k1, name, card)
     phase_s["2-4 K1, ManyWell"] = time.time() - t0
 
-    # ------------------------------------------------ 5-7. K2 and the LGCP path
-    k2 = check_k2(device, gen)
+    # Phases 5-13 share one directory: phase 13 evaluates the checkpoints and runs
+    # that phases 6-7, 9, 11 and 12 leave there.
     with tempfile.TemporaryDirectory() as tmp:
-        trainer, state, lg = lgcp_path(device, gen, card, tmp)
-        lgcp_run_entry(trainer, state, gen, card, tmp)
-    del trainer, state
-    k2_timing, k2_bounds, k2_library, k2_rebuild = time_k2(k2, name, card)
-    phase_s["5-7 K2, LGCP"] = time.time() - t0
+        # ------------------------------------------------ 5-7. K2 and the LGCP path
+        k2 = check_k2(device, gen)
+        lg_dir = os.path.join(tmp, "lgcp")
+        trainer, state, lg = lgcp_path(device, gen, card, lg_dir)
+        lgcp_run_entry(trainer, state, gen, card, lg_dir)
+        _save_flow_checkpoint(trainer, state, os.path.join(tmp, "lgcp_checkpoint", "state.pkl"))
+        del trainer, state
+        k2_timing, k2_bounds, k2_library, k2_rebuild = time_k2(k2, name, card)
+        phase_s["5-7 K2, LGCP"] = time.time() - t0
 
-    # ------------------------------------------------ 8. K1 at the wide chains
-    k1_wide = check_k1_wide(device, gen, name, card)
-    phase_s["8 K1 wide"] = time.time() - t0
+        # ------------------------------------------------ 8. K1 at the wide chains
+        k1_wide = check_k1_wide(device, gen, name, card)
+        phase_s["8 K1 wide"] = time.time() - t0
 
-    # ------------------------------------------------ 9-10. the YAML runners
-    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------------------------------------ 9-10. the YAML runners
         gmm = gmm_runner(device, gen, card, tmp)
         many_well_runner(card, tmp)
-    phase_s["9-10 runners"] = time.time() - t0
+        phase_s["9-10 runners"] = time.time() - t0
 
-    # ------------------------------------------------ 11. ALDP
-    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------------------------------------ 11. ALDP
         aldp = aldp_path(device, gen, card, tmp)
-    phase_s["11 ALDP"] = time.time() - t0
+        phase_s["11 ALDP"] = time.time() - t0
 
-    # ------------------------------------------------ 12. the LARS base and SNF
-    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------------------------------------ 12. the LARS base and SNF
         lars_snf = lars_snf_path(device, gen, card, tmp)
-    phase_s["12 LARS and SNF"] = time.time() - t0
+        phase_s["12 LARS and SNF"] = time.time() - t0
+
+        # ------------------------------------------------ 13. server, profiler, scripts
+        tools = tools_path(device, gen, card, tmp)
+        phase_s["13 host C++, profile, evaluation"] = time.time() - t0
 
     kernels = [
         {
@@ -1477,6 +1800,7 @@ def drive(device, gen, name, card) -> list:
             "log_det_bitwise_repeatable": True,
             "rebuilds_per_step": lg["rebuilds_per_step"],
             "rebuild_ms_per_coupling": k2_rebuild,
+            "launches_evaluation": tools["eval"]["k2_launches"],
         },
     ]
     print(f"[{card}] GMM-40 runner path (no kernel): median step {gmm['steady_ms']:.1f} ms, "
@@ -1490,6 +1814,12 @@ def drive(device, gen, name, card) -> list:
         print(f"[{card}] {label} path (no kernel): median step {run['steady_ms']:.1f} ms, "
               f"{1024 / run['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
               f"{run['busy']:.1%} of the median step")
+    for backend in ("jax", "host_cpp"):
+        run = tools["host_cpp"][backend]
+        print(f"[{card}] ALDP aldp.yaml with system.backend={backend} (phase 13): median step "
+              f"{run['steady_ms']:.1f} ms, {1024 / run['steady_ms'] * 1e3:.1f} AIS samples/s, "
+              f"device busy {run['busy']:.1%}, {run['device_ops']} device ops and "
+              f"{run['server_calls_per_step']} server calls per step")
     print(f"[{card}] wall time by phase (s, cumulative from phase 2): "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     return kernels
@@ -1504,6 +1834,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from fab_tpu_torch import native
     from fab_tpu_torch.ops import coupling_kernel as ck
     from fab_tpu_torch.ops import realnvp_kernel as rk
 
@@ -1516,11 +1847,13 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (rk, ck)))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        *libs, host_lib = pool.map(lambda m: m.build(), (rk, ck, native))
     rk._library()
     ck._library()
-    print(f"built K1 and K2 ({', '.join(p.name for p in libs)}) in {time.time() - t0:.2f} s")
+    native._library()
+    print(f"built K1 and K2 with nvcc and the host C++ energy server with g++ "
+          f"({', '.join(p.name for p in (*libs, host_lib))}) in {time.time() - t0:.2f} s")
     for path in libs:
         print(path.with_suffix(".ptxas.txt").read_text().strip())
     spills = _spills(libs[0].with_suffix(".ptxas.txt").read_text(), "k1_tf32x3_chain")

@@ -98,6 +98,7 @@ def make_aldp_model(cfg, dtype=torch.float32, device="cuda") -> Tuple[FABModel, 
         transform=sys_cfg.get("transform", "internal"),
         env=sys_cfg.get("env", "vacuum"),
         backend=sys_cfg.get("backend", "jax"),
+        n_threads=sys_cfg.get("n_threads", 4),
         dtype=dtype,
         device=device,
     )

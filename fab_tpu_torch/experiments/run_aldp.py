@@ -9,7 +9,9 @@ maximum-likelihood training for ``fab.loss_type: forward_kl``) on the 60-D
 internal-coordinate Boltzmann target. The test set, and the ML training set, are made
 by a long HMC run at the target and cached as ``.npy`` under ``training.save_root``;
 the run resumes from the latest checkpoint there; a final evaluation compares flow
-samples with the test set (Ramachandran and marginal KLDs). No plots.
+samples with the test set (Ramachandran and marginal KLDs) and, when matplotlib is
+installed, draws the Ramachandran and dihedral-marginal plots into
+``<save_root>/plots/`` (else it prints ``plots off: matplotlib is not installed``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from fab_tpu_torch.utils.aldp_eval import (
     filter_chirality,
 )
 from fab_tpu_torch.utils.logging import CSVLogger
+from fab_tpu_torch.utils.plotting import when_plots_available
 from fab_tpu_torch.utils.training import maybe_enable_x64
 
 SWEEPS_PER_CHUNK = 20
@@ -124,6 +127,12 @@ def sample_flow(flow, generator, n: int, chunk: int = 1000) -> np.ndarray:
     return np.concatenate(out)[:n]
 
 
+def _plot_dir(save_root: str) -> Optional[str]:
+    """``<save_root>/plots`` for the final evaluation's plots, or None without
+    matplotlib."""
+    return when_plots_available(lambda: os.path.join(save_root, "plots"))
+
+
 def run_ml_training(cfg, model, target, z_train: torch.Tensor, z_test: np.ndarray,
                     generator: torch.Generator):
     """Forward-KL (maximum-likelihood) training on target samples: minibatches drawn
@@ -151,7 +160,8 @@ def run_ml_training(cfg, model, target, z_train: torch.Tensor, z_test: np.ndarra
     )
     z_sample = sample_flow(flow, generator, int(t.get("final_eval_samples", 10_000)))
     metrics = evaluate_aldp(target, z_sample, z_test, iteration=t.max_iter,
-                            metric_dir=os.path.join(save_root, "metrics"))
+                            metric_dir=os.path.join(save_root, "metrics"),
+                            plot_dir=_plot_dir(save_root))
     print({k: round(float(v), 5) for k, v in metrics.items()})
     return metrics
 
@@ -246,7 +256,8 @@ def main(argv=None):
     except (TypeError, ValueError, AttributeError):
         reached = t.max_iter
     metrics = evaluate_aldp(target, z_sample, z_test, iteration=reached,
-                            metric_dir=os.path.join(save_root, "metrics"))
+                            metric_dir=os.path.join(save_root, "metrics"),
+                            plot_dir=_plot_dir(save_root))
     print({k: round(float(v), 5) for k, v in metrics.items()})
     return trainer, state, metrics
 

@@ -1,9 +1,11 @@
-"""Build a kernel source under ``csrc/`` with ``nvcc`` into a shared library.
+"""Build a kernel source under ``csrc/`` with ``nvcc``, or a host C++ source with
+``g++`` (``host=True``), into a shared library.
 
 Each library is compiled at first use into ``_build/`` (gitignored) as
 ``lib<stem>_<hash>.so``, where the hash is of the source and of every local header it
 includes (``#include "..."``, followed through headers), so a stale build is never
-loaded, and editing a header shared by two sources rebuilds both. The compiler's register/shared-memory report goes to ``<lib>.ptxas.txt``.
+loaded, and editing a header shared by two sources rebuilds both. ``nvcc``'s
+register/shared-memory report goes to ``<lib>.ptxas.txt``.
 Builds of different sources may run at the same time (each writes a temporary file
 and renames it into place).
 """
@@ -29,6 +31,14 @@ NVCC_FLAGS = [
     "-Xptxas",
     "-v",
 ]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: put a host C++ compiler on PATH")
 
 
 def _nvcc() -> str:
@@ -67,9 +77,10 @@ def source_digest(src: pathlib.Path) -> str:
     return h.hexdigest()[:12]
 
 
-def build(src: pathlib.Path) -> pathlib.Path:
+def build(src: pathlib.Path, host: bool = False) -> pathlib.Path:
     """Compile ``src`` (if it or a local header changed since the last build) and
-    return the library."""
+    return the library: with ``nvcc`` for the card, or with ``g++`` for the host
+    (``host=True``, linked with pthread). A failed build raises."""
     digest = source_digest(src)
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists():
@@ -77,14 +88,16 @@ def build(src: pathlib.Path) -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-        capture_output=True,
-        text=True,
-    )
+    if host:
+        cmd = [_gxx(), *GXX_FLAGS, "-o", tmp, str(src), "-lpthread"]
+    else:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(
+            f"{os.path.basename(cmd[0])} failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+    if not host:
+        lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib

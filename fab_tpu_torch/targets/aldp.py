@@ -3,10 +3,13 @@
 
 The flow lives in the 60-D normalised internal-coordinate space. ``log_prob`` maps
 flow coords to Cartesian through the z-matrix transform (``internal_coords.py``),
-evaluates the force field (``aldp_ff.py``, plus the GBSA-OBC2 term for
-``env="implicit"``) in torch on the target's device, regularises the energy (log
-scale above ``energy_cut``, clamped at ``energy_max``, NaN -> max) and adds the
-transform's log-det.
+evaluates the potential (the force field of ``aldp_ff.py``, plus the GBSA-OBC2 term
+for ``env="implicit"``), regularises the energy (log scale above ``energy_cut``,
+clamped at ``energy_max``, NaN -> max) and adds the transform's log-det. With
+``backend="jax"`` (the configs' name for the on-device force field) the potential is
+torch on the target's device; with ``backend="host_cpp"`` it is the C++ energy server
+(``native/``) on ``n_threads`` host threads, and everything else stays in torch on
+the device.
 
 The transform's statistics come from a reference configuration: loaded from
 ``data_path`` (Angstrom), or made by gradient descent on the potential from an
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from fab_tpu_torch.device import resolve_device
+from fab_tpu_torch.native import AldpEnergyServer
 from fab_tpu_torch.targets.aldp_ff import (
     ATOM_TYPES,
     BOND_PARAMS,
@@ -110,8 +114,14 @@ def _ideal_internal_coords(zmat: ZMatrixTransform) -> np.ndarray:
 
 class AldpBoltzmann(TargetDistribution):
     """``backend="jax"``, the value the configs carry, selects the force field on
-    the target's device (here a torch one); the host C++ energy server
-    (``backend="host_cpp"``) is not ported, so ``system.n_threads`` has no use."""
+    the target's device (here a torch one). ``backend="host_cpp"`` evaluates the
+    potential and its forces with the C++ energy server on ``n_threads`` host threads
+    (``system.n_threads``): each evaluation copies the positions to the host and the
+    energies back, so a step on this backend synchronises with the device at every
+    target evaluation. The server's tables are process-global (``native/``): the
+    most recently constructed ``host_cpp`` target defines them, and a call through
+    an older one installs its own again. The minimisation of the reference
+    configuration uses the torch force field on either backend."""
 
     def __init__(
         self,
@@ -122,6 +132,7 @@ class AldpBoltzmann(TargetDistribution):
         transform: str = "internal",
         env: str = "vacuum",
         backend: str = "jax",
+        n_threads: int = 4,
         minimise_steps: int = 4000,
         dtype=torch.float32,
         device="cuda",
@@ -130,13 +141,7 @@ class AldpBoltzmann(TargetDistribution):
             raise NotImplementedError("only the internal transform is implemented")
         if env not in ("vacuum", "implicit"):
             raise NotImplementedError("This environment is not implemented.")
-        if backend == "host_cpp":
-            raise NotImplementedError(
-                "system.backend=host_cpp (the C++ energy server) is not ported yet "
-                "(ROADMAP Queue 1, item 3.5); backend=jax runs the force field on the "
-                "device"
-            )
-        if backend != "jax":
+        if backend not in ("jax", "host_cpp"):
             raise ValueError(f"unknown backend {backend!r}")
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -147,6 +152,7 @@ class AldpBoltzmann(TargetDistribution):
         self.energy_cut = energy_cut  # in kT
         self.energy_max = energy_max
         self.backend = backend
+        self.n_threads = n_threads
         self.tables = build_tables()
 
         zmat = ZMatrixTransform(n_atoms=N_ATOMS, z_matrix=Z_MATRIX, cart_indices=CART_INDICES)
@@ -170,6 +176,9 @@ class AldpBoltzmann(TargetDistribution):
             ind_circ_dih=IND_CIRC_DIH,
             default_std={"bond": 0.05, "angle": 0.15, "dih": 0.2},  # Angstrom
         )
+        if backend == "host_cpp":
+            self._server = AldpEnergyServer(self.tables, n_threads=n_threads,
+                                            gb=env == "implicit")
 
     # ------------------------------------------------------------------ energy
 
@@ -201,7 +210,11 @@ class AldpBoltzmann(TargetDistribution):
         """Regularised potential in kT: u below the cut; cut + log(1 + u - cut) above;
         clamped at energy_max; NaN and +inf -> energy_max."""
         pos = x_cartesian.reshape(x_cartesian.shape[:-1] + (N_ATOMS, 3))
-        u = self._potential_kcal(pos) / self.kT
+        if self.backend == "host_cpp":
+            e_kcal = self._server.energy(pos)  # the whole potential, GB included
+        else:
+            e_kcal = self._potential_kcal(pos)
+        u = e_kcal / self.kT
         u = torch.where(
             u < self.energy_cut, u, self.energy_cut + torch.log1p((u - self.energy_cut).abs())
         )

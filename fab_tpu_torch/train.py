@@ -41,6 +41,7 @@ from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import flow_log_prob, log_q_noise
 from fab_tpu_torch.model import FABModel, format_transition_info
 from fab_tpu_torch.utils.logging import ListLogger, Logger
+from fab_tpu_torch.utils.plotting import pyplot
 
 
 class AdamState(NamedTuple):
@@ -398,8 +399,19 @@ class Trainer:
         self.logger.write(eval_info)
 
     def _plots(self, state, generator: torch.Generator, i: int, save: bool) -> None:
-        """The plotter hook. Plotting is not ported yet, so this does nothing; the
-        plot schedule is kept so that a ported plotter slots in here."""
+        """``plotter(model, transition_state, generator) -> [figure]``, each figure
+        saved as ``<plots_dir>/<j>_iter_<i>.png``. The plotter draws from a
+        generator of its own (seeded with ``i``), so plotting leaves the training
+        draws as they would be without it."""
+        if self.plotter is None:
+            return
+        plt = pyplot()
+        plot_generator = torch.Generator(device=self.device).manual_seed(i)
+        figures = self.plotter(self.model, state.transition_state, plot_generator)
+        for j, figure in enumerate(figures or []):
+            if save:
+                figure.savefig(os.path.join(self.plots_dir, f"{j}_iter_{i}.png"))
+            plt.close(figure)
 
     def run(
         self,

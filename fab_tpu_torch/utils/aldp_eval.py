@@ -3,9 +3,10 @@
 
 Per-dimension 200-bin histogram KLDs of the normalised internal coordinates, split
 into bond / angle / dihedral groups; 1-D KLDs of the backbone phi and psi and the
-64-bin 2-D Ramachandran KLD; an append to ``metrics.csv``. The internal layout is
+64-bin 2-D Ramachandran KLD; an append to ``metrics.csv``; the Ramachandran and
+dihedral-marginal PNGs (matplotlib). The internal layout is
 [b1, b2, a2 | bonds(19) | angles(19) | dihedrals(19)], so the groups are fixed
-slices. The plots are not ported (``plot_dir`` must be None).
+slices.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from fab_tpu_torch.utils.plotting import pyplot
 
 N_Z = 19
 BOND_DIMS = tuple([0, 1] + list(range(3, 3 + N_Z)))
@@ -102,13 +105,12 @@ def evaluate_aldp(
     batch_size: int = 1000,
 ) -> Dict[str, float]:
     """The ALDP metric suite of flow-space samples against a flow-space test set;
-    appends a row to ``<metric_dir>/metrics.csv`` if ``metric_dir`` is given.
-    ``target`` is an ``AldpBoltzmann`` (for phi_psi and the transform)."""
-    if plot_dir is not None:
-        raise NotImplementedError(
-            "ALDP plots are not ported yet (ROADMAP Queue 1, item 5: plotting); pass "
-            "plot_dir=None"
-        )
+    appends a row to ``<metric_dir>/metrics.csv`` if ``metric_dir`` is given, and
+    writes ``ramachandran_<iter>.png`` and ``marginals_dih_<iter>.png`` into
+    ``plot_dir`` if that is given (raising ``ImportError`` first, before any
+    output, if matplotlib is missing). ``target`` is an ``AldpBoltzmann`` (for
+    phi_psi and the transform)."""
+    plt = pyplot() if plot_dir is not None else None
     z_sample = np.asarray(z_sample)
     z_test = np.asarray(z_test)
     ch_scale, ch_shift = chirality_scale_shift(target.transform)
@@ -193,5 +195,29 @@ def evaluate_aldp(
             if header:
                 f.write(",".join(metrics.keys()) + "\n")
             f.write(",".join(str(v) for v in metrics.values()) + "\n")
+
+    if plot_dir is not None:
+        os.makedirs(plot_dir, exist_ok=True)
+        fig, axs = plt.subplots(1, 2, figsize=(10, 4))
+        for ax, (a, b), title in zip(axs, ((phi_d, psi_d), (phi, psi)),
+                                     ("test data", "model samples")):
+            ax.hist2d(a, b, bins=nbins_ram, range=[[-np.pi, np.pi]] * 2, cmap="viridis")
+            ax.set_title(title)
+            ax.set_xlabel(r"$\phi$")
+            ax.set_ylabel(r"$\psi$")
+        fig.savefig(os.path.join(plot_dir, f"ramachandran_{iteration:06d}.png"))
+        plt.close(fig)
+
+        # The dihedral group's marginals, test set and model samples overlaid.
+        fig, axs = plt.subplots(4, 5, figsize=(16, 10))
+        for j, d in enumerate(DIH_DIMS):
+            ax = axs.ravel()[j]
+            ax.hist(_wrap(z_test[:, d]), 60, density=True, alpha=0.5, label="test")
+            ax.hist(_wrap(z_sample[:, d]), 60, density=True, alpha=0.5, label="model")
+            ax.set_title(f"dih {j}")
+        axs.ravel()[0].legend()
+        fig.tight_layout()
+        fig.savefig(os.path.join(plot_dir, f"marginals_dih_{iteration:06d}.png"))
+        plt.close(fig)
 
     return metrics

@@ -1,6 +1,7 @@
 """Loggers with a write/close interface (``fab_tpu/utils/logging.py``): an in-memory
-dict-of-lists history (optionally pickled) and an incremental CSV writer. The wandb
-and chain loggers are not ported yet.
+dict-of-lists history (optionally pickled), an incremental CSV writer, a Weights &
+Biases sink (``wandb`` is imported when one is made) and a fan-out to several
+loggers.
 """
 from __future__ import annotations
 
@@ -99,3 +100,36 @@ class CSVLogger(Logger):
 
     def close(self) -> None:
         self._flush()
+
+
+class WandbLogger(Logger):
+    """Weights & Biases sink; ``init_kwargs`` go to ``wandb.init``. Needs the
+    ``wandb`` package, imported here, when the logger is made."""
+
+    def __init__(self, **init_kwargs):
+        import wandb
+
+        self.run = wandb.init(**init_kwargs)
+        self.iter = 0
+
+    def write(self, data: LoggingData) -> None:
+        self.run.log({k: _scalar(v) for k, v in data.items()}, step=self.iter)
+        self.iter += 1
+
+    def close(self) -> None:
+        self.run.finish()
+
+
+class ChainLogger(Logger):
+    """Writes to, and closes, each of several loggers in turn."""
+
+    def __init__(self, loggers: List[Logger]):
+        self.loggers = loggers
+
+    def write(self, data: LoggingData) -> None:
+        for logger in self.loggers:
+            logger.write(data)
+
+    def close(self) -> None:
+        for logger in self.loggers:
+            logger.close()

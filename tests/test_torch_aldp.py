@@ -221,8 +221,9 @@ def test_evaluate_aldp_matches(targets, tmp_path):
     rows = (tmp_path / "port" / "metrics.csv").read_text().splitlines()
     assert rows[0] == (tmp_path / "jax" / "metrics.csv").read_text().splitlines()[0]
     assert len(rows) == 2
-    with pytest.raises(NotImplementedError, match="item 5"):
-        aldp_eval.evaluate_aldp(target, z_sample, z_test, plot_dir=str(tmp_path))
+    aldp_eval.evaluate_aldp(target, z_sample, z_test, iteration=7, plot_dir=str(tmp_path))
+    assert sorted(p.name for p in tmp_path.glob("*.png")) == [
+        "marginals_dih_000007.png", "ramachandran_000007.png"]
 
 
 def test_minimisation_and_reflection_match(ref_path, tmp_path):
@@ -246,8 +247,11 @@ def test_minimisation_and_reflection_match(ref_path, tmp_path):
 
 
 def test_backends_and_metrics():
-    with pytest.raises(NotImplementedError, match="item 3.5"):
-        AldpBoltzmann(backend="host_cpp", data_path=str(GOLDEN), device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        AldpBoltzmann(backend="openmm", data_path=str(GOLDEN), device="cpu")
+    host = AldpBoltzmann(backend="host_cpp", data_path=str(GOLDEN), env="implicit",
+                         n_threads=3, device="cpu")
+    assert host._server.gb and host._server.n_threads == 3
     target = AldpBoltzmann(data_path=None, minimise_steps=0, device="cpu")
     assert target.performance_metrics(None, None) == {}
     assert target.dim == 60 and target.dtype == torch.float32

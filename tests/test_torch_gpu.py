@@ -1,10 +1,12 @@
-"""K1 and K2 against their plain versions on the card. Skipped without a CUDA
+"""K1 and K2 against their plain versions on the card, and the host C++ energy server
+against the torch force field there. Skipped without a CUDA
 card: the hand-written kernels have no CPU mode. This file imports no JAX, so it
 also runs on a machine that has only PyTorch (``--noconftest``: tests/conftest.py
 imports JAX):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
+import numpy as np
 import pytest
 import torch
 
@@ -264,3 +266,29 @@ def test_k2_log_det_is_bitwise_repeatable(card):
         second = ck.fused_coupling_apply(*args, 5.0, True)
     torch.cuda.synchronize()
     assert torch.equal(first[1], second[1]) and torch.equal(first[0], second[0])
+
+
+@pytest.mark.gpu
+def test_host_energy_server_matches_the_torch_force_field_on_the_card(card):
+    """The C++ server (built with g++ on the card's host) against the torch force
+    field on the card, implicit solvent, float64: energies rtol 1e-9, forces rtol
+    1e-6 / atol 1e-8; the energy comes back on the card in the input's dtype."""
+    import pathlib
+
+    from fab_tpu_torch.native import AldpEnergyServer
+    from fab_tpu_torch.targets.aldp_ff import build_tables, energy_kcal, gb_energy_kcal
+
+    golden = pathlib.Path(__file__).parent / "data" / "aldp_openmm_min_energy_nm.npy"
+    gen = torch.Generator(device=card).manual_seed(0)
+    ref = torch.tensor(np.load(golden).reshape(1, 22, 3) * 10.0, device=card)
+    pos = (ref + 0.05 * torch.randn((256, 22, 3), generator=gen, device=card,
+                                    dtype=torch.float64)).requires_grad_(True)
+    tables = build_tables()
+    e_ref = energy_kcal(tables, pos) + gb_energy_kcal(tables, pos)
+    (g_ref,) = torch.autograd.grad(e_ref.sum(), pos)
+    server = AldpEnergyServer(tables, n_threads=4, gb=True)
+    e = server.energy(pos)
+    (g,) = torch.autograd.grad(e.sum(), pos)
+    assert e.device.type == "cuda" and e.dtype == torch.float64
+    torch.testing.assert_close(e, e_ref.detach(), rtol=1e-9, atol=0)
+    torch.testing.assert_close(g, g_ref, rtol=1e-6, atol=1e-8)
