@@ -69,8 +69,8 @@ Phases:
      prioritised buffer; the chirality filter) and aldp_snf.yaml (the same flow over
      the gauss-uni base with 3 MH layers of 10 steps of the vacuum force field, so
      30 target evaluations inside every log q) through run_aldp: init_state and 3
-     timed steps, one eval (the SNF none, and its buffer starts at one batch:
-     SNF_CUTS), the final evaluation, a profiled step, and the LARS acceptance (Z
+     timed steps, one eval (the SNF 2 steps and none, and its buffer starts at one
+     batch: SNF_CUTS), the final evaluation, a profiled step, and the LARS acceptance (Z
      and the mean a(z)); aldp_ml.yaml
      (vacuum, ML) for 2 iterations between them. The three share rbd's vacuum
      reference frame and test set. Then GMM-40 through run_gmm on gmm.yaml with
@@ -91,6 +91,24 @@ Phases:
      sample_aldp.py and reeval_aldp.py on phase 11's run; every CSV and .npz value
      finite. (d) Without matplotlib (the card machine has none), the "plots off"
      line, and no PNG written anywhere.
+ 14. Data parallelism (fab_tpu_torch/parallel/) on the card: an NCCL process group
+     of world size 1 (tcp://127.0.0.1:<free port>, rank 0) and its data mesh.
+     ManyWell-32 at phase 3's widths through K1: init_state, one warm-up step each,
+     then 3 timed steps through the data-parallel trainer and 3 through the plain
+     one from the same state and seed, in turns (DP_ORDER). After 4 steps each their
+     parameters, step sizes and buffer priorities agree (f32, relative 1e-5;
+     bitwise equality is printed), K1's launches per step are the plain path's
+     (38 + 29), and the collectives per step equal the count reckoned from the code
+     (expected_collectives, printed beside it). One more step under CUDA's sync
+     check on "error" (no host sync added) and a profiled one (NCCL kernels' device
+     time); one all-reduce's and one all-gather's time. A
+     torch.distributed.checkpoint round trip of the trainer state (exact; save and
+     load ms, bytes), whose resumed step equals the uninterrupted one. Then
+     python3 -m torch.distributed.run --standalone --nproc_per_node=1 -m
+     fab_tpu_torch.experiments.run_many_well on many_well.yaml with mesh.n_data=1
+     (DP_LAUNCHER_CUTS): exit 0, every CSV value finite, and rank 0's checkpoint
+     loaded in this process. More than one card is not measured: NCCL refuses two
+     ranks on one device.
   The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
   fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
   6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
@@ -907,13 +925,13 @@ LARS_SNF_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=7",
                  "training.n_test_samples=2000", "training.test_mcmc_steps=50",
                  "training.final_eval_samples=2000", "training.n_eval=1",
                  "training.n_checkpoints=1"]
-# The SNF's AIS pass takes ~30 s, so its buffer starts at one batch, like phase
-# 11's (the first steps' replay draws take unwritten rows, at the same cost), and
-# it leaves out the trainer's eval: two more AIS passes whose only output on ALDP is
-# two ESS values (the target has no eval metrics of its own; the final evaluation
-# runs). GMM-40 with flow.use_snf=true runs an eval.
-SNF_CUTS = (LARS_SNF_CUTS[:1] + ["training.replay_buffer.min_length=1"] + LARS_SNF_CUTS[2:5]
-            + ["training.n_eval=0"] + LARS_SNF_CUTS[6:])
+# The SNF's AIS pass takes ~30 s, so it runs 2 iterations, its buffer starts at one
+# batch, like phase 11's (the first steps' replay draws take unwritten rows, at the
+# same cost), and it leaves out the trainer's eval: two more AIS passes whose only
+# output on ALDP is two ESS values (the target has no eval metrics of its own; the
+# final evaluation runs). GMM-40 with flow.use_snf=true runs an eval.
+SNF_CUTS = (["training.max_iter=2", "training.replay_buffer.min_length=1"]
+            + LARS_SNF_CUTS[2:5] + ["training.n_eval=0"] + LARS_SNF_CUTS[6:])
 
 
 def _lars_share(base, gen, card, label) -> dict:
@@ -979,8 +997,8 @@ def _timed_aldp_runner(argv, card, label):
 
 def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
     """One ALDP variant through run_aldp with ``cuts`` (and ``extra`` overrides):
-    init_state and 3 timed steps, the evals the cuts leave, the final evaluation;
-    then one profiled step."""
+    init_state and the cuts' max_iter timed steps, the evals the cuts leave, the
+    final evaluation; then one profiled step."""
     import torch
 
     from fab_tpu_torch.train import PrioritisedBufferTrainer
@@ -996,8 +1014,9 @@ def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
     trainer, state, metrics, times = _timed_aldp_runner(
         ["--config", config, "--device", "cuda", *cuts, f"training.save_root={root}", *extra],
         card, label)
-    assert isinstance(trainer, PrioritisedBufferTrainer) and state.step == 3
-    assert len(times["steps_ms"]) == 3, times
+    n_steps = int(next(c for c in cuts if c.startswith("training.max_iter=")).split("=")[1])
+    assert isinstance(trainer, PrioritisedBufferTrainer) and state.step == n_steps
+    assert len(times["steps_ms"]) == n_steps, times
     steady = statistics.median(times["steps_ms"])
     rows = _csv_rows_in(root)
     shown = _finite_columns([r for r in rows if r.get("loss")][-1],
@@ -1011,7 +1030,8 @@ def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{card}] {label} ({config_name}, the cuts above): init_state {times['init_s']:.2f} s "
           f"(buffer filled to {int(state.buffer_state.n_added)} rows); train step median "
-          f"{steady:.1f} ms over 3 steps (all: {', '.join(f'{v:.1f}' for v in times['steps_ms'])}"
+          f"{steady:.1f} ms over {n_steps} steps (all: "
+          f"{', '.join(f'{v:.1f}' for v in times['steps_ms'])}"
           f"), {batch / steady * 1e3:.1f} AIS samples/s; the whole run {times['run_s']:.1f} s; "
           f"peak device memory {peak_gib:.2f} GiB; last step "
           + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()) + "; eval "
@@ -1702,8 +1722,334 @@ def time_k2(k2, name, card):
     return timing, bounds, library, rebuild
 
 
+# ----------------------------------------------------------- data parallel (14)
+
+# The launcher run of phase 14, cut in length only: many_well.yaml's buffer fill of
+# 65,536 rows takes 32 f64 AIS passes (phase 10 runs it whole); 12 passes still leave
+# finite rows in every replay batch of 8 x 2048, so every logged value is finite
+# (with fewer, the last batch may hold none and its w_adjust_min is inf, as in
+# fab_tpu).
+DP_LAUNCHER_CUTS = ["training.min_buffer_length=24576", "training.n_flow_forward_pass=null",
+                    "training.n_iterations=2", "evaluation.n_eval=1",
+                    "evaluation.n_checkpoints=1", "evaluation.n_plots=0"]
+# After one warm-up step each (a new path's first kernels load then), the
+# data-parallel trainer (A) and the plain one (B) take timed turns, ABBAAB.
+DP_ORDER = ("dp", "plain", "plain", "dp", "dp", "plain")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def expected_collectives(n_dists: int, n_outer: int, n_replay: int) -> dict:
+    """Collectives of one PrioritisedBufferTrainer step under a data mesh, reckoned
+    from the code: the AIS pass (ESS of the flow draw: a max and a sum; per
+    distribution the acceptance rate per outer step and the move distance; the
+    valid and bound-masked counts; ESS and log Z, a max and a sum each), the buffer
+    draw (one all-gather), per replay batch the loss's valid-row count, the
+    gradient bucket and the priority update (an all-gather), and the logged means
+    (w_adjust mean, min, max, log q mean, sampled log w mean, and its std: two)."""
+    terms = {
+        "AIS": 2 + n_dists * (n_outer + 1) + 1 + 2 + 2,
+        "buffer draw": 1,
+        "replay batches": 3 * n_replay,
+        "logged means": 7,
+    }
+    terms["total"] = sum(terms.values())
+    return terms
+
+
+def _manywell_trainer(device, seed: int):
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.flows import make_realnvp
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import HamiltonianMonteCarlo
+    from fab_tpu_torch.targets import ManyWellEnergy
+    from fab_tpu_torch.train import PrioritisedBufferTrainer, make_optimizer
+
+    import torch
+
+    flow = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=True,
+                        generator=torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    model = FABModel.create(
+        flow, ManyWellEnergy(MW_DIM, device=device),
+        transition_operator=HamiltonianMonteCarlo(n_ais_intermediate_distributions=4,
+                                                  n_outer=1, n_leapfrog=5, epsilon=1.0),
+        n_intermediate_distributions=4, loss_type="fab_alpha_div",
+    )
+    buffer = PrioritisedReplayBuffer(dim=MW_DIM, max_length=MW_BATCH * 16,
+                                     min_sample_length=MW_BATCH * 4, batch_size=MW_BATCH)
+    return PrioritisedBufferTrainer(model, make_optimizer(3e-4, 100.0), buffer,
+                                    n_batches_buffer_sampling=8, w_adjust_max_clip=10.0,
+                                    device=device)
+
+
+def _clone_state(state):
+    import torch
+
+    def clone(tree):
+        if torch.is_tensor(tree):
+            return tree.clone()
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(clone(v) for v in tree))
+        if isinstance(tree, list):
+            return [clone(v) for v in tree]
+        return tree
+
+    return clone(state)
+
+
+def _state_diff(trainer_a, state_a, trainer_b, state_b) -> dict:
+    """Largest relative differences of two trainers' flows, step sizes and buffer
+    priorities (finite patterns must match), and whether all are bitwise equal."""
+    import torch
+
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    params = max(rel(a, b) for a, b in zip(trainer_a.model.flow.state_dict().values(),
+                                            trainer_b.model.flow.state_dict().values()))
+    steps = max(rel(state_a.transition_state[k], state_b.transition_state[k])
+                for k in ("epsilons", "common_epsilon"))
+    lw_a, lw_b = state_a.buffer_state.log_w, state_b.buffer_state.log_w
+    finite = torch.isfinite(lw_b)
+    assert torch.equal(finite, torch.isfinite(lw_a)), "buffer finite patterns differ"
+    prio = rel(lw_a[finite], lw_b[finite])
+    same = (all(torch.equal(a, b) for a, b in zip(trainer_a.model.flow.state_dict().values(),
+                                                 trainer_b.model.flow.state_dict().values()))
+            and torch.equal(torch.where(finite, lw_a, 0), torch.where(finite, lw_b, 0))
+            and all(torch.equal(state_a.transition_state[k], state_b.transition_state[k])
+                    for k in state_b.transition_state))
+    cursors = (int(state_a.buffer_state.cursor), int(state_b.buffer_state.cursor),
+               int(state_a.buffer_state.n_added), int(state_b.buffer_state.n_added))
+    assert cursors[0] == cursors[1] and cursors[2] == cursors[3], cursors
+    return {"params": params, "step_sizes": steps, "priorities": prio, "bitwise": same}
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def data_parallel_path(device, card, tmp) -> dict:
+    """Phase 14: ManyWell-32 through the data-parallel trainer under NCCL at world
+    size 1 against the plain trainer, a DCP round trip, and the launcher path."""
+    import torch
+
+    from fab_tpu_torch.parallel import distributed, mesh
+
+    t_phase = time.time()
+    assert distributed.initialize(device, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                  world_size=1, rank=0)
+    import torch.distributed as dist
+
+    assert dist.get_backend() == ("nccl" if device.type == "cuda" else "gloo")
+    dp_mesh = mesh.make_mesh()
+    out = {}
+    try:
+        dp, plain = _manywell_trainer(device, 1), _manywell_trainer(device, 1)
+        init_gen = torch.Generator(device=device).manual_seed(3)
+        _zero_counts()
+        t0 = time.time()
+        state = plain.init_state(init_gen, batch_size=MW_BATCH)
+        torch.cuda.synchronize()
+        print(f"[{card}] phase 14: ManyWell-32 init_state {time.time() - t0:.2f} s")
+        dp.model.flow.load_state_dict(plain.model.flow.state_dict())
+        states = {"dp": _clone_state(state), "plain": state}
+        trainers = {"dp": dp, "plain": plain}
+        gens = {k: torch.Generator(device=device).manual_seed(4) for k in trainers}
+        meshes = {"dp": dp_mesh, "plain": None}
+        warm = {}
+        for kind in trainers:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with mesh.use_mesh(meshes[kind]):
+                states[kind], _ = trainers[kind].train_step(states[kind], gens[kind], MW_BATCH)
+            torch.cuda.synchronize()
+            warm[kind] = (time.time() - t0) * 1e3
+        print(f"[{card}] phase 14 warm-up step: data-parallel {warm['dp']:.1f} ms, plain "
+              f"{warm['plain']:.1f} ms")
+        ms = {"dp": [], "plain": []}
+        per_step = {"dp": [], "plain": []}
+        collectives = []
+        _zero_counts()
+        for kind in DP_ORDER:
+            mesh.COUNTS.clear()
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with mesh.use_mesh(meshes[kind]):
+                states[kind], info = trainers[kind].train_step(states[kind], gens[kind],
+                                                               MW_BATCH)
+            torch.cuda.synchronize()
+            ms[kind].append((time.time() - t0) * 1e3)
+            per_step[kind].append({k: v - before[k] for k, v in _counts().items()})
+            if kind == "dp":
+                collectives.append(sum(mesh.COUNTS.values()))
+            assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0
+        counts = _counts()
+        expect = expected_collectives(4, 1, 8)
+        print(f"[{card}] phase 14 steps in turns {'/'.join(DP_ORDER)}: data-parallel "
+              f"(NCCL, world size 1) {', '.join(f'{t:.1f}' for t in ms['dp'])} ms, plain "
+              f"{', '.join(f'{t:.1f}' for t in ms['plain'])} ms; median "
+              f"{statistics.median(ms['dp']):.1f} / {statistics.median(ms['plain']):.1f} ms")
+        for kind in trainers:
+            assert all((p["k1"], p["k1_recomputes"]) == (38, 29) for p in per_step[kind]), (
+                kind, per_step[kind])
+        assert counts["k1"] == len(DP_ORDER) * 38 and counts["k2"] == 0, counts
+        print(f"[{card}] K1 per step: data-parallel {[p['k1'] for p in per_step['dp']]} "
+              f"launches + {[p['k1_recomputes'] for p in per_step['dp']]} recomputes, plain "
+              f"{[p['k1'] for p in per_step['plain']]} + "
+              f"{[p['k1_recomputes'] for p in per_step['plain']]} (equal)")
+        assert collectives == [expect["total"]] * 3, (collectives, expect)
+        print(f"[{card}] collectives per data-parallel step: {collectives} counted, "
+              f"{expect['total']} reckoned from the code (" + ", ".join(
+                  f"{k} {v}" for k, v in expect.items() if k != "total") + ")")
+        diff = _state_diff(dp, states["dp"], plain, states["plain"])
+        # Every state-changing reduction keeps the plain arithmetic at world size 1;
+        # f32 relative 1e-5 is the stated tolerance.
+        assert max(diff["params"], diff["step_sizes"], diff["priorities"]) <= 1e-5, diff
+        print(f"[{card}] after 4 steps each: max relative difference, parameters "
+              f"{diff['params']:.3e}, step sizes {diff['step_sizes']:.3e}, buffer priorities "
+              f"{diff['priorities']:.3e} (tolerance 1e-5); bitwise equal: {diff['bitwise']}")
+
+        # No host sync added: one data-parallel step with CUDA's sync check on error.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with mesh.use_mesh(dp_mesh):
+                states["dp"], _ = dp.train_step(states["dp"], gens["dp"], MW_BATCH)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[{card}] one data-parallel step under torch.cuda.set_sync_debug_mode('error'):"
+              " no host sync")
+        steady = statistics.median(ms["dp"])
+        with mesh.use_mesh(dp_mesh):
+            states["dp"], busy, groups, n_ops = _profile_step(
+                dp, states["dp"], gens["dp"], MW_BATCH, steady, card,
+                "ManyWell-32 data-parallel", {"NCCL": ["nccl"], "K1": ["k1_tf32x3"]})
+        print(f"[{card}] NCCL kernels' device time per data-parallel step: "
+              f"{groups['NCCL']:.3f} ms; K1 {groups['K1']:.2f} ms; {n_ops} device ops")
+        out.update(dp_ms=ms["dp"], plain_ms=ms["plain"], busy=busy, nccl_ms=groups["NCCL"],
+                   k1_launches=sum(p["k1"] for p in per_step["dp"]),
+                   collectives=expect["total"], diff=diff)
+
+        # DCP round trip of the trainer state on the card, and the resumed step.
+        ckpt = os.path.join(tmp, "dcp_manywell")
+        with mesh.use_mesh(dp_mesh):
+            saved = _clone_state(states["dp"])
+            saved_flow = {k: v.clone() for k, v in dp.model.flow.state_dict().items()}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            dp.save_checkpoint_dcp(states["dp"], ckpt)
+            torch.cuda.synchronize()
+            save_ms = (time.time() - t0) * 1e3
+            uninterrupted, _ = dp.train_step(states["dp"], torch.Generator(
+                device=device).manual_seed(8), MW_BATCH)
+            after_flow = {k: v.clone() for k, v in dp.model.flow.state_dict().items()}
+            t0 = time.time()
+            loaded, step = dp.load_state_dcp(ckpt)
+            torch.cuda.synchronize()
+            load_ms = (time.time() - t0) * 1e3
+            assert step == saved.step
+            assert all(torch.equal(v, saved_flow[k])
+                       for k, v in dp.model.flow.state_dict().items())
+            for a, b in ((loaded.buffer_state, saved.buffer_state),
+                         (loaded.opt_state.mu, saved.opt_state.mu),
+                         (loaded.opt_state.nu, saved.opt_state.nu)):
+                assert all(torch.equal(x, y) for x, y in zip(a, b))
+            assert all(torch.equal(loaded.transition_state[k], saved.transition_state[k])
+                       for k in saved.transition_state)
+            resumed, _ = dp.train_step(loaded, torch.Generator(device=device).manual_seed(8),
+                                       MW_BATCH)
+            assert all(torch.equal(v, after_flow[k])
+                       for k, v in dp.model.flow.state_dict().items())
+            assert torch.equal(resumed.buffer_state.log_w, uninterrupted.buffer_state.log_w)
+        n_bytes = _dir_bytes(ckpt)
+        print(f"[{card}] DCP round trip (world size 1): save {save_ms:.1f} ms, load "
+              f"{load_ms:.1f} ms, {n_bytes} bytes; loaded state exact, the resumed step "
+              "equals the uninterrupted one bitwise")
+        out.update(dcp_save_ms=save_ms, dcp_load_ms=load_ms, dcp_bytes=n_bytes)
+
+        # The collectives' own cost: a scalar-pair all-reduce (the size most
+        # reductions send) and an all-gather of the buffer draw's payload (16,384 x
+        # 36 f64), host clock over many calls ended by one synchronize.
+        pair = torch.ones(2, device=device)
+        payload = torch.ones(8 * MW_BATCH, MW_DIM + 4, dtype=torch.float64, device=device)
+        cost = {}
+        for label, fn, n in (("all_reduce", lambda: mesh.all_reduce(pair), 500),
+                             ("all_gather", lambda: mesh.all_gather_rows(payload), 100)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            cost[label] = (time.time() - t0) / n * 1e3
+        per_step = cost["all_reduce"] * 38 + cost["all_gather"] * 9
+        print(f"[{card}] one collective (NCCL, world size 1): all_reduce of 2 values "
+              f"{cost['all_reduce'] * 1e3:.1f} us, all_gather of {tuple(payload.shape)} f64 "
+              f"{cost['all_gather'] * 1e3:.1f} us; 38 + 9 per step = {per_step:.2f} ms")
+        out.update(collective_ms=cost, collectives_ms_per_step=per_step)
+    finally:
+        distributed.shutdown()
+    out["launcher_s"] = _launcher_run(device, card, tmp)
+    out["phase_s"] = time.time() - t_phase
+    return out
+
+
+def _launcher_run(device, card, tmp) -> float:
+    """run_many_well under python3 -m torch.distributed.run with one process:
+    mesh.n_data=1, 2 iterations, one eval and one checkpoint; exit 0, every CSV
+    value finite, and rank 0's checkpoint loaded in this process."""
+    import torch
+
+    from fab_tpu_torch.experiments.setup_run import setup_trainer
+    from fab_tpu_torch.targets import ManyWellEnergy
+    from fab_tpu_torch.utils.training import apply_overrides, load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(CONFIGS, "many_well.yaml")
+    save = os.path.join(tmp, "many_well_launcher")
+    overrides = ["mesh.n_data=1", *DP_LAUNCHER_CUTS, f"evaluation.save_path={save}"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "fab_tpu_torch.experiments.run_many_well",
+           "--config", config, "--device", device.type, *overrides]
+    print(f"[{card}] launcher path: {' '.join(cmd[1:])} (cuts of many_well.yaml: "
+          f"min_buffer_length 65536 -> 24576)")
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=root))
+    took = time.time() - t0
+    print(proc.stdout[-3000:])
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "data mesh over 1 processes" in proc.stdout, proc.stdout[-2000:]
+    (run_dir,) = [os.path.join(save, d) for d in os.listdir(save)]
+    with open(os.path.join(run_dir, "logging_hist.csv")) as f:
+        rows = list(csv.DictReader(f))
+    values = [float(v) for r in rows for v in r.values() if v != ""]
+    assert rows and all(math.isfinite(v) for v in values), "a CSV value is not finite"
+    cfg = apply_overrides(load_config(config), overrides)
+    trainer = setup_trainer(cfg, ManyWellEnergy(cfg.target.dim, device=device), device=device)
+    state, step = trainer.load_state(os.path.join(run_dir, "model_checkpoints", "iter_2",
+                                                  "state.pkl"))
+    batch = cfg.training.batch_size
+    filled = -(-cfg.training.min_buffer_length // batch) * batch
+    assert step == 2 and int(state.buffer_state.n_added) == filled + 2 * batch
+    assert all(torch.isfinite(p).all() for p in trainer.model.flow.parameters())
+    print(f"[{card}] launcher run: exit 0 in {took:.1f} s, {len(rows)} CSV rows, "
+          f"{len(values)} values all finite; rank 0's checkpoint (step {step}) loaded here")
+    return took
+
+
 def drive(device, gen, name, card) -> list:
-    """Phases 2-13; returns the kernel records."""
+    """Phases 2-14; returns the kernel records."""
     t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
@@ -1745,6 +2091,10 @@ def drive(device, gen, name, card) -> list:
         tools = tools_path(device, gen, card, tmp)
         phase_s["13 host C++, profile, evaluation"] = time.time() - t0
 
+        # ------------------------------------------------ 14. data parallel, DCP
+        dp = data_parallel_path(device, card, tmp)
+        phase_s["14 data parallel"] = time.time() - t0
+
     kernels = [
         {
             "name": "fused_realnvp_pass",
@@ -1772,6 +2122,19 @@ def drive(device, gen, name, card) -> list:
             "profiled_step_k1_ms": mw["k1_group_ms"],
             "log_det_bitwise_repeatable": True,
             "wide_chains": k1_wide,
+            "launches_data_parallel": dp["k1_launches"],
+            "data_parallel": {
+                "world_size": 1, "backend": "nccl", "step_ms": dp["dp_ms"],
+                "plain_step_ms": dp["plain_ms"], "device_busy_share": dp["busy"],
+                "nccl_ms_per_step": dp["nccl_ms"], "collectives_per_step": dp["collectives"],
+                "max_rel_diff_vs_plain": {k: v for k, v in dp["diff"].items()
+                                          if k != "bitwise"},
+                "bitwise_vs_plain": dp["diff"]["bitwise"],
+                "dcp_save_ms": dp["dcp_save_ms"], "dcp_load_ms": dp["dcp_load_ms"],
+                "dcp_bytes": dp["dcp_bytes"], "launcher_run_s": dp["launcher_s"],
+                "collective_ms": dp["collective_ms"],
+                "collectives_ms_per_step": dp["collectives_ms_per_step"],
+            },
         },
         {
             "name": "fused_coupling_apply",
@@ -1820,6 +2183,10 @@ def drive(device, gen, name, card) -> list:
               f"{run['steady_ms']:.1f} ms, {1024 / run['steady_ms'] * 1e3:.1f} AIS samples/s, "
               f"device busy {run['busy']:.1%}, {run['device_ops']} device ops and "
               f"{run['server_calls_per_step']} server calls per step")
+    print(f"[{card}] data-parallel ManyWell-32 (NCCL, world size 1): median step "
+          f"{statistics.median(dp['dp_ms']):.1f} ms against the plain trainer's "
+          f"{statistics.median(dp['plain_ms']):.1f} ms in turns, device busy {dp['busy']:.1%}, "
+          f"NCCL {dp['nccl_ms']:.3f} ms and {dp['collectives']} collectives per step")
     print(f"[{card}] wall time by phase (s, cumulative from phase 2): "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     return kernels

@@ -11,17 +11,25 @@ in the file (the JAX package pickles its optimizer and buffer states as named
 tuples of its libraries) loads as an ``Opaque`` record of its module, name and
 arguments, so reading such a file imports nothing of those libraries; the flow
 parameters, transition state and step are plain data either way. Unpickling numpy
-objects still runs code: only load files that a trusted run wrote. The orbax
-(multi-host) backend is not ported yet.
+objects still runs code: only load files that a trusted run wrote.
+
+The sharded backend (``fab_tpu``'s orbax pair) is ``save_checkpoint_dcp`` /
+``load_checkpoint_dcp`` over ``torch.distributed.checkpoint``: one directory, every
+rank writing its shards of ``DTensor`` leaves and replicated tensors written once;
+loading re-shards onto the current world size. No runner uses it by default.
+``buffer_blocks`` lays a replay buffer's slots out for it so that they re-shard
+across world sizes.
 """
 from __future__ import annotations
 
 import os
 import pickle
 import re
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
+
+from fab_tpu_torch.parallel import mesh
 
 
 def _to_host(tree: Any) -> Any:
@@ -93,3 +101,85 @@ def latest_checkpoint(checkpoints_dir: str) -> Optional[str]:
             if os.path.exists(candidate):
                 best, best_iter = candidate, int(m.group(1))
     return best
+
+
+# ------------------------------------------------------------------ sharded (DCP)
+
+
+def save_checkpoint_dcp(path: str, state: Dict[str, Any]) -> None:
+    """Write ``state`` (nested dicts of tensors; ``DTensor`` leaves are sharded,
+    plain tensors replicated) to the directory ``path``. Under a process group every
+    rank calls it and writes its shards; a replicated tensor is written once."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(state, checkpoint_id=os.path.abspath(path))
+
+
+def load_checkpoint_dcp(path: str, target: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Read a ``save_checkpoint_dcp`` directory into ``target`` (the same tree with
+    tensors or ``DTensor``s of the saved global shapes, loaded in place: a DTensor
+    gets this rank's shard, whatever world size wrote it) and return it. ``target``
+    None reads every tensor whole onto the CPU, in one process."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    if target is None:
+        target = _whole_target(dcp.FileSystemReader(path).read_metadata())
+    dcp.load(target, checkpoint_id=path)
+    return target
+
+
+def _whole_target(metadata) -> Dict[str, Any]:
+    """Empty CPU tensors of every saved tensor's global shape, nested as saved."""
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    tree: Dict[str, Any] = {}
+    for fqn, meta in metadata.state_dict_metadata.items():
+        keys = metadata.planner_data.get(fqn, (fqn,)) if metadata.planner_data else (fqn,)
+        node = tree
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        if isinstance(meta, TensorStorageMetadata):
+            node[keys[-1]] = torch.empty(tuple(meta.size), dtype=meta.properties.dtype)
+        else:
+            node[keys[-1]] = None
+    return tree
+
+
+def buffer_blocks(buffer, state) -> Dict[str, torch.Tensor]:
+    """A replay buffer state's fields for ``save_checkpoint_dcp``: cursor and
+    n_added replicated, each slot field viewed as [L / B, B, ...] (B the buffer's
+    ``batch_size``) in the one-process slot order. Under a mesh of n ranks this
+    rank's L / n local slots are exactly columns [r B / n, (r + 1) B / n) of that
+    view (``fab_tpu_torch/buffer.py``), so they are a DTensor sharded on dim 1, which
+    DCP re-shards onto any world size that divides B."""
+    B = buffer.batch_size
+    if B is None or buffer.max_length % B:
+        raise ValueError(
+            f"a buffer checkpoint needs batch_size (here {B}) dividing max_length "
+            f"({buffer.max_length}): its slots are saved in blocks of batch_size"
+        )
+    active = mesh.active_mesh()
+    out = {}
+    for name, value in state._asdict().items():
+        if value.dim() == 0:
+            out[name] = value
+            continue
+        blocks = value.reshape((buffer.max_length // B, -1) + tuple(value.shape[1:]))
+        if active is not None:
+            from torch.distributed.tensor import DTensor, Shard
+
+            blocks = DTensor.from_local(blocks, mesh.device_mesh(), [Shard(1)],
+                                        run_check=False)
+        out[name] = blocks
+    return out
+
+
+def buffer_from_blocks(buffer, state_type, blocks: Dict[str, torch.Tensor]):
+    """The buffer state (this rank's slots) from ``buffer_blocks``' tree."""
+    fields = {}
+    for name, value in blocks.items():
+        value = value.to_local() if hasattr(value, "to_local") else value
+        fields[name] = value if value.dim() == 0 else value.reshape(
+            (-1,) + tuple(value.shape[2:]))
+    return state_type(**fields)

@@ -68,7 +68,7 @@ def build_target(cfg, dtype=torch.float32, device="cuda"):
 
         if cfg.target.get("in_graph_kernel"):
             raise NotImplementedError(
-                "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 7: the "
+                "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 10: the "
                 "port keeps chol(K)^T on the device, built once)"
             )
         return LogGaussianCoxProcess(grid_size=cfg.target.grid_size, dtype=dtype,

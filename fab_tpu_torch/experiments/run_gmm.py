@@ -18,6 +18,7 @@ import torch
 
 from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.experiments.setup_run import setup_trainer_and_run_flow
+from fab_tpu_torch.parallel import distributed
 from fab_tpu_torch.targets import GMM
 from fab_tpu_torch.utils.plotting import (
     plot_contours,
@@ -74,10 +75,9 @@ def make_plotter(target: GMM, plot_bound: float):
     return plot
 
 
-def main(argv=None):
-    cfg, device = parse_args(argv, "experiments/configs/gmm.yaml")
-    dtype = maybe_enable_x64(cfg)
-    target = GMM(
+def make_target(cfg, device) -> GMM:
+    """The config's seed-0 mixture, in its dtype on ``device``."""
+    return GMM(
         dim=cfg.target.dim,
         n_mixes=cfg.target.n_mixes,
         loc_scaling=cfg.target.loc_scaling,
@@ -87,9 +87,14 @@ def main(argv=None):
             cfg.target.get("true_expectation_n_samples", 1e7)
         ),
         expectation_generator=torch.Generator(device=device).manual_seed(0),
-        dtype=dtype,
+        dtype=maybe_enable_x64(cfg),
         device=device,
     )
+
+
+def main(argv=None):
+    cfg, device = parse_args(argv, "experiments/configs/gmm.yaml")
+    target = make_target(cfg, device)
     plotter = when_plots_available(
         lambda: make_plotter(target, plot_bound=cfg.target.loc_scaling * 1.4))
     return setup_trainer_and_run_flow(cfg, target, plotter=plotter, device=device)
@@ -97,3 +102,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    distributed.shutdown()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from fab_tpu_torch.experiments.run_gmm import parse_args
 from fab_tpu_torch.experiments.setup_run import setup_trainer_and_run_flow
+from fab_tpu_torch.parallel import distributed
 from fab_tpu_torch.targets import LogGaussianCoxProcess
 from fab_tpu_torch.utils.training import maybe_enable_x64
 
@@ -18,7 +19,7 @@ def main(argv=None):
     cfg, device = parse_args(argv, "experiments/configs/lgcp.yaml")
     if cfg.target.get("in_graph_kernel"):
         raise NotImplementedError(
-            "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 7: the port "
+            "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 10: the port "
             "keeps chol(K)^T on the device, built once)"
         )
     target = LogGaussianCoxProcess(grid_size=cfg.target.grid_size,
@@ -30,3 +31,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    distributed.shutdown()

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from fab_tpu_torch.experiments.run_gmm import flow_and_ais_samples, parse_args
 from fab_tpu_torch.experiments.setup_run import setup_trainer_and_run_flow
+from fab_tpu_torch.parallel import distributed
 from fab_tpu_torch.targets import ManyWellEnergy
 from fab_tpu_torch.utils.plotting import (
     plot_contours,
@@ -61,3 +62,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    distributed.shutdown()

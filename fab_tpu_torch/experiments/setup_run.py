@@ -6,11 +6,19 @@ trainer chosen by ``training.use_buffer`` and ``training.prioritised_buffer``, t
 resume from ``training.checkpoint_load_dir``, ActNorm's data-dependent
 initialisation, and the run. Everything is built on ``device`` in the config's
 dtype (``training.use_64_bit``).
+
+The ``mesh`` section: under a launcher (one process per card, ``python3 -m
+torch.distributed.run --nproc_per_node=N -m fab_tpu_torch.experiments.run_gmm
+... mesh.n_data=N``) the run is data parallel over the N processes, ``n_data`` null
+meaning all of them. Without a launcher the run stays on its one device, as
+``fab_tpu`` does on one chip, and says how to launch more; ``fab_tpu`` would span
+every local device, which one process of the port cannot.
 """
 from __future__ import annotations
 
 import datetime
 import os
+import sys
 from typing import Optional
 
 import torch
@@ -25,6 +33,16 @@ from fab_tpu_torch.flows import (
     make_snf_model,
 )
 from fab_tpu_torch.model import FABModel
+from fab_tpu_torch.parallel import distributed
+from fab_tpu_torch.parallel.mesh import (
+    MODEL_AXIS_NOT_PORTED,
+    Mesh,
+    activate_mesh,
+    check_batch,
+    make_mesh,
+    replicate,
+    use_mesh,
+)
 from fab_tpu_torch.sampling import HamiltonianMonteCarlo, Metropolis
 from fab_tpu_torch.train import BufferTrainer, PrioritisedBufferTrainer, Trainer, make_optimizer
 from fab_tpu_torch.utils.logging import CSVLogger, ListLogger
@@ -80,18 +98,38 @@ def setup_logger(cfg: ConfigDict, save_path: str):
     raise ValueError("No logger specified (pandas_logger or list_logger).")
 
 
-def setup_mesh(cfg: ConfigDict) -> None:
-    """The ``mesh`` section: on one device (n_model 1, n_data null or 1) there is
-    nothing to set up, as ``fab_tpu`` does on one chip. A mesh over several devices
-    is not ported yet."""
+def launch_command(n: str = "N") -> str:
+    """The launcher command for a data mesh of ``n`` processes running this program."""
+    spec = getattr(sys.modules.get("__main__"), "__spec__", None)
+    name = getattr(spec, "name", "") or ""
+    runner = name if name.startswith("fab_tpu_torch.") else "fab_tpu_torch.experiments.run_<target>"
+    return (f"python3 -m torch.distributed.run --nproc_per_node={n} -m {runner} "
+            f"--config <config> mesh.n_data={n}")
+
+
+def setup_mesh(cfg: ConfigDict, device="cuda") -> Optional[Mesh]:
+    """The ``mesh`` section. Under a launcher: join the process group (NCCL on a
+    card, gloo on the CPU), build the data mesh over it and activate it; returns it.
+    Without one: None, after one line naming the launcher command (``n_data`` above
+    1 raises: one process holds one device). ``n_model`` above 1 raises: the model
+    axis is not ported."""
     mesh_cfg = cfg.get("mesh")
     if not mesh_cfg or not mesh_cfg.get("enable", True):
-        return
-    if mesh_cfg.get("n_model", 1) == 1 and mesh_cfg.get("n_data") in (None, 1):
-        return
-    raise NotImplementedError(
-        "a multi-device mesh is not ported yet (ROADMAP Queue 1, item 6: parallelism)"
-    )
+        return None
+    if mesh_cfg.get("n_model", 1) != 1:
+        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+    n_data = mesh_cfg.get("n_data")
+    if not distributed.initialize(device):
+        if n_data not in (None, 1):
+            raise ValueError(f"mesh.n_data={n_data} needs one process per data shard: "
+                             + launch_command(str(n_data)))
+        print(f"one process on {device}; for a data mesh over N cards: {launch_command()}")
+        return None
+    mesh = make_mesh(n_data, 1)
+    activate_mesh(mesh)
+    if distributed.is_primary():
+        print(f"data mesh over {mesh.n_data} processes on {device}")
+    return mesh
 
 
 def setup_precision(cfg: ConfigDict) -> None:
@@ -167,14 +205,50 @@ def setup_model(cfg: ConfigDict, target, dtype=torch.float32, device="cuda") -> 
     )
 
 
-def setup_trainer_and_run_flow(cfg: ConfigDict, target, plotter=None, device="cuda"):
-    """Build everything from ``cfg`` and run training; returns (trainer, state).
-    Logs, checkpoints and evals go to ``<evaluation.save_path>/<timestamp>/``."""
+def setup_trainer(cfg: ConfigDict, target, plotter=None, logger=None, save_path: str = "",
+                  device="cuda"):
+    """The model, optimizer, buffer and trainer ``cfg`` asks for (the trainer chosen
+    by ``training.use_buffer`` and ``training.prioritised_buffer``), on ``device`` in
+    the config's dtype; nothing is initialised or run."""
     device = resolve_device(device)
     dtype = maybe_enable_x64(cfg)
-    setup_precision(cfg)
-    setup_mesh(cfg)
     t = cfg.training
+    model = setup_model(cfg, target, dtype, device)
+    optimizer = make_optimizer(t.lr, t.get("max_grad_norm"))
+    common = dict(logger=logger, plotter=plotter, save_path=save_path, dtype=dtype,
+                  device=device)
+    if t.use_buffer and t.prioritised_buffer:
+        return PrioritisedBufferTrainer(
+            model, optimizer,
+            PrioritisedReplayBuffer(dim=cfg.target.dim, max_length=t.maximum_buffer_length,
+                                    min_sample_length=t.min_buffer_length,
+                                    batch_size=t.batch_size),
+            n_batches_buffer_sampling=t.n_batches_buffer_sampling,
+            w_adjust_max_clip=t.get("w_adjust_max_clip"), **common,
+        )
+    if t.use_buffer:
+        return BufferTrainer(
+            model, optimizer,
+            ReplayBuffer(dim=cfg.target.dim, max_length=t.maximum_buffer_length,
+                         min_sample_length=t.min_buffer_length,
+                         temperature=float(t.get("buffer_temp", 0.0)),
+                         batch_size=t.batch_size),
+            n_batches_buffer_sampling=t.n_batches_buffer_sampling,
+            clip_ais_weights_frac=t.get("log_w_clip_frac"), **common,
+        )
+    return Trainer(model, optimizer, **common)
+
+
+def setup_trainer_and_run_flow(cfg: ConfigDict, target, plotter=None, device="cuda"):
+    """Build everything from ``cfg`` and run training; returns (trainer, state).
+    Logs, checkpoints and evals go to ``<evaluation.save_path>/<timestamp>/``
+    (rank 0's time stamp on every rank, and only rank 0 writes)."""
+    device = resolve_device(device)
+    setup_precision(cfg)
+    mesh = setup_mesh(cfg, device)
+    t = cfg.training
+    if mesh is not None:
+        check_batch(t.batch_size, "training.batch_size")
     n_iterations = get_n_iterations(
         n_training_iter=t.n_iterations,
         n_flow_forward_pass=t.n_flow_forward_pass,
@@ -187,34 +261,14 @@ def setup_trainer_and_run_flow(cfg: ConfigDict, target, plotter=None, device="cu
         min_buffer_length=t.get("min_buffer_length"),
     )
 
-    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    stamp = replicate(datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
     save_path = os.path.join(cfg.evaluation.save_path, stamp)
-    os.makedirs(save_path, exist_ok=True)
-    logger = setup_logger(cfg, save_path)
-    model = setup_model(cfg, target, dtype, device)
-    optimizer = make_optimizer(t.lr, t.get("max_grad_norm"))
+    if distributed.is_primary():
+        os.makedirs(save_path, exist_ok=True)
+    trainer = setup_trainer(cfg, target, plotter, setup_logger(cfg, save_path), save_path,
+                            device)
+    model = trainer.model
     generator = torch.Generator(device=device).manual_seed(t.seed)
-    common = dict(logger=logger, plotter=plotter, save_path=save_path, dtype=dtype,
-                  device=device)
-    if t.use_buffer and t.prioritised_buffer:
-        trainer = PrioritisedBufferTrainer(
-            model, optimizer,
-            PrioritisedReplayBuffer(dim=cfg.target.dim, max_length=t.maximum_buffer_length,
-                                    min_sample_length=t.min_buffer_length),
-            n_batches_buffer_sampling=t.n_batches_buffer_sampling,
-            w_adjust_max_clip=t.get("w_adjust_max_clip"), **common,
-        )
-    elif t.use_buffer:
-        trainer = BufferTrainer(
-            model, optimizer,
-            ReplayBuffer(dim=cfg.target.dim, max_length=t.maximum_buffer_length,
-                         min_sample_length=t.min_buffer_length,
-                         temperature=float(t.get("buffer_temp", 0.0))),
-            n_batches_buffer_sampling=t.n_batches_buffer_sampling,
-            clip_ais_weights_frac=t.get("log_w_clip_frac"), **common,
-        )
-    else:
-        trainer = Trainer(model, optimizer, **common)
 
     state, start_iter = None, 0
     if t.get("checkpoint_load_dir"):
@@ -229,7 +283,8 @@ def setup_trainer_and_run_flow(cfg: ConfigDict, target, plotter=None, device="cu
         else:
             state = trainer.init_state(generator)
         if cfg.flow.act_norm:
-            data_dependent_init(model.flow, generator)
+            with use_mesh(None):  # the same statistics on every rank
+                data_dependent_init(model.flow, generator)
 
     state = trainer.run(
         generator,

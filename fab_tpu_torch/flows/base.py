@@ -5,6 +5,10 @@ Direction convention: ``forward`` maps base -> data (sampling); ``inverse`` maps
 data -> base (density evaluation). Parameters live in the modules; state-dict keys
 follow ``fab_tpu``'s pytree (``base.loc``, ``bijectors.<i>.mlp.<j>.w``, ...), see
 ``fab_tpu_torch/convert.py``.
+
+``sample_and_log_prob(n, generator)`` takes the global batch ``n``: under a data
+mesh a base draws its noise at [n, D] and keeps this rank's rows
+(``parallel/mesh.py``), so the flow's draws are one process's.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 from torch import nn
 
 from fab_tpu_torch import random
+from fab_tpu_torch.parallel.mesh import constrain_batch
 
 
 class Bijector(nn.Module):
@@ -50,7 +55,8 @@ class DiagGaussianBase(nn.Module):
     def sample_and_log_prob(
         self, n: int, generator: torch.Generator
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        eps = random.normal(generator, (n, self.dim), self.loc.dtype, self.loc.device)
+        eps = constrain_batch(
+            random.normal(generator, (n, self.dim), self.loc.dtype, self.loc.device))
         z = self.loc + eps * torch.exp(self.log_scale)
         return z, self._log_prob_from_eps(eps)
 
@@ -90,8 +96,9 @@ class UniformGaussianBase(nn.Module):
         self, n: int, generator: torch.Generator
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype, device, b = self._like.dtype, self._like.device, math.pi
-        gauss = random.normal(generator, (n, self.dim), dtype, device)
-        uni = (random.uniform(generator, (n, self.dim), dtype, device) * (2 * b) - b).clamp(min=-b)
+        gauss = constrain_batch(random.normal(generator, (n, self.dim), dtype, device))
+        uni = constrain_batch(
+            random.uniform(generator, (n, self.dim), dtype, device) * (2 * b) - b).clamp(min=-b)
         z = torch.where(self.circular, uni, gauss)
         return z, self.log_prob(z)
 

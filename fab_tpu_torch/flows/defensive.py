@@ -16,6 +16,7 @@ from torch import nn
 
 from fab_tpu_torch import random
 from fab_tpu_torch.flows.base import DiagGaussianBase, Flow
+from fab_tpu_torch.parallel.mesh import constrain_batch
 
 
 class DefensiveMixture(nn.Module):
@@ -50,11 +51,12 @@ class DefensiveMixture(nn.Module):
         self, n: int, generator: torch.Generator
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Draws, in ``fab_tpu``'s order: the component (a uniform below the flow's
-        weight), the flow's sample, the Gaussian's; the mixed draw is detached."""
+        weight), the flow's sample, the Gaussian's; the mixed draw is detached. Under
+        a data mesh each is this rank's rows of the global batch ``n``."""
         log_w_flow, _ = self._log_weights()
         with torch.no_grad():
             p = torch.exp(log_w_flow)
-            use_flow = random.bernoulli(generator, p, (n,), p.dtype, p.device)
+            use_flow = constrain_batch(random.bernoulli(generator, p, (n,), p.dtype, p.device))
             x_flow, _ = self.flow.sample_and_log_prob(n, generator)
             x_def, _ = self.defensive.sample_and_log_prob(n, generator)
             x = torch.where(use_flow[:, None], x_flow, x_def)

@@ -19,6 +19,7 @@ from torch import nn
 
 from fab_tpu_torch import random
 from fab_tpu_torch.flows.mlp import Dense, mlp_apply, mlp_init
+from fab_tpu_torch.parallel.mesh import constrain_batch
 
 
 class ResampledGaussianBase(nn.Module):
@@ -90,15 +91,18 @@ class ResampledGaussianBase(nn.Module):
         """T-truncated rejection sampling over the whole batch: an initial proposal
         z0, then T-1 rounds of (proposal, uniform); a row takes the first proposal
         it accepts and keeps z0 if it accepts none. Every round runs (no early exit:
-        it would need a host read), and the draw is detached."""
+        it would need a host read), and the draw is detached. Under a data mesh every
+        draw is made for the global batch ``n`` and cut to this rank's rows."""
         ref = self.z_points
         with torch.no_grad():
-            z = random.normal(generator, (n, self.dim), ref.dtype, ref.device)
-            accepted = torch.zeros((n,), dtype=torch.bool, device=ref.device)
+            z = constrain_batch(random.normal(generator, (n, self.dim), ref.dtype, ref.device))
+            accepted = torch.zeros((z.shape[0],), dtype=torch.bool, device=ref.device)
             for _ in range(self.T - 1):
-                z_prop = random.normal(generator, (n, self.dim), ref.dtype, ref.device)
+                z_prop = constrain_batch(
+                    random.normal(generator, (n, self.dim), ref.dtype, ref.device))
                 a = self.accept_prob(z_prop)
-                take = ~accepted & (random.uniform(generator, (n,), a.dtype, a.device) < a)
+                u = constrain_batch(random.uniform(generator, (n,), a.dtype, a.device))
+                take = ~accepted & (u < a)
                 z = torch.where(take[:, None], z_prop, z)
                 accepted = accepted | take
         return z, self.log_prob(z)

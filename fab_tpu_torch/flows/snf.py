@@ -25,6 +25,7 @@ from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import DiagGaussianBase, Flow
 from fab_tpu_torch.flows.coupling import AffineCoupling
 from fab_tpu_torch.flows.linear import ActNorm, LULinear
+from fab_tpu_torch.parallel.mesh import draw_rows
 
 NO_KEY = (
     "SNF log_prob requires a generator: the stochastic MH layers draw fresh noise per "
@@ -65,11 +66,12 @@ class MetropolisSamplingLayer(nn.Module):
         log_pi_start = self._log_pi(x)
         log_pi_x = log_pi_start
         for _ in range(self.n_steps):
-            noise = random.normal(generator, x.shape, x.dtype, x.device)
+            noise = draw_rows(random.normal, generator, x.shape, x.dtype, x.device)
             x_prop = x + self.proposal_scale * noise
             log_pi_prop = self._log_pi(x_prop)
             accept_prob = torch.nan_to_num(torch.exp(log_pi_prop - log_pi_x), nan=0.0, posinf=1.0)
-            u = random.uniform(generator, accept_prob.shape, accept_prob.dtype, x.device)
+            u = draw_rows(random.uniform, generator, accept_prob.shape, accept_prob.dtype,
+                          x.device)
             accept = accept_prob > u
             x = torch.where(accept[..., None], x_prop, x)
             log_pi_x = torch.where(accept, log_pi_prop, log_pi_x)

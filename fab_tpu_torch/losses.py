@@ -3,6 +3,12 @@ flow's parameters. Invalid rows carry log_w = -inf and a zeroed log q (or are le
 out of the means by ``mask``), so no NaN reaches the loss graph. ``flow_alpha_2_div``,
 ``flow_alpha_2_div_unbiased`` and ``fab_ub_alpha_2_div`` are experimental in the
 original FAB code; they run here as they do in ``fab_tpu``.
+
+Under a data mesh each loss is this rank's *share* of the loss over the global
+batch (``parallel/mesh.py``): its softmax weights, counts and logsumexps are global,
+its sums run over this rank's rows, so the shares and their gradients, summed over
+the ranks, are the one-process loss and gradient. Without a mesh each is the
+one-process loss.
 """
 from __future__ import annotations
 
@@ -10,6 +16,8 @@ import math
 from typing import Optional
 
 import torch
+
+from fab_tpu_torch.parallel import mesh
 
 LOSS_TYPES = (
     "fab_alpha_div",
@@ -33,10 +41,10 @@ def fab_alpha_div(
     if mask is not None:
         log_w_ais = torch.where(mask, log_w_ais, -math.inf)
         log_q_x = torch.where(mask, log_q_x, 0.0)
-        n = mask.sum().clamp(min=1)
+        n = mesh.sum_all(mask).clamp(min=1)
     else:
-        n = log_q_x.shape[0]
-    w_bar = torch.softmax(log_w_ais.detach(), dim=0)
+        n = mesh.global_rows(log_q_x.shape[0])
+    w_bar = mesh.softmax(log_w_ais.detach())
     return -math.copysign(1.0, alpha) * (w_bar * log_q_x).sum() / n
 
 
@@ -62,18 +70,15 @@ def buffer_replay_loss(
     if mask is not None:
         w_adjust = torch.where(mask, w_adjust, 0.0)
         log_q_safe = torch.where(mask, log_q_x, 0.0)
-        n = mask.sum().clamp(min=1)
+        n = mesh.sum_all(mask).clamp(min=1)
         loss = -(w_adjust * log_q_safe).sum() / n
     else:
-        loss = -(w_adjust * log_q_x).mean()
+        loss = -mesh.share_mean(w_adjust * log_q_x)
     return loss, log_w_adjust, w_adjust_pre_clip
 
 
-def _masked_mean(v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean over the valid rows."""
-    if mask is None:
-        return v.mean()
-    return torch.where(mask, v, 0.0).sum() / mask.sum().clamp(min=1)
+# Mean over the valid rows (this rank's share of it under a data mesh).
+_masked_mean = mesh.share_mean
 
 
 def flow_reverse_kl(log_q: torch.Tensor, log_p: torch.Tensor,
@@ -88,7 +93,7 @@ def flow_alpha_2_div(log_q: torch.Tensor, log_p: torch.Tensor,
     lw = 2 * (log_p - log_q)
     if mask is not None:
         lw = torch.where(mask, lw, -math.inf)
-    return torch.logsumexp(lw, 0)
+    return mesh.share_logsumexp(lw)
 
 
 def flow_alpha_2_div_unbiased(log_q: torch.Tensor, log_p: torch.Tensor,
@@ -106,7 +111,7 @@ def flow_alpha_2_div_nis(log_q: torch.Tensor, log_p: torch.Tensor,
 
 def forward_kl(log_q_xp: torch.Tensor) -> torch.Tensor:
     """Forward KL up to a constant, -mean log q(x) with x ~ p."""
-    return -log_q_xp.mean()
+    return -mesh.share_mean(log_q_xp)
 
 
 def fab_ub_alpha_2_div(log_q_x: torch.Tensor, log_p: torch.Tensor, log_w_ais: torch.Tensor,
@@ -117,4 +122,4 @@ def fab_ub_alpha_2_div(log_q_x: torch.Tensor, log_p: torch.Tensor, log_w_ais: to
     if mask is not None:
         log_w_ais = torch.where(mask, log_w_ais, -math.inf)
         log_w = torch.where(mask, log_w, 0.0)
-    return torch.logsumexp(log_w_ais + log_w, 0)
+    return mesh.share_logsumexp(log_w_ais + log_w)

@@ -14,6 +14,7 @@ import torch
 
 from fab_tpu_torch import losses
 from fab_tpu_torch.flows.base import Flow, flow_log_prob, is_stochastic, log_q_noise
+from fab_tpu_torch.parallel import mesh
 from fab_tpu_torch.sampling.ais import AnnealedImportanceSampler
 from fab_tpu_torch.targets.base import TargetDistribution
 from fab_tpu_torch.utils.numerical import effective_sample_size
@@ -88,7 +89,8 @@ class FABModel:
         """(loss, new transition state, info) for ``loss_type``; the loss is
         differentiable in the flow's parameters only (AIS output is detached). The
         FAB losses run AIS; the flow-sample losses differentiate through a
-        reparametrised flow draw; ``target_forward_kl`` uses exact target samples."""
+        reparametrised flow draw; ``target_forward_kl`` uses exact target samples.
+        Under a data mesh the loss is this rank's share (``losses.py``)."""
         if self.loss_type in ("fab_alpha_div", "fab_ub_alpha_2_div"):
             result = self.ais.sample_and_log_weights(
                 transition_state, generator, batch_size, p_target=False, tune=tune
@@ -106,7 +108,7 @@ class FABModel:
                 )
             return loss, result.transition_state, dict(result.info)
         if self.loss_type == "target_forward_kl":
-            x_p = self.target.sample(generator, batch_size)
+            x_p = mesh.constrain_batch(self.target.sample(generator, batch_size))
             return (self.forward_kl_loss(x_p, log_q_noise(self.flow, generator)),
                     transition_state, {})
         if self.loss_type not in ("flow_reverse_kl", "flow_alpha_2_div",
@@ -146,7 +148,9 @@ class FABModel:
 
         Returns (flow x, flow log_w, flow mask, AIS x, AIS log_w, AIS mask). The flow
         samples are the draw each AIS pass starts from (``AISResult.flow_sample``),
-        weighed by log p - log q, so no second flow pass is spent on them.
+        weighed by log p - log q, so no second flow pass is spent on them. Under a
+        data mesh each chunk is gathered from every rank (one all-gather), so every
+        rank returns the whole batch, as one process does.
         """
         if outer_batch_size % inner_batch_size != 0:
             raise ValueError(
@@ -168,6 +172,8 @@ class FABModel:
             )
             base_log_w = torch.where(base_mask, log_p0 - log_q0, -math.inf)
             chunk = (x0, base_log_w, base_mask, result.point.x, result.log_w, result.mask)
+            if mesh.active_mesh() is not None and mesh.divides(inner_batch_size):
+                chunk = _gather_chunk(chunk)
             chunks.append([t.detach().cpu().numpy() for t in chunk])
         return tuple(np.concatenate(parts) for parts in zip(*chunks))
 
@@ -183,7 +189,8 @@ class FABModel:
         """ESS of the flow and AIS samples, and the target's metrics on each
         (``fab_tpu/model.py:265-319``): the flow samples' metrics get the flow's log
         q, ``inner_batch_size`` (ManyWell's exact-sample count) and ``generator``
-        (for exact samples and test sets)."""
+        (for exact samples and test sets). Under a data mesh every rank runs it: the
+        AIS passes are sharded, the metrics are computed whole on every rank."""
         base_x, base_log_w, base_mask, ais_x, ais_log_w, ais_mask = (
             self.generate_eval_data(
                 transition_state, generator, outer_batch_size, inner_batch_size,
@@ -192,7 +199,7 @@ class FABModel:
         )
         device = next(self.flow.parameters()).device
         on_device = lambda a: torch.as_tensor(a, device=device)
-        with torch.no_grad():
+        with torch.no_grad(), mesh.use_mesh(None):
             info = {
                 "eval_ess_flow": float(
                     effective_sample_size(on_device(base_log_w), on_device(base_mask))
@@ -216,6 +223,21 @@ class FABModel:
             )
         info.update({"ais_" + k: float(v) for k, v in ais_info.items()})
         return info
+
+
+def _gather_chunk(chunk):
+    """(x0, base log_w, base mask, x, log_w, mask) of this rank's rows -> of every
+    rank's, in one all-gather (values pass through float64)."""
+    x0, base_log_w, base_mask, x, log_w, mask = chunk
+    dim = x0.shape[-1]
+    packed = torch.cat([x0.double(), base_log_w[:, None].double(),
+                        base_mask[:, None].double(), x.double(), log_w[:, None].double(),
+                        mask[:, None].double()], dim=1)
+    full = mesh.all_gather_rows(packed)
+    col = lambda start, stop, like: full[:, start:stop].to(like.dtype)
+    return (col(0, dim, x0), col(dim, dim + 1, base_log_w)[:, 0],
+            full[:, dim + 1] > 0, col(dim + 2, 2 * dim + 2, x),
+            col(2 * dim + 2, 2 * dim + 3, log_w)[:, 0], full[:, 2 * dim + 3] > 0)
 
 
 def format_transition_info(

@@ -5,6 +5,11 @@ validity mask is threaded through, invalid rows are zero-filled, excluded from e
 reduction and given weight -inf. Train-time AIS targets g = p^alpha q^(1-alpha),
 eval-time AIS targets p (``p_target``). The flow's parameters are frozen for the
 whole pass, so each log q evaluation differentiates with respect to x only.
+
+Under a data mesh (``parallel/mesh.py``) ``batch_size`` is the global batch: the
+pass holds this rank's rows, draws what one process would, and its info (ESS, log
+Z, counts, acceptance) is over the global batch. A batch the data axis does not
+divide runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 
 from fab_tpu_torch.flows.base import Flow, flow_log_prob, frozen, log_q_noise
+from fab_tpu_torch.parallel import mesh
 from fab_tpu_torch.sampling.point import create_point, intermediate_log_prob
 from fab_tpu_torch.sampling.schedules import beta_schedule
 from fab_tpu_torch.typing import LogProbFn, Point
@@ -55,7 +61,14 @@ class AnnealedImportanceSampler:
         p_target: bool = False,
         tune: bool = True,
     ) -> AISResult:
-        """One AIS pass: flow sample -> anneal through the beta schedule."""
+        """One AIS pass over ``batch_size`` rows: flow sample -> anneal through the
+        beta schedule."""
+        if not mesh.divides(batch_size):
+            with mesh.use_mesh(None):
+                return self._pass(transition_state, generator, batch_size, p_target, tune)
+        return self._pass(transition_state, generator, batch_size, p_target, tune)
+
+    def _pass(self, transition_state, generator, batch_size, p_target, tune) -> AISResult:
         ais_alpha = 1.0 if p_target else self.alpha
         betas = [float(b) for b in self.betas]
         trans_op = self.transition_operator
@@ -114,12 +127,15 @@ class AnnealedImportanceSampler:
         mask = finite_ok & bound_ok
         log_w = torch.where(mask, log_w, -torch.inf)
 
+        counts = torch.stack([mask.sum(), (finite_ok & ~bound_ok).sum()])
+        if mesh.active_mesh() is not None:
+            counts = mesh.all_reduce(counts)
         info = {
             "ess_base": ess_base,
             "ess_ais": effective_sample_size(log_w, mask),
             "log_Z": log_z_estimate(log_w, mask),
-            "n_valid": mask.sum(),
-            "n_logw_bound_masked": (finite_ok & ~bound_ok).sum(),
+            "n_valid": counts[0],
+            "n_logw_bound_masked": counts[1],
             # Per intermediate distribution: p_accept [n_dists, n_outer],
             # avg_distance [n_dists].
             "transition": {

@@ -6,7 +6,10 @@ component, carried in an explicit state dict and adapted toward
 probability. The adaptation stays on the device (``torch.where``, no host sync).
 Each leapfrog step re-evaluates the flow and target log-probs with their
 x-gradients; gradients are clamped to +-max_grad and then NaN-scrubbed; the MH test
-is an exponential race that rejects non-finite acceptance ratios.
+is an exponential race that rejects non-finite acceptance ratios. Under a data mesh
+the momenta and the race are drawn at the global batch's shape and cut to this
+rank's rows, and the acceptance rate and move distance are reduced over every rank,
+so every rank adapts its step sizes alike.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from fab_tpu_torch import random
+from fab_tpu_torch.parallel import mesh
 from fab_tpu_torch.sampling.metropolis import masked_mean
 from fab_tpu_torch.sampling.point import (
     create_point,
@@ -90,7 +94,8 @@ class HamiltonianMonteCarlo:
             epsilon = eps_row[n] + common_eps
             # Momentum refresh p ~ N(0, mass^2), kinetic energy p^2 / (2 mass)
             # (fab_tpu keeps the reference's convention).
-            p0 = random.normal(generator, point.x.shape, point.x.dtype, point.x.device) * mass
+            p0 = mesh.draw_rows(random.normal, generator, point.x.shape, point.x.dtype,
+                                point.x.device) * mass
             proposal, p, grad = point, p0, grad_u(point)
             for _ in range(self.n_leapfrog):
                 p = p - epsilon * grad / 2
@@ -106,8 +111,8 @@ class HamiltonianMonteCarlo:
             )
             finite = torch.isfinite(log_acc)
             log_acc = torch.where(finite, log_acc, -math.inf)
-            race = random.exponential(
-                generator, log_acc.shape, log_acc.dtype, log_acc.device
+            race = mesh.draw_rows(
+                random.exponential, generator, log_acc.shape, log_acc.dtype, log_acc.device
             )
             accept = (log_acc > -race) & finite
             point = select_point(accept, proposal, point)

@@ -5,7 +5,9 @@ The per-(intermediate distribution, update) proposal scales are an explicit stat
 ``{"noise_scalings": [n_dists, n_updates]}``, tuned by x1.05 or /1.05 toward
 ``target_p_accept`` from the masked batch-mean acceptance probability, on the device
 (no host sync). Proposals whose acceptance ratio is NaN or infinite are rejected.
-Tuning is off when ``tune`` is False (evaluation).
+Tuning is off when ``tune`` is False (evaluation). Under a data mesh the proposals
+and acceptance draws are made at the global batch's shape and cut to this rank's
+rows, and the acceptance rate is reduced over every rank, so every rank tunes alike.
 """
 from __future__ import annotations
 
@@ -16,12 +18,13 @@ import numpy as np
 import torch
 
 from fab_tpu_torch import random
+from fab_tpu_torch.parallel import mesh
 from fab_tpu_torch.sampling.point import create_point, intermediate_log_prob
 from fab_tpu_torch.typing import LogProbFn, Point, select_point
 
 
-def masked_mean(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.where(mask, vals, 0.0).sum() / mask.sum().clamp(min=1)
+# The mean over the valid rows of the global batch (``parallel/mesh.py``).
+masked_mean = mesh.masked_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,15 +65,16 @@ class Metropolis:
         log_prob_curr = intermediate_log_prob(point, beta, ais_alpha)
         p_accepts = []
         for n in range(self.n_updates):
-            noise = random.normal(generator, point.x.shape, point.x.dtype, point.x.device)
+            noise = mesh.draw_rows(random.normal, generator, point.x.shape, point.x.dtype,
+                                   point.x.device)
             x_prop = point.x + scal_row[n] * noise
             point_prop = create_point(x_prop, log_q_fn, log_p_fn, with_grad=False)
             log_prob_prop = intermediate_log_prob(point_prop, beta, ais_alpha)
             accept_prob = torch.nan_to_num(
                 torch.exp(log_prob_prop - log_prob_curr), nan=0.0, posinf=0.0, neginf=0.0
             )
-            u = random.uniform(generator, accept_prob.shape, accept_prob.dtype,
-                               accept_prob.device)
+            u = mesh.draw_rows(random.uniform, generator, accept_prob.shape,
+                               accept_prob.dtype, accept_prob.device)
             accept = accept_prob > u
             point = select_point(accept, point_prop, point)
             log_prob_curr = torch.where(accept, log_prob_prop, log_prob_curr)

@@ -15,6 +15,15 @@ an optional LR schedule that keeps the JAX package's semantics
 training loop with its eval, checkpoint and time-limit schedule
 (``fab_tpu/train.py:168-394``), shared by ``BufferTrainer`` (a uniform or
 recency-weighted replay buffer) and ``PrioritisedBufferTrainer``.
+
+**Data parallel.** Under a data mesh (``parallel/mesh.py``) every trainer runs on
+each rank with ``batch_size`` the global batch: the rank's loss is its share of the
+global loss, and the gradients and the loss are all-reduced as one flattened bucket
+per update before the guard and the clip see them, so every rank takes the same
+step. Info means, extremes and the log-weight clip are global; checkpoints hold the
+buffer in the one-process layout (gathered on save, scattered on load), written by
+rank 0 only, which also alone plots; every rank evaluates (evaluation has
+collectives).
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ from fab_tpu_torch.convert import from_jax_params, to_jax_params
 from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import flow_log_prob, log_q_noise
 from fab_tpu_torch.model import FABModel, format_transition_info
+from fab_tpu_torch.parallel import mesh
+from fab_tpu_torch.parallel.distributed import is_primary
 from fab_tpu_torch.utils.logging import ListLogger, Logger
 from fab_tpu_torch.utils.plotting import pyplot
 
@@ -238,6 +249,18 @@ def _all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 
+def all_reduce_gradients(grads: Sequence[torch.Tensor], loss: torch.Tensor):
+    """Every rank's gradients and loss share summed, as one flattened bucket (one
+    collective per update); returns (grads, loss) over the global batch."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+    flat = mesh.all_reduce(flat)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return out, flat[offset]
+
+
 def guarded_update(
     optimizer: ClippedAdam,
     grads: Sequence[torch.Tensor],
@@ -317,30 +340,38 @@ class Trainer:
         return TrainState(transition_state, self.optimizer.init(self.params), 0)
 
     def _step(self, loss: torch.Tensor, opt_state: AdamState):
-        """The guarded optimizer step on ``loss``'s gradient; (opt_state, grad_norm,
-        applied)."""
+        """The guarded optimizer step on ``loss``'s gradient (under a mesh, on the
+        all-reduced gradients and loss); (opt_state, grad_norm, applied, loss)."""
         params = self.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        return guarded_update(self.optimizer, grads, opt_state, params, loss)
+        if mesh.active_mesh() is not None:
+            grads, loss = all_reduce_gradients(grads, loss)
+        return (*guarded_update(self.optimizer, grads, opt_state, params, loss), loss.detach())
 
     def train_step(
         self, state: TrainState, generator: torch.Generator, batch_size: int
     ) -> Tuple[TrainState, Dict[str, Any]]:
+        mesh.check_batch(batch_size)
         loss, transition_state, info = self.model.loss_and_info(
             state.transition_state, generator, batch_size, tune=True
         )
-        opt_state, grad_norm, ok = self._step(loss, state.opt_state)
-        info = dict(info, loss=loss.detach(), grad_norm=grad_norm, update_applied=ok)
+        opt_state, grad_norm, ok, loss = self._step(loss, state.opt_state)
+        info = dict(info, loss=loss, grad_norm=grad_norm, update_applied=ok)
         return TrainState(transition_state, opt_state, state.step + 1), info
 
     # ------------------------------------------------------------ run loop
 
+    def _param_names(self) -> List[str]:
+        return [n for n, p in self.model.flow.named_parameters() if p.requires_grad]
+
     def save_checkpoint(self, state, i: int) -> None:
         """``<save_path>/model_checkpoints/iter_<i>/state.pkl``; the flow's
         parameters in ``fab_tpu``'s pytree layout, Adam's moments keyed by the
-        parameters' names, and the buffer, if the state has one."""
-        names = [n for n, p in self.model.flow.named_parameters() if p.requires_grad]
+        parameters' names, and the buffer, if the state has one, in the one-process
+        layout. Under a mesh every rank calls it (the buffer is gathered) and rank 0
+        writes."""
+        names = self._param_names()
         opt = state.opt_state
         payload = {
             "params": {
@@ -357,20 +388,26 @@ class Trainer:
             "step": state.step,
         }
         if hasattr(state, "buffer_state"):
-            payload["buffer_state"] = state.buffer_state._asdict()
-        checkpoint.save_checkpoint(
-            os.path.join(self.checkpoints_dir, f"iter_{i}", "state.pkl"), payload
-        )
+            payload["buffer_state"] = self.buffer.gather(state.buffer_state)._asdict()
+        if is_primary():
+            checkpoint.save_checkpoint(
+                os.path.join(self.checkpoints_dir, f"iter_{i}", "state.pkl"), payload
+            )
 
     def load_state(self, path: str):
-        """Load a checkpoint written by ``save_checkpoint``: the flow's parameters go
-        into the model in place; returns (state, step)."""
+        """Load a checkpoint written by ``save_checkpoint`` at any world size, or by
+        ``fab_tpu``'s trainers (its Adam state read from the optimizer library's
+        records, its buffer from its named tuple): the flow's parameters go into the
+        model in place, the buffer is cut to this rank's shard; returns (state,
+        step)."""
         raw = checkpoint.load_checkpoint(path)
         tensor = lambda a: torch.as_tensor(a, device=self.device)
         flow = self.model.flow
         flow.load_state_dict(from_jax_params(raw["params"]["flow"], self.device))
-        names = [n for n, p in flow.named_parameters() if p.requires_grad]
+        names = self._param_names()
         opt = raw["opt_state"]
+        if isinstance(opt, (tuple, checkpoint.Opaque)):
+            opt = _adam_state(opt)
         fields = dict(
             transition_state={k: tensor(v) for k, v in raw["params"]["transition"].items()},
             opt_state=AdamState(
@@ -381,9 +418,66 @@ class Trainer:
             step=int(raw["step"]),
         )
         if "buffer_state" in raw:
-            fields["buffer_state"] = self.buffer_state_type(
-                **{k: tensor(v) for k, v in raw["buffer_state"].items()}
-            )
+            buffer = raw["buffer_state"]
+            values = (buffer.args if isinstance(buffer, checkpoint.Opaque)
+                      else [buffer[k] for k in self.buffer_state_type._fields])
+            fields["buffer_state"] = self.buffer.scatter(
+                self.buffer_state_type(*(tensor(v) for v in values)))
+        state = self.state_type(**fields)
+        return state, state.step
+
+    # -------------------------------------------- torch.distributed.checkpoint
+
+    def _dcp_tree(self, state) -> Dict[str, Any]:
+        """The state as ``checkpoint.save_checkpoint_dcp`` takes it: the flow's state
+        dict (its tensors alias the parameters), the transition state, Adam's moments
+        by parameter name, the step, and the buffer's slot fields as blocks of
+        ``buffer_blocks``."""
+        opt = state.opt_state
+        names = self._param_names()
+        tree = {
+            "flow": dict(self.model.flow.state_dict()),
+            "transition": dict(state.transition_state),
+            "opt_state": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
+                          "nu": dict(zip(names, opt.nu))},
+            "step": torch.tensor(state.step),
+        }
+        if hasattr(state, "buffer_state"):
+            tree["buffer_state"] = checkpoint.buffer_blocks(self.buffer, state.buffer_state)
+        return tree
+
+    def save_checkpoint_dcp(self, state, path: str) -> None:
+        """Write the state to the directory ``path`` with ``torch.distributed.checkpoint``
+        (``checkpoint.save_checkpoint_dcp``): every rank calls it and writes its
+        shard of the buffer; replicated leaves are written once."""
+        checkpoint.save_checkpoint_dcp(path, self._dcp_tree(state))
+
+    def load_state_dcp(self, path: str):
+        """Load a ``save_checkpoint_dcp`` directory written by any world size onto
+        this one: the flow's parameters in place, the buffer re-sharded; returns
+        (state, step)."""
+        dim, dtype, device = self.model.flow.dim, self.dtype, self.device
+        template = dict(
+            transition_state=(self.model.ais.transition_operator.init_state(
+                dim, dtype=dtype, device=device) if self.model.ais is not None else {}),
+            opt_state=self.optimizer.init(self.params),
+            step=0,
+        )
+        if hasattr(self, "buffer"):
+            template["buffer_state"] = self.buffer.init(dtype, device)
+        target = self._dcp_tree(self.state_type(**template))
+        tree = checkpoint.load_checkpoint_dcp(path, target)
+        names = self._param_names()
+        opt = tree["opt_state"]
+        fields = dict(
+            transition_state=tree["transition"],
+            opt_state=AdamState(opt["count"], [opt["mu"][n] for n in names],
+                                [opt["nu"][n] for n in names]),
+            step=int(tree["step"]),
+        )
+        if "buffer_state" in tree:
+            fields["buffer_state"] = checkpoint.buffer_from_blocks(
+                self.buffer, self.buffer_state_type, tree["buffer_state"])
         state = self.state_type(**fields)
         return state, state.step
 
@@ -402,16 +496,25 @@ class Trainer:
         """``plotter(model, transition_state, generator) -> [figure]``, each figure
         saved as ``<plots_dir>/<j>_iter_<i>.png``. The plotter draws from a
         generator of its own (seeded with ``i``), so plotting leaves the training
-        draws as they would be without it."""
-        if self.plotter is None:
+        draws as they would be without it. Under a mesh rank 0 alone plots, whole,
+        with the mesh off."""
+        if self.plotter is None or not is_primary():
             return
         plt = pyplot()
         plot_generator = torch.Generator(device=self.device).manual_seed(i)
-        figures = self.plotter(self.model, state.transition_state, plot_generator)
+        with mesh.use_mesh(None):
+            figures = self.plotter(self.model, state.transition_state, plot_generator)
         for j, figure in enumerate(figures or []):
             if save:
                 figure.savefig(os.path.join(self.plots_dir, f"{j}_iter_{i}.png"))
             plt.close(figure)
+
+    def _all_agree(self, stop: bool) -> bool:
+        """Whether any rank says stop (every rank then stops at the same iteration)."""
+        if mesh.active_mesh() is None:
+            return stop
+        flag = torch.tensor(float(stop), device=self.device)
+        return bool(mesh.max_all(flag) > 0)
 
     def run(
         self,
@@ -437,7 +540,7 @@ class Trainer:
         ``fab_tpu``'s. Without ``state``, ``init_state`` makes one (a buffer
         trainer fills its buffer with its default batch, as in ``fab_tpu``).
         """
-        if save:
+        if save and is_primary():
             pathlib.Path(self.plots_dir).mkdir(parents=True, exist_ok=True)
             pathlib.Path(self.checkpoints_dir).mkdir(parents=True, exist_ok=True)
         checkpoint_iter = _schedule(n_iterations, n_checkpoints)
@@ -476,7 +579,7 @@ class Trainer:
                 max_it_time = max(max_it_time, (time() - it_start) / k)
             warm_ks.add(k)
             now = time()
-            if now - last_progress > 60.0:  # at most one progress line a minute
+            if now - last_progress > 60.0 and is_primary():  # one line a minute at most
                 last_progress = now
                 parts = [f"iter {i}/{n_iterations}"]
                 for name in ("loss", "ess_ais", "ess_base", "n_valid"):
@@ -493,7 +596,7 @@ class Trainer:
             # overshoot; before a rate is known, plain wall-clock checking.
             if tlimit is not None:
                 hours = (time() - start_time) / 3600
-                if hours + max_it_time * k / 3600 > tlimit:
+                if self._all_agree(hours + max_it_time * k / 3600 > tlimit):
                     if save and i not in checkpoint_iter:
                         self.save_checkpoint(state, i)
                     if n_eval and i not in eval_iter:
@@ -503,6 +606,23 @@ class Trainer:
                     return state
         self.logger.close()
         return state
+
+
+def _adam_state(tree) -> Dict[str, Any]:
+    """count, mu and nu (by parameter name) from ``fab_tpu``'s pickled optimizer
+    state: its ``ScaleByAdamState`` record (``checkpoint.Opaque``)."""
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, checkpoint.Opaque):
+            if node.name == "ScaleByAdamState":
+                count, mu, nu = node.args
+                return {"count": count, "mu": from_jax_params(mu),
+                        "nu": from_jax_params(nu)}
+            stack.extend(node.args)
+        elif isinstance(node, (tuple, list)):
+            stack.extend(node)
+    raise ValueError("the checkpoint's optimizer state holds no Adam state")
 
 
 def _fill_buffer(trainer, generator: torch.Generator, batch_size: int, add) -> BufferTrainState:
@@ -576,19 +696,20 @@ class BufferTrainer(Trainer):
         x = torch.where(mask[:, None], x, 0.0)
         loss = losses_lib.fab_alpha_div(flow_log_prob(flow, x, key_lq), log_w,
                                         self.model.alpha, mask)
-        opt_state, grad_norm, _ = self._step(loss, opt_state)
-        return opt_state, loss.detach(), grad_norm
+        opt_state, grad_norm, _, loss = self._step(loss, opt_state)
+        return opt_state, loss, grad_norm
 
     def train_step(
         self, state: BufferTrainState, generator: torch.Generator, batch_size: int
     ) -> Tuple[BufferTrainState, Dict[str, Any]]:
+        mesh.check_batch(batch_size)
         result = self.model.ais.sample_and_log_weights(
             state.transition_state, generator, batch_size, p_target=False, tune=True
         )
         log_w_ais = result.log_w
         if self.clip_ais_weights_frac is not None:
             k = max(2, int(self.clip_ais_weights_frac * batch_size))
-            log_w_ais = torch.minimum(log_w_ais, torch.topk(log_w_ais, k).values.min())
+            log_w_ais = torch.minimum(log_w_ais, mesh.kth_largest(log_w_ais, k))
         opt_state, loss, grad_norm = self._inner_update(
             state.opt_state, result.point.x, log_w_ais, result.mask, generator
         )
@@ -656,6 +777,7 @@ class PrioritisedBufferTrainer(Trainer):
     ) -> Tuple[BufferTrainState, Dict[str, Any]]:
         model, buffer, flow = self.model, self.buffer, self.model.flow
         alpha = model.alpha
+        mesh.check_batch(batch_size)
 
         # 1. AIS pass + buffer add, the train-time filter's rejects at -inf.
         result = model.ais.sample_and_log_weights(
@@ -664,8 +786,10 @@ class PrioritisedBufferTrainer(Trainer):
         add_mask = model.filter_batch(result.point.x, result.mask)
         filter_info = {}
         if model.sample_filter is not None:
-            n_valid = result.mask.sum().clamp(min=1)
-            filter_info["frac_filter_pass"] = (add_mask & result.mask).sum() / n_valid
+            passed, n_valid = (add_mask & result.mask).sum(), result.mask.sum()
+            if mesh.active_mesh() is not None:
+                passed, n_valid = mesh.all_reduce(torch.stack([passed, n_valid]))
+            filter_info["frac_filter_pass"] = passed / n_valid.clamp(min=1)
         buffer_state = buffer.add(
             state.buffer_state, result.point.x, result.log_w, result.point.log_q, add_mask
         )
@@ -678,7 +802,7 @@ class PrioritisedBufferTrainer(Trainer):
         keys = [log_q_noise(flow, generator) for _ in range(self.n_batches_buffer_sampling)]
         # 3. Replay gradient steps.
         opt_state = state.opt_state
-        step_info: Dict[str, Any] = {}
+        last = None
         for x, log_w_b, log_q_old, idx, key_lq in zip(xs, log_ws, log_q_olds, idxs, keys):
             row_ok = torch.isfinite(log_w_b)  # killed / unwritten rows
             # Probe: rows whose log q is non-finite are excluded from the loss and
@@ -692,7 +816,7 @@ class PrioritisedBufferTrainer(Trainer):
             loss, log_w_adjust, w_pre = losses_lib.buffer_replay_loss(
                 log_q_x, log_q_old, alpha, self.w_adjust_max_clip, row_ok
             )
-            opt_state, grad_norm, ok = self._step(loss, opt_state)
+            opt_state, grad_norm, ok, loss = self._step(loss, opt_state)
             if not self.w_adjust_in_buffer_after_update:
                 buffer_state = buffer.adjust(
                     buffer_state,
@@ -700,15 +824,19 @@ class PrioritisedBufferTrainer(Trainer):
                     log_q_x.detach(),
                     idx,
                 )
+            last = (loss, grad_norm, ok, w_pre, row_ok, log_q_x.detach())
+        step_info: Dict[str, Any] = {}
+        if last is not None:
             # fab_tpu logs the last replay batch's values.
+            loss, grad_norm, ok, w_pre, row_ok, log_q_x = last
             step_info = {
-                "loss": loss.detach(),
+                "loss": loss,
                 "grad_norm": grad_norm,
                 "update_applied": ok,
-                "w_adjust_mean": torch.where(row_ok, w_pre, 0.0).mean(),
-                "w_adjust_min": torch.where(row_ok, w_pre, torch.inf).min(),
-                "w_adjust_max": torch.where(row_ok, w_pre, -torch.inf).max(),
-                "log_q_x_mean": torch.where(row_ok, log_q_x.detach(), 0.0).mean(),
+                "w_adjust_mean": mesh.mean_all(torch.where(row_ok, w_pre, 0.0)),
+                "w_adjust_min": mesh.min_all(torch.where(row_ok, w_pre, torch.inf)),
+                "w_adjust_max": mesh.max_all(torch.where(row_ok, w_pre, -torch.inf)),
+                "log_q_x_mean": mesh.mean_all(torch.where(row_ok, log_q_x, 0.0)),
             }
         if self.w_adjust_in_buffer_after_update:
             # One adjustment pass over the same replay batches with the final flow:
@@ -729,8 +857,8 @@ class PrioritisedBufferTrainer(Trainer):
             result.info,
             **filter_info,
             **step_info,
-            sampled_log_w_mean=sampled_log_w.mean(),
-            sampled_log_w_std=sampled_log_w.std(correction=0),
+            sampled_log_w_mean=mesh.mean_all(sampled_log_w),
+            sampled_log_w_std=mesh.std_all(sampled_log_w),
         )
         new_state = BufferTrainState(
             transition_state=result.transition_state,

@@ -1,7 +1,8 @@
 """Loggers with a write/close interface (``fab_tpu/utils/logging.py``): an in-memory
 dict-of-lists history (optionally pickled), an incremental CSV writer, a Weights &
 Biases sink (``wandb`` is imported when one is made) and a fan-out to several
-loggers.
+loggers. Under a process group the list and CSV loggers write on the primary rank
+(rank 0) only: the others keep nothing and touch no file.
 """
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import csv
 import os
 import pickle
 from typing import Any, Dict, List, Mapping
+
+from fab_tpu_torch.parallel.distributed import is_primary
 
 LoggingData = Mapping[str, Any]
 
@@ -35,10 +38,13 @@ class ListLogger(Logger):
         self.save_period = save_period
         self.history: Dict[str, List[Any]] = {}
         self.iter = 0
-        if save:
+        self.primary = is_primary()
+        if save and self.primary:
             os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
 
     def write(self, data: LoggingData) -> None:
+        if not self.primary:
+            return
         for key, value in data.items():
             self.history.setdefault(key, []).append(_scalar(value))
         self.iter += 1
@@ -50,7 +56,7 @@ class ListLogger(Logger):
             pickle.dump(self.history, f)
 
     def close(self) -> None:
-        if self.save:
+        if self.save and self.primary:
             self._dump()
 
 
@@ -64,7 +70,9 @@ class CSVLogger(Logger):
         self.rows: List[Dict[str, Any]] = []
         self.columns: List[str] = []
         self._unflushed = 0
-        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        self.primary = is_primary()
+        if self.primary:
+            os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
 
     def _add_columns(self, row: Mapping[str, Any]) -> None:
         for k in row:
@@ -72,6 +80,8 @@ class CSVLogger(Logger):
                 self.columns.append(k)
 
     def write(self, data: LoggingData) -> None:
+        if not self.primary:
+            return
         row = {k: _scalar(v) for k, v in data.items()}
         self._add_columns(row)
         self.rows.append(row)
@@ -82,7 +92,7 @@ class CSVLogger(Logger):
     def resume_from(self, max_step: int) -> None:
         """Reload the existing CSV, dropping rows past ``max_step`` (rows without a
         'step' value are kept), for a run resumed from a checkpoint."""
-        if not os.path.exists(self.save_path):
+        if not self.primary or not os.path.exists(self.save_path):
             return
         with open(self.save_path) as f:
             rows = list(csv.DictReader(f))
@@ -99,7 +109,8 @@ class CSVLogger(Logger):
         self._unflushed = 0
 
     def close(self) -> None:
-        self._flush()
+        if self.primary:
+            self._flush()
 
 
 class WandbLogger(Logger):

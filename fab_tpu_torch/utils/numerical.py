@@ -2,7 +2,9 @@
 (``fab_tpu/utils/numerical.py``).
 
 Invalid rows are excluded from every reduction instead of being dropped, so shapes
-stay static.
+stay static. Under a data mesh (``fab_tpu_torch/parallel/mesh.py``) ``log_w``,
+``mask`` and ``x`` are this rank's rows and every estimate is over the global batch,
+the same on every rank: a max and a sum all-reduce each.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Callable, Optional
 
 import torch
 
+from fab_tpu_torch.parallel import mesh
 from fab_tpu_torch.utils.seeding import quadratic_constants
 
 
@@ -27,11 +30,26 @@ def _count(log_w: torch.Tensor, mask: Optional[torch.Tensor]):
     return mask.sum().clamp(min=1)
 
 
+def _global_weight_sums(log_w: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(max, sum of w, sum of w**2, valid rows) over the global batch, with w the
+    weights scaled by exp(-max): a max and one sum all-reduce."""
+    lw = masked_log_weights(log_w, mask)
+    m = mesh.max_all(lw)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(lw - m)
+    count = lw.new_tensor(lw.shape[0]) if mask is None else mask.sum().to(lw.dtype)
+    s1, s2, n = mesh.all_reduce(torch.stack([w.sum(), (w * w).sum(), count]))
+    return m, s1, s2, n.clamp(min=1)
+
+
 def effective_sample_size(
     log_w: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Normalised ESS ``1 / (N * sum(w_bar**2))`` over valid rows."""
     assert log_w.dim() == 1
+    if mesh.active_mesh() is not None:
+        _, s1, s2, n = _global_weight_sums(log_w, mask)
+        return s1 * s1 / s2 / n
     w_bar = torch.softmax(masked_log_weights(log_w, mask), dim=0)
     return 1.0 / (w_bar**2).sum() / _count(log_w, mask)
 
@@ -42,6 +60,10 @@ def effective_sample_size_over_p(
     """ESS estimated from target samples, ``1 / mean(exp(log_w))`` over valid rows;
     needs a normalised target log-prob."""
     assert log_w.dim() == 1
+    if mesh.active_mesh() is not None:
+        if mask is None:
+            mask = torch.ones_like(log_w, dtype=torch.bool)
+        return 1.0 / mesh.masked_mean(torch.exp(log_w), mask)
     if mask is None:
         return 1.0 / torch.exp(log_w).mean()
     return 1.0 / (torch.where(mask, torch.exp(log_w), 0.0).sum() / _count(log_w, mask))
@@ -49,6 +71,9 @@ def effective_sample_size_over_p(
 
 def log_z_estimate(log_w: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``logsumexp(log_w) - log N`` over valid rows."""
+    if mesh.active_mesh() is not None:
+        m, s1, _, n = _global_weight_sums(log_w, mask)
+        return torch.log(s1) + m - torch.log(n)
     n = _count(log_w, mask)
     log_n = math.log(n) if mask is None else torch.log(n.to(log_w.dtype))
     return torch.logsumexp(masked_log_weights(log_w, mask), dim=0) - log_n
@@ -61,11 +86,12 @@ def importance_weighted_expectation(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Self-normalised importance-sampling estimate of E_p[f(x)] over valid rows."""
-    w_bar = torch.softmax(masked_log_weights(log_w, mask), dim=0)
+    w_bar = mesh.softmax(masked_log_weights(log_w, mask))
     f_x = f(x)
     if mask is not None:
         f_x = torch.where(mask, f_x, 0.0)
-    return (w_bar * f_x).sum(0)
+    total = (w_bar * f_x).sum(0)
+    return total if mesh.active_mesh() is None else mesh.all_reduce(total)
 
 
 def mc_estimate_true_expectation(
