@@ -109,6 +109,23 @@ Phases:
      (DP_LAUNCHER_CUTS): exit 0, every CSV value finite, and rank 0's checkpoint
      loaded in this process. More than one card is not measured: NCCL refuses two
      ranks on one device.
+ 15. (a) The mesh's model axis on the card: two processes of this script
+     (--model-axis-rank, a gloo group on tcp://127.0.0.1:<free port>: gloo carries
+     the CUDA tensors through the host) form a (1, 2) grid. Each runs ManyWell-32 at
+     phase 3's widths, f64 (MA_DTYPE), init_state and 3 steps, with the plain flow
+     Megatron-split (H = 320 -> 160 per rank) and with the fused flow, whose K1
+     takes the gathered weights, while this process runs both from the same seeds
+     alone. Parameters, step sizes and buffer priorities agree (relative 1e-5),
+     the two ranks bitwise; K1's launches per step per rank are the plain path's
+     (38 + 29); the collectives per step by axis equal the counts reckoned from the
+     code (expected_model_collectives, expected_collectives). Then one LGCP-1600
+     step on the grid through K2 on gathered weights (the buffer starts at one
+     batch, MA_LG_BUFFER_MIN): 400 launches + 360 recomputes, no more
+     prepared-weight rebuilds than phase 6's 96. (b) The wrappers: FABModel over a
+     WrappedModuleFlow around an nn.Module written here (_smoke_module) with a
+     WrappedTorchDist target (a MixtureSameFamily of GMM-40's shape on the card,
+     f64): 5 Trainer steps with gmm.yaml's Metropolis AIS, finite losses, every
+     tensor on the card, and one more step under the sync check.
   The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
   fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
   6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
@@ -1763,7 +1780,7 @@ def expected_collectives(n_dists: int, n_outer: int, n_replay: int) -> dict:
     return terms
 
 
-def _manywell_trainer(device, seed: int):
+def _manywell_trainer(device, seed: int, fused: bool = True, dtype=None):
     from fab_tpu_torch.buffer import PrioritisedReplayBuffer
     from fab_tpu_torch.flows import make_realnvp
     from fab_tpu_torch.model import FABModel
@@ -1773,7 +1790,7 @@ def _manywell_trainer(device, seed: int):
 
     import torch
 
-    flow = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=True,
+    flow = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=fused,
                         generator=torch.Generator(device=device).manual_seed(seed),
                         device=device)
     model = FABModel.create(
@@ -1786,7 +1803,7 @@ def _manywell_trainer(device, seed: int):
                                      min_sample_length=MW_BATCH * 4, batch_size=MW_BATCH)
     return PrioritisedBufferTrainer(model, make_optimizer(3e-4, 100.0), buffer,
                                     n_batches_buffer_sampling=8, w_adjust_max_clip=10.0,
-                                    device=device)
+                                    device=device, dtype=dtype or torch.float32)
 
 
 def _clone_state(state):
@@ -1807,28 +1824,39 @@ def _clone_state(state):
 
 
 def _state_diff(trainer_a, state_a, trainer_b, state_b) -> dict:
-    """Largest relative differences of two trainers' flows, step sizes and buffer
-    priorities (finite patterns must match), and whether all are bitwise equal."""
+    """``_summary_diff`` of two trainers' states."""
+    return _summary_diff(_flow_summary(trainer_a, state_a), _flow_summary(trainer_b, state_b))
+
+
+def _flow_summary(trainer, state) -> dict:
+    """The flow (split parameters gathered), step sizes, buffer priorities and cursor
+    on the host."""
+    from fab_tpu_torch.parallel.tensor import gather_state
+
+    flow = trainer.model.flow
+    return {"flow": {k: v.cpu() for k, v in gather_state(flow, flow.state_dict()).items()},
+            "transition": {k: v.cpu() for k, v in state.transition_state.items()},
+            "log_w": state.buffer_state.log_w.cpu(),
+            "cursor": (int(state.buffer_state.cursor), int(state.buffer_state.n_added))}
+
+
+def _summary_diff(a: dict, b: dict) -> dict:
+    """Largest relative differences of two ``_flow_summary``s' flows, step sizes and
+    buffer priorities (finite patterns and cursors must match), and whether all are
+    bitwise equal."""
     import torch
 
-    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-    params = max(rel(a, b) for a, b in zip(trainer_a.model.flow.state_dict().values(),
-                                            trainer_b.model.flow.state_dict().values()))
-    steps = max(rel(state_a.transition_state[k], state_b.transition_state[k])
-                for k in ("epsilons", "common_epsilon"))
-    lw_a, lw_b = state_a.buffer_state.log_w, state_b.buffer_state.log_w
-    finite = torch.isfinite(lw_b)
-    assert torch.equal(finite, torch.isfinite(lw_a)), "buffer finite patterns differ"
-    prio = rel(lw_a[finite], lw_b[finite])
-    same = (all(torch.equal(a, b) for a, b in zip(trainer_a.model.flow.state_dict().values(),
-                                                 trainer_b.model.flow.state_dict().values()))
-            and torch.equal(torch.where(finite, lw_a, 0), torch.where(finite, lw_b, 0))
-            and all(torch.equal(state_a.transition_state[k], state_b.transition_state[k])
-                    for k in state_b.transition_state))
-    cursors = (int(state_a.buffer_state.cursor), int(state_b.buffer_state.cursor),
-               int(state_a.buffer_state.n_added), int(state_b.buffer_state.n_added))
-    assert cursors[0] == cursors[1] and cursors[2] == cursors[3], cursors
-    return {"params": params, "step_sizes": steps, "priorities": prio, "bitwise": same}
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+    finite = torch.isfinite(b["log_w"])
+    assert torch.equal(finite, torch.isfinite(a["log_w"])), "buffer finite patterns differ"
+    assert a["cursor"] == b["cursor"], (a["cursor"], b["cursor"])
+    same = (all(torch.equal(a["flow"][k], v) for k, v in b["flow"].items())
+            and torch.equal(torch.where(finite, a["log_w"], 0), torch.where(finite, b["log_w"], 0))
+            and all(torch.equal(a["transition"][k], v) for k, v in b["transition"].items()))
+    return {"params": max(rel(a["flow"][k], v) for k, v in b["flow"].items()),
+            "step_sizes": max(rel(a["transition"][k], b["transition"][k])
+                              for k in ("epsilons", "common_epsilon")),
+            "priorities": rel(a["log_w"][finite], b["log_w"][finite]), "bitwise": same}
 
 
 def _dir_bytes(path) -> int:
@@ -2048,8 +2076,350 @@ def _launcher_run(device, card, tmp) -> float:
     return took
 
 
+# ------------------------------------------------------------------ phase 15
+# The model axis on one card: a (1, 2) grid of two processes over gloo (NCCL refuses
+# two ranks on one device; gloo carries the CUDA tensors through the host). Each
+# rank runs ManyWell-32 (phase 3's widths) on the plain flow, Megatron-split, and on
+# the fused flow, whose K1 takes the gathered weights, then one LGCP-1600 step
+# through K2 on gathered weights. The LGCP buffer starts at one batch (lgcp.yaml's
+# 4096 rows cut to 512: the fill is not what this phase measures).
+MA_STEPS = 3
+MA_LG_BUFFER_MIN = LG_BATCH
+# Both flows run in many_well.yaml's float64 (K1 still computes in f32 inside and
+# casts back). In f32 the grid ends off one process after 3 steps on the card: the
+# Megatron-split plain flow by 1.56e-3 (relative) on the parameters, the fused flow
+# by 3.3e-4 (bitwise equal with the clip off: the clip's norm sums the shards'
+# squares in another order). The first updates after the zero-initialised last
+# layers leave gradients that cancel to within rounding, and Adam's early steps move
+# a parameter by about +-lr whatever its gradient's size, so one rounding flips a
+# sign and moves a parameter by 2 lr. In f64 the rounding is too small for that.
+MA_DTYPE = "float64"
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+
+
+def expected_model_collectives(fused: bool, n_layers: int, n_dists: int, n_leapfrog: int,
+                               n_replay: int) -> dict:
+    """Model-axis collectives of one ManyWell PrioritisedBufferTrainer step on a
+    (1, 2) grid, reckoned from the code. Flow passes per step: the AIS pass's flow
+    sample, its initial gradient and one per leapfrog step (2 + n_dists n_leapfrog),
+    and per replay batch a probe and a differentiated pass; n_replay updates, each
+    with a global norm for the guard and one for the clip (an all-reduce each,
+    summing the split tensors' squares). The fused flow gathers w1, b1 and w2 once per
+    pass (3 all-gathers) and its backward gathers nothing; the plain flow reduces
+    each coupling's row-split product forward (n_layers per pass) and, backward,
+    each coupling's input gradient in every differentiated pass: the AIS gradient
+    passes (1 + n_dists n_leapfrog) and the replay passes (n_replay; in the density
+    direction an LU layer's parameters come before every coupling, so even the first
+    coupling's input needs a gradient)."""
+    passes = 2 + n_dists * n_leapfrog + 2 * n_replay
+    norms = 2 * n_replay
+    if fused:
+        return {"all_gather": 3 * passes, "all_reduce": norms}
+    backward = (1 + n_dists * n_leapfrog + n_replay) * n_layers
+    return {"all_gather": 0, "all_reduce": passes * n_layers + backward + norms}
+
+
+def _model_axis_run(device, fused: bool) -> dict:
+    """ManyWell-32 on the active mesh (or one process without one): init_state and
+    MA_STEPS steps from fixed seeds, in MA_DTYPE; K1 counts, collectives by axis
+    and the logged grad norm per step."""
+    import torch
+
+    from fab_tpu_torch.parallel import mesh
+
+    trainer = _manywell_trainer(device, 1, fused=fused, dtype=getattr(torch, MA_DTYPE))
+    _zero_counts()
+    mesh.COUNTS.clear()
+    t0 = time.time()
+    state = trainer.init_state(torch.Generator(device=device).manual_seed(3),
+                               batch_size=MW_BATCH)
+    _sync(device)
+    out = {"init_s": time.time() - t0, "init_counts": _counts(),
+           "init_collectives": sorted(mesh.COUNTS.items()), "ms": [], "per_step": [],
+           "collectives": [], "grad_norm": []}
+    gen = torch.Generator(device=device).manual_seed(4)
+    for _ in range(MA_STEPS):
+        before, collectives = _counts(), mesh.COUNTS.copy()
+        t0 = time.time()
+        state, info = trainer.train_step(state, gen, MW_BATCH)
+        _sync(device)
+        out["ms"].append((time.time() - t0) * 1e3)
+        out["per_step"].append({k: v - before[k] for k, v in _counts().items()})
+        out["collectives"].append({"/".join(k): v - collectives[k]
+                                   for k, v in mesh.COUNTS.items() if v - collectives[k]})
+        assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0
+        out["grad_norm"].append(float(info["grad_norm"]))
+    out["summary"] = _flow_summary(trainer, state)
+    return out
+
+
+def _model_axis_lgcp(device) -> dict:
+    """One LGCP-1600 step (K2 on gathered weights) after init_state from a buffer of
+    one batch: K2 launches, recomputes and prepared-weight rebuilds per step."""
+    import torch
+
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.flows import make_realnvp
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import HamiltonianMonteCarlo
+    from fab_tpu_torch.targets import LogGaussianCoxProcess
+    from fab_tpu_torch.train import PrioritisedBufferTrainer, make_optimizer
+
+    dim = LG_GRID * LG_GRID
+    gen = torch.Generator(device=device).manual_seed(5)
+    flow = make_realnvp(dim, LG_LAYERS, LG_NODES, scale_cap=LG_CAP, fused_coupling=True,
+                        generator=gen, device=device)
+    model = FABModel.create(
+        flow, LogGaussianCoxProcess(grid_size=LG_GRID, device=device),
+        transition_operator=HamiltonianMonteCarlo(
+            n_ais_intermediate_distributions=LG_DISTS, n_outer=1, n_leapfrog=LG_LEAPFROG,
+            epsilon=LG_EPS, target_p_accept=0.65),
+        n_intermediate_distributions=LG_DISTS, alpha=2.0, loss_type="fab_alpha_div")
+    trainer = PrioritisedBufferTrainer(
+        model, make_optimizer(LG_LR, 100.0),
+        PrioritisedReplayBuffer(dim=dim, max_length=LG_BUFFER, min_sample_length=MA_LG_BUFFER_MIN,
+                                batch_size=LG_BATCH),
+        n_batches_buffer_sampling=LG_REPLAY, w_adjust_max_clip=10.0, device=device)
+    state = trainer.init_state(gen, batch_size=LG_BATCH)
+    _zero_counts()
+    t0 = time.time()
+    state, info = trainer.train_step(state, gen, LG_BATCH)
+    _sync(device)
+    assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0
+    return {"step_ms": (time.time() - t0) * 1e3, "counts": _counts(),
+            "n_valid": int(info["n_valid"])}
+
+
+def model_axis_worker(argv) -> int:
+    """One rank of phase 15(a): ``--model-axis-rank <rank> <port> <out> <json>`` (the
+    json: device and the parent's shapes)."""
+    import torch
+
+    from fab_tpu_torch.parallel import distributed, mesh
+
+    rank, port, out, cfg = int(argv[0]), int(argv[1]), argv[2], json.loads(argv[3])
+    globals().update(cfg["shapes"])
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(cfg["device"])
+    assert distributed.initialize(device, init_method=f"tcp://127.0.0.1:{port}",
+                                  world_size=2, rank=rank, backend="gloo")
+    try:
+        grid = mesh.make_mesh(1, 2)
+        mesh.activate_mesh(grid)
+        result = {"plain": _model_axis_run(device, False),
+                  "fused": _model_axis_run(device, True),
+                  "lgcp": _model_axis_lgcp(device)}
+    finally:
+        distributed.shutdown()
+    torch.save(result, out)
+    return 0
+
+
+def model_axis_path(device, card, tmp) -> dict:
+    """Phase 15(a): two ranks of a (1, 2) grid over gloo on the card against one
+    process from the same seeds; K1 and K2 on gathered weights."""
+    import torch
+
+    t_phase = time.time()
+    port, procs = _free_port(), []
+    shapes = {k: globals()[k] for k in ("MW_DIM", "MW_LAYERS", "MW_NODES", "MW_BATCH",
+                                         "LG_GRID", "LG_LAYERS", "LG_NODES", "LG_BATCH",
+                                         "MA_LG_BUFFER_MIN")}
+    cfg = json.dumps({"device": str(device), "shapes": shapes})
+    root = os.path.dirname(os.path.abspath(__file__))
+    for rank in range(2):
+        log = open(os.path.join(tmp, f"model_axis_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--model-axis-rank", str(rank),
+             str(port), os.path.join(tmp, f"model_axis_rank{rank}.pt"), cfg],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=log,
+            stderr=subprocess.STDOUT), log))
+    try:
+        reference = {kind: _model_axis_run(device, kind == "fused")
+                     for kind in ("plain", "fused")}
+        for proc, _ in procs:
+            proc.wait(timeout=600)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, log) in enumerate(procs):
+        with open(log.name) as f:
+            text = f.read()
+        assert proc.returncode == 0, f"model-axis rank {rank} failed:\n{text[-6000:]}"
+    ranks = [torch.load(os.path.join(tmp, f"model_axis_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    out = {"phase_s": None}
+    for kind in ("plain", "fused"):
+        mine, ref = ranks[0][kind], reference[kind]
+        assert _summary_diff(ranks[1][kind]["summary"], mine["summary"])["bitwise"]
+        diff = _summary_diff(mine["summary"], ref["summary"])
+        expect = expected_model_collectives(kind == "fused", MW_LAYERS, 4, 5, 8)
+        data = expected_collectives(4, 1, 8)["total"]
+        k1 = [(p["k1"], p["k1_recomputes"]) for p in mine["per_step"]]
+        dtype = MA_DTYPE.replace("float", "f")
+        print(f"[{card}] phase 15(a) ManyWell-32 {kind} flow ({dtype}) on a (1, 2) grid (gloo, "
+              f"2 ranks on one card) vs one process: init_state {mine['init_s']:.1f} / "
+              f"{ref['init_s']:.1f} s, steps {', '.join(f'{t:.1f}' for t in mine['ms'])} / "
+              f"{', '.join(f'{t:.1f}' for t in ref['ms'])} ms; after {MA_STEPS} steps max "
+              f"relative difference, parameters {diff['params']:.3e}, step sizes "
+              f"{diff['step_sizes']:.3e}, buffer priorities {diff['priorities']:.3e} "
+              f"(tolerance 1e-5; bitwise {diff['bitwise']}); K1 per step per rank {k1}; logged "
+              f"grad_norm {mine['grad_norm']} / {ref['grad_norm']}")
+        print(f"[{card}] phase 15(a) {kind}: collectives per step "
+              f"{mine['collectives'][0]} counted; reckoned from the code: model {expect}, "
+              f"data {data} (expected_model_collectives, expected_collectives)")
+        assert max(diff["params"], diff["step_sizes"], diff["priorities"]) <= 1e-5, (kind, diff)
+        assert all(abs(a - b) <= 1e-5 * max(abs(b), 1e-30)
+                   for a, b in zip(mine["grad_norm"], ref["grad_norm"])), "grad_norm differs"
+        for step in mine["collectives"]:
+            by_axis = {k.split("/")[1]: v for k, v in step.items() if k.startswith("model/")}
+            assert by_axis == {k: v for k, v in expect.items() if v}, (kind, step, expect)
+            assert sum(v for k, v in step.items() if k.startswith("data/")) == data, step
+        # The plain path's 38 + 29 (on the CPU the plain version of K1 runs, uncounted).
+        want = {"plain": (0, 0), "fused": (38 if device.type == "cuda" else 0, 29)}[kind]
+        assert all(c == want for c in k1), (kind, k1)
+        assert [(p["k1"], p["k1_recomputes"]) for p in ref["per_step"]] == k1
+        out[kind] = {"init_s": mine["init_s"], "ms": mine["ms"], "ref_ms": ref["ms"],
+                     "diff": diff, "k1_per_step": k1, "collectives": mine["collectives"][0]}
+    lgcp = ranks[0]["lgcp"]
+    assert ranks[1]["lgcp"]["counts"] == lgcp["counts"]
+    counts = lgcp["counts"]
+    if device.type == "cuda":
+        assert (counts["k2"], counts["k2_recomputes"]) == (400, 360), counts
+        assert counts["k2_rebuilds"] <= 96, counts
+    print(f"[{card}] phase 15(a) LGCP-1600 step on the (1, 2) grid, K2 on gathered weights: "
+          f"{lgcp['step_ms']:.1f} ms, n_valid {lgcp['n_valid']}, K2 {counts['k2']} launches + "
+          f"{counts['k2_recomputes']} recomputes, {counts['k2_rebuilds']} prepared-weight "
+          "rebuilds per rank (phase 6: 400 + 360, 96 per step)")
+    out["lgcp"] = {"step_ms": lgcp["step_ms"], "counts": counts}
+    out["phase_s"] = time.time() - t_phase
+    return out
+
+
+def _smoke_module(dim, device):
+    """An external flow module, written here and not from the port's flows: a
+    trainable diagonal Gaussian under two affine couplings whose conditioners are
+    ``nn.Sequential`` MLPs (1-64-2, last layer zero), with
+    ``sample_and_log_prob(generator, n)`` and ``log_prob(x)``."""
+    import torch
+    from torch import nn
+
+    from fab_tpu_torch import random
+
+    class CouplingPair(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.loc = nn.Parameter(torch.zeros(dim, device=device))
+            self.log_scale = nn.Parameter(torch.zeros(dim, device=device))
+            self.nets = nn.ModuleList(
+                nn.Sequential(nn.Linear(dim // 2, 64), nn.ReLU(), nn.Linear(64, 2 * (dim // 2)))
+                for _ in range(2)).to(device)
+            for net in self.nets:
+                nn.init.zeros_(net[-1].weight)
+                nn.init.zeros_(net[-1].bias)
+
+        def _couple(self, x, i, inverse):
+            h = dim // 2
+            cond, trans = (x[:, :h], x[:, h:]) if i == 0 else (x[:, h:], x[:, :h])
+            shift, log_s = self.nets[i](cond).chunk(2, -1)
+            log_s = torch.tanh(log_s)
+            trans = (trans - shift) * torch.exp(-log_s) if inverse else trans * torch.exp(log_s) + shift
+            y = torch.cat([cond, trans] if i == 0 else [trans, cond], -1)
+            return y, (-1 if inverse else 1) * log_s.sum(-1)
+
+        def _base_log_prob(self, eps):
+            return (-0.5 * eps ** 2 - 0.5 * math.log(2 * math.pi)).sum(-1) - self.log_scale.sum()
+
+        def sample_and_log_prob(self, generator, n):
+            eps = random.normal(generator, (n, dim), self.loc.dtype, self.loc.device)
+            x, log_q = self.loc + torch.exp(self.log_scale) * eps, self._base_log_prob(eps)
+            for i in range(2):
+                x, log_det = self._couple(x, i, False)
+                log_q = log_q - log_det
+            return x, log_q
+
+        def log_prob(self, x):
+            log_det = 0.0
+            for i in (1, 0):
+                x, ld = self._couple(x, i, True)
+                log_det = log_det + ld
+            return self._base_log_prob((x - self.loc) * torch.exp(-self.log_scale)) + log_det
+
+    return CouplingPair()
+
+
+def wrappers_path(device, card) -> dict:
+    """Phase 15(b): FABModel over a WrappedModuleFlow (``_smoke_module``) and a
+    WrappedTorchDist target (a MixtureSameFamily of GMM-40's 40 components in 2-D,
+    gmm.yaml's loc and variance scaling, on the card, f64): 5 Trainer steps with
+    Metropolis AIS as gmm.yaml, finite losses and every tensor on the card; one more
+    under CUDA's sync check on "error"."""
+    import torch
+
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import Metropolis
+    from fab_tpu_torch.targets import GMM
+    from fab_tpu_torch.train import Trainer, make_optimizer
+    from fab_tpu_torch.wrappers import WrappedModuleFlow, WrappedTorchDist
+
+    t0 = time.time()
+    gmm = GMM(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0,
+              true_expectation_estimation_n_samples=1000, dtype=torch.float64, device=device)
+    dists = torch.distributions
+    mixture = dists.MixtureSameFamily(
+        dists.Categorical(logits=torch.zeros(40, dtype=torch.float64, device=device),
+                          validate_args=False),
+        dists.Independent(dists.Normal(gmm.locs, gmm.scales, validate_args=False), 1,
+                          validate_args=False), validate_args=False)
+    target = WrappedTorchDist.wrap(mixture)
+    flow = WrappedModuleFlow(_smoke_module(2, device), 2)
+    model = FABModel.create(
+        flow, target, transition_operator=Metropolis(
+            n_ais_intermediate_distributions=1, n_updates=1, max_step_size=5.0,
+            min_step_size=5.0, adjust_step_size=False, target_p_accept=0.65),
+        n_intermediate_distributions=1, alpha=2.0, loss_type="fab_alpha_div")
+    trainer = Trainer(model, make_optimizer(1e-4, 100.0), dtype=torch.float64, device=device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    _zero_counts()
+    state = trainer.init_state(gen)
+    losses = []
+    for _ in range(N_STEPS):
+        state, info = trainer.train_step(state, gen, 128)
+        losses.append(float(info["loss"]))
+    assert all(math.isfinite(v) for v in losses), losses
+    tensors = list(flow.parameters()) + list(state.transition_state.values()) + [
+        v for v in info.values() if torch.is_tensor(v)]
+    assert all(t.device.type == device.type for t in tensors), "a tensor left the card"
+    sample = target.sample(256, gen)
+    assert sample.device.type == device.type and sample.shape == (256, 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, info = trainer.train_step(state, gen, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert math.isfinite(float(info["loss"]))
+    assert all(v == 0 for v in _counts().values()), _counts()
+    took = time.time() - t0
+    print(f"[{card}] phase 15(b) wrappers: WrappedModuleFlow (an external nn.Module) over a "
+          f"WrappedTorchDist target (MixtureSameFamily, GMM-40 shape, f64, on the card): "
+          f"{N_STEPS} Trainer steps, losses {', '.join(f'{v:.4f}' for v in losses)}; every "
+          f"tensor on the card; one more step under the sync check, no host sync; {took:.1f} s")
+    return {"losses": losses, "s": took}
+
+
 def drive(device, gen, name, card) -> list:
-    """Phases 2-14; returns the kernel records."""
+    """Phases 2-15; returns the kernel records."""
     t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
@@ -2095,6 +2465,13 @@ def drive(device, gen, name, card) -> list:
         dp = data_parallel_path(device, card, tmp)
         phase_s["14 data parallel"] = time.time() - t0
 
+        # ------------------------------------------------ 15. model axis, wrappers
+        t15 = time.time()
+        ma = model_axis_path(device, card, tmp)
+        wrappers_path(device, card)
+        phase_s["15 model axis, wrappers"] = time.time() - t0
+        print(f"[{card}] phase 15: {time.time() - t15:.1f} s")
+
     kernels = [
         {
             "name": "fused_realnvp_pass",
@@ -2135,6 +2512,20 @@ def drive(device, gen, name, card) -> list:
                 "collective_ms": dp["collective_ms"],
                 "collectives_ms_per_step": dp["collectives_ms_per_step"],
             },
+            "launches_model_axis": sum(p[0] for p in ma["fused"]["k1_per_step"]),
+            "model_axis": {
+                "grid": [1, 2], "backend": "gloo (two ranks on one card)",
+                "step_ms": ma["fused"]["ms"], "one_process_step_ms": ma["fused"]["ref_ms"],
+                "max_rel_diff_vs_one_process": {k: v for k, v in ma["fused"]["diff"].items()
+                                                if k != "bitwise"},
+                "collectives_per_step": ma["fused"]["collectives"],
+                "plain_flow": {"step_ms": ma["plain"]["ms"],
+                               "one_process_step_ms": ma["plain"]["ref_ms"],
+                               "collectives_per_step": ma["plain"]["collectives"],
+                               "max_rel_diff_vs_one_process": {
+                                   k: v for k, v in ma["plain"]["diff"].items()
+                                   if k != "bitwise"}},
+            },
         },
         {
             "name": "fused_coupling_apply",
@@ -2164,6 +2555,10 @@ def drive(device, gen, name, card) -> list:
             "rebuilds_per_step": lg["rebuilds_per_step"],
             "rebuild_ms_per_coupling": k2_rebuild,
             "launches_evaluation": tools["eval"]["k2_launches"],
+            "launches_model_axis": ma["lgcp"]["counts"]["k2"],
+            "model_axis": {"grid": [1, 2], "step_ms": ma["lgcp"]["step_ms"],
+                           "rebuilds_per_step": ma["lgcp"]["counts"]["k2_rebuilds"],
+                           "recomputes_per_step": ma["lgcp"]["counts"]["k2_recomputes"]},
         },
     ]
     print(f"[{card}] GMM-40 runner path (no kernel): median step {gmm['steady_ms']:.1f} ms, "
@@ -2195,6 +2590,8 @@ def drive(device, gen, name, card) -> list:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        return model_axis_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1

@@ -15,7 +15,8 @@ is the newest).
 Every method returns a new state and leaves its argument untouched.
 
 **Sharded rows.** Under a data mesh of n ranks (``parallel/mesh.py``) each rank holds
-L / n of the L slots; ``cursor`` and ``n_added`` stay global (replicated). Slot
+L / n of the L slots (r below is the rank's data index; the ranks of one model group
+hold equal shards, and every collective here runs over the data group); ``cursor`` and ``n_added`` stay global (replicated). Slot
 indices handed out (``sample``'s indices, ``adjust``'s) are the one-process slots.
 With B the rows of each add (``batch_size``) and b = B / n, global slot
 g = q B + r b + i (0 <= i < b) lives on rank r at local slot m = q b + i. Rank r
@@ -64,7 +65,7 @@ class _ShardedSlots:
     """The slot layout of one buffer on the active mesh (see the module docstring)."""
 
     def __init__(self, buffer, mesh):
-        self.n, self.rank = mesh.n_data, mesh.rank
+        self.n, self.rank = mesh.n_data, mesh.data_index
         self.length = buffer.max_length
         if self.n > 1:
             B = buffer.batch_size

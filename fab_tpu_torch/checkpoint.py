@@ -18,7 +18,10 @@ The sharded backend (``fab_tpu``'s orbax pair) is ``save_checkpoint_dcp`` /
 rank writing its shards of ``DTensor`` leaves and replicated tensors written once;
 loading re-shards onto the current world size. No runner uses it by default.
 ``buffer_blocks`` lays a replay buffer's slots out for it so that they re-shard
-across world sizes.
+across world sizes; ``model_split`` makes parameters split over a model axis
+DTensors, so they re-shard across mesh shapes too. The DTensors live on the 2-D
+(data, model) device mesh: buffer blocks ``Shard(1)`` over data and replicated over
+model, split parameters replicated over data and ``Shard(dim)`` over model.
 """
 from __future__ import annotations
 
@@ -167,12 +170,33 @@ def buffer_blocks(buffer, state) -> Dict[str, torch.Tensor]:
             continue
         blocks = value.reshape((buffer.max_length // B, -1) + tuple(value.shape[1:]))
         if active is not None:
-            from torch.distributed.tensor import DTensor, Shard
+            from torch.distributed.tensor import DTensor, Replicate, Shard
 
-            blocks = DTensor.from_local(blocks, mesh.device_mesh(), [Shard(1)],
+            blocks = DTensor.from_local(blocks, mesh.device_mesh(), [Shard(1), Replicate()],
                                         run_check=False)
         out[name] = blocks
     return out
+
+
+def model_split(flow, tree: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``tree`` (parameter name -> tensor shaped like the parameter) with every entry
+    of a parameter split over a model axis (``parallel/tensor.py``) as a DTensor
+    sharded along its split dim over the model axis; the rest as it is."""
+    from fab_tpu_torch.parallel.tensor import split_layers
+
+    split = split_layers(flow)
+    if not split:
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    return {k: DTensor.from_local(v, mesh.device_mesh(split[k][1]),
+                                  [Replicate(), Shard(split[k][0])], run_check=False)
+            if k in split else v for k, v in tree.items()}
+
+
+def to_local(value):
+    """This rank's tensor of a DTensor leaf; a plain tensor as it is."""
+    return value.to_local() if hasattr(value, "to_local") else value
 
 
 def buffer_from_blocks(buffer, state_type, blocks: Dict[str, torch.Tensor]):

@@ -8,7 +8,10 @@
 - ``buffer_state_from_jax``: a ``PrioritisedBufferState``.
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts; every tensor is a
-copy.
+copy. The ``fab_tpu`` side is always whole: given a ``flow`` whose conditioners are
+split over a model axis (``parallel/tensor.py``), ``from_jax_params`` cuts the split
+entries to this rank's shards and ``to_jax_params`` gathers them whole (a
+collective: every rank of the model group calls it).
 """
 from __future__ import annotations
 
@@ -33,13 +36,18 @@ def _mlp_state(prefix: str, mlp, device) -> Dict[str, torch.Tensor]:
     return state
 
 
-def from_jax_params(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+def from_jax_params(tree: Dict[str, Any], device=None, flow=None) -> Dict[str, torch.Tensor]:
     """State dict from ``fab_tpu``'s params of a flow or a ``DefensiveMixture``
     (``{"flow", "defensive": {loc, log_scale}, "mixture_logit"}``). A flow's base is
     a diagonal Gaussian, parameter-free (``UniformGaussianBase``) or the LARS base
     (``{"accept_net": [{w, b}, ...], "z_points"}``); its layers are AffineCoupling,
     SplineCoupling and MaskedAffineAutoregressive (an MLP each), LULinear, ActNorm,
-    or parameter-free (``PeriodicShift``, ``Permutation``, an SNF's MH layers)."""
+    or parameter-free (``PeriodicShift``, ``Permutation``, an SNF's MH layers).
+    ``flow``: cut to its shards, if it is split over a model axis."""
+    if flow is not None:
+        from fab_tpu_torch.parallel.tensor import cut_state
+
+        return cut_state(flow, from_jax_params(tree, device))
     if "mixture_logit" in tree:
         state = {f"flow.{k}": v for k, v in from_jax_params(tree["flow"], device).items()}
         for k, v in tree["defensive"].items():
@@ -73,12 +81,17 @@ def _mlp_list(layers: Dict[int, Dict[str, Any]]):
     return [layers[j] for j in sorted(layers)]
 
 
-def to_jax_params(state: Mapping[str, torch.Tensor], n_layers: int = 0) -> Dict[str, Any]:
+def to_jax_params(state: Mapping[str, torch.Tensor], n_layers: int = 0,
+                  flow=None) -> Dict[str, Any]:
     """``fab_tpu``'s params, with numpy leaves, from a port Flow's (or
     ``DefensiveMixture``'s) state dict: ``{"base": {...}, "layers": ({"mlp": [{"w",
     "b"}, ...]} | {"lower", ...}, ...)}``. A layer without parameters has no key in
     the state dict: ``n_layers`` (the flow's bijector count) gives it its empty
-    dict."""
+    dict. ``flow``: the flow ``state`` is of, whose split entries are gathered whole."""
+    if flow is not None:
+        from fab_tpu_torch.parallel.tensor import gather_state
+
+        state = gather_state(flow, state)
     if "mixture_logit" in state:
         flow = {k[len("flow."):]: v for k, v in state.items() if k.startswith("flow.")}
         return {

@@ -8,9 +8,11 @@ initialisation, and the run. Everything is built on ``device`` in the config's
 dtype (``training.use_64_bit``).
 
 The ``mesh`` section: under a launcher (one process per card, ``python3 -m
-torch.distributed.run --nproc_per_node=N -m fab_tpu_torch.experiments.run_gmm
-... mesh.n_data=N``) the run is data parallel over the N processes, ``n_data`` null
-meaning all of them. Without a launcher the run stays on its one device, as
+torch.distributed.run --nproc_per_node=<n_data * n_model> -m
+fab_tpu_torch.experiments.run_gmm ... mesh.n_data=<n_data> mesh.n_model=<n_model>``)
+the run spans an n_data x n_model grid of processes: the batch is split over
+``n_data`` and the coupling MLPs over ``n_model`` (``n_data`` null meaning the world
+size over ``n_model``). Without a launcher the run stays on its one device, as
 ``fab_tpu`` does on one chip, and says how to launch more; ``fab_tpu`` would span
 every local device, which one process of the port cannot.
 """
@@ -35,7 +37,6 @@ from fab_tpu_torch.flows import (
 from fab_tpu_torch.model import FABModel
 from fab_tpu_torch.parallel import distributed
 from fab_tpu_torch.parallel.mesh import (
-    MODEL_AXIS_NOT_PORTED,
     Mesh,
     activate_mesh,
     check_batch,
@@ -98,37 +99,47 @@ def setup_logger(cfg: ConfigDict, save_path: str):
     raise ValueError("No logger specified (pandas_logger or list_logger).")
 
 
-def launch_command(n: str = "N") -> str:
-    """The launcher command for a data mesh of ``n`` processes running this program."""
+def launch_command(n: str = "N", n_model: int = 1) -> str:
+    """The launcher command for a mesh of ``n`` data ranks (x ``n_model`` model
+    ranks) running this program."""
     spec = getattr(sys.modules.get("__main__"), "__spec__", None)
     name = getattr(spec, "name", "") or ""
     runner = name if name.startswith("fab_tpu_torch.") else "fab_tpu_torch.experiments.run_<target>"
-    return (f"python3 -m torch.distributed.run --nproc_per_node={n} -m {runner} "
-            f"--config <config> mesh.n_data={n}")
+    if n_model == 1:
+        return (f"python3 -m torch.distributed.run --nproc_per_node={n} -m {runner} "
+                f"--config <config> mesh.n_data={n}")
+    world = int(n) * n_model if n.isdigit() else f"<{n} x {n_model}>"
+    return (f"python3 -m torch.distributed.run --nproc_per_node={world} -m {runner} "
+            f"--config <config> mesh.n_data={n} mesh.n_model={n_model}")
 
 
 def setup_mesh(cfg: ConfigDict, device="cuda") -> Optional[Mesh]:
     """The ``mesh`` section. Under a launcher: join the process group (NCCL on a
-    card, gloo on the CPU), build the data mesh over it and activate it; returns it.
-    Without one: None, after one line naming the launcher command (``n_data`` above
-    1 raises: one process holds one device). ``n_model`` above 1 raises: the model
-    axis is not ported."""
+    card, gloo on the CPU), build the (data, model) grid over it (world size =
+    n_data x n_model; ``n_data`` null = world // n_model) and activate it; returns
+    it. Without one: None, after one line naming the launcher command (``n_data``
+    or ``n_model`` above 1 raises, naming it: one process holds one device)."""
     mesh_cfg = cfg.get("mesh")
     if not mesh_cfg or not mesh_cfg.get("enable", True):
         return None
-    if mesh_cfg.get("n_model", 1) != 1:
-        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
     n_data = mesh_cfg.get("n_data")
+    n_model = int(mesh_cfg.get("n_model") or 1)
     if not distributed.initialize(device):
-        if n_data not in (None, 1):
-            raise ValueError(f"mesh.n_data={n_data} needs one process per data shard: "
-                             + launch_command(str(n_data)))
+        if n_data not in (None, 1) or n_model != 1:
+            what = "data shard" if n_model == 1 else "card of the (data, model) grid"
+            raise ValueError(
+                f"mesh.n_data={n_data} mesh.n_model={n_model} needs one process per "
+                f"{what}: " + launch_command(str(n_data or 1), n_model))
         print(f"one process on {device}; for a data mesh over N cards: {launch_command()}")
         return None
-    mesh = make_mesh(n_data, 1)
+    mesh = make_mesh(n_data, n_model)
     activate_mesh(mesh)
     if distributed.is_primary():
-        print(f"data mesh over {mesh.n_data} processes on {device}")
+        if mesh.n_model == 1:
+            print(f"data mesh over {mesh.n_data} processes on {device}")
+        else:
+            print(f"(data, model) mesh of {mesh.n_data} x {mesh.n_model} processes on "
+                  f"{device}")
     return mesh
 
 

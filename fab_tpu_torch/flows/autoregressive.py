@@ -14,7 +14,7 @@ from torch import nn
 
 from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import Bijector, DiagGaussianBase, Flow
-from fab_tpu_torch.flows.mlp import Dense, mlp_init
+from fab_tpu_torch.flows.mlp import Dense, mlp_init, shard_mlp
 
 
 def made_masks(dim: int, hidden: List[int], mask_seed: int) -> List[np.ndarray]:
@@ -62,15 +62,24 @@ class MaskedAffineAutoregressive(Bijector):
         ref = self.mlp[0].w
         values = mlp_init(self.sizes, generator, zero_init_last=True, dtype=ref.dtype,
                           device=ref.device)
-        with torch.no_grad():
-            for layer, (w, b) in zip(self.mlp, values):
-                layer.w.copy_(w)
-                layer.b.copy_(b)
+        for layer, (w, b) in zip(self.mlp, values):
+            layer.assign(w, b)
+
+    def shard_model_axis(self, mesh, name: str = "MADE") -> None:
+        """``fab_tpu/flows/autoregressive.py:103-107``: the MLP's column / row split;
+        each mask is cut as its weight is (a column layer's by columns, a row layer's
+        by rows)."""
+        if self.mlp[0].split is not None:
+            return
+        shard_mlp(self.mlp, self.sizes, mesh, name)
+        for j, layer in enumerate(self.mlp):
+            mask = getattr(self, f"mask{j}")
+            self.register_buffer(f"mask{j}", layer._cut("w", mask).clone(), persistent=False)
 
     def _conditioner(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h = x
         for j, layer in enumerate(self.mlp):
-            h = h @ (layer.w * getattr(self, f"mask{j}")) + layer.b
+            h = layer.affine(h, getattr(self, f"mask{j}"))
             if j < len(self.mlp) - 1:
                 h = torch.relu(h)
         shift, log_scale = h[..., : self.dim], h[..., self.dim :]

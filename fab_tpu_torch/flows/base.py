@@ -37,6 +37,10 @@ class Bijector(nn.Module):
         """Data -> base. Returns (z, log|det J^-1|) with log-det shaped [B]."""
         raise NotImplementedError
 
+    def shard_model_axis(self, mesh, name: str = "") -> None:
+        """Split this bijector's parameters over the model axis (``fab_tpu``'s
+        ``param_sharding``); replicated by default."""
+
 
 class DiagGaussianBase(nn.Module):
     """Trainable diagonal-Gaussian base distribution (loc, log_scale)."""
@@ -123,6 +127,14 @@ class Flow(nn.Module):
         self.base.reset_parameters()
         for bij in self.bijectors:
             bij.reset_parameters(generator)
+
+    def shard_model_axis(self, mesh) -> None:
+        """Split the bijectors' conditioners over the model axis of ``mesh``
+        (``fab_tpu``'s ``Flow.param_sharding``: the base replicated); see
+        ``parallel/tensor.py:shard_flow_params``."""
+        for i, bij in enumerate(self.bijectors):
+            if isinstance(bij, Bijector):
+                bij.shard_model_axis(mesh, f"bijectors.{i}")
 
     def forward_and_log_det(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         log_det = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from fab_tpu_torch.flows.base import Bijector
-from fab_tpu_torch.flows.mlp import Dense, mlp_apply, mlp_init
+from fab_tpu_torch.flows.mlp import Dense, mlp_apply, mlp_init, shard_mlp
 
 
 class AffineCoupling(Bijector):
@@ -54,10 +54,12 @@ class AffineCoupling(Bijector):
             self.sizes, generator, zero_init_last=True, dtype=ref.dtype,
             device=ref.device, init_mode=self.init_mode,
         )
-        with torch.no_grad():
-            for layer, (w, b) in zip(self.mlp, values):
-                layer.w.copy_(w)
-                layer.b.copy_(b)
+        for layer, (w, b) in zip(self.mlp, values):
+            layer.assign(w, b)
+
+    def shard_model_axis(self, mesh, name: str = "coupling") -> None:
+        """``fab_tpu/flows/coupling.py:92-97``: the MLP's column / row split."""
+        shard_mlp(self.mlp, self.sizes, mesh, name)
 
     def _split(self, x: torch.Tensor):
         d = (self.dim + 1) // 2

@@ -7,6 +7,13 @@ or W^-1 from the LU factors) outside the autograd Function, so LU parameters get
 gradients through ordinary autograd. The Function's forward is the kernel; its
 backward recomputes the chain with PyTorch ops and returns the VJP, as ``_fused_bwd``
 does in JAX (there is no backward kernel on the TPU either).
+
+Under a model mesh the couplings hold shards of w1, b1 (columns) and w2 (rows);
+``_stack_params`` stacks the shards and gathers each stack whole over the model
+group (``parallel/tensor.py:gather_shards``, three all-gathers per pass), so K1
+runs the whole chain on this rank's rows, as XLA all-gathers ``fab_tpu``'s split
+parameters before its ``pallas_call``. The gradients flow back to the shards as
+their slices.
 """
 from __future__ import annotations
 
@@ -21,18 +28,24 @@ from fab_tpu_torch.ops.realnvp_kernel import (
     fused_realnvp_pass,
     fused_realnvp_pass_reference,
 )
+from fab_tpu_torch.parallel.tensor import gather_shards
 
 _KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wlin", "lu_ld")
 
 
 def _stack_params(flow: Flow, inverse: bool) -> Dict[str, torch.Tensor]:
-    """Per-layer parameters -> the kernel's stacked operands."""
+    """Per-layer parameters -> the kernel's stacked operands (split ones gathered
+    whole)."""
     couplings = flow.bijectors[0::2]
     lus = flow.bijectors[1::2]
     stacked = {}
     for i, name in enumerate(("1", "2", "3")):
-        stacked["w" + name] = torch.stack([c.mlp[i].w for c in couplings])
-        stacked["b" + name] = torch.stack([c.mlp[i].b for c in couplings])
+        dims = couplings[0].mlp[i].split_dims()
+        for key in ("w", "b"):
+            value = torch.stack([getattr(c.mlp[i], key) for c in couplings])
+            if key in dims:
+                value = gather_shards(value, dims[key] + 1, couplings[0].mlp[i].mesh)
+            stacked[key + name] = value
     stacked["wlin"] = torch.stack([lu_weight(lu, inverse) for lu in lus])
     stacked["lu_ld"] = torch.stack([lu.log_s.sum()[None] for lu in lus])
     return stacked

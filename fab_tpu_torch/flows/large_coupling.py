@@ -13,6 +13,13 @@ tensors) when the conditioner has 2 hidden layers, its width is a multiple of 12
 and the input is float32; anything else (an f64 input, say) takes AffineCoupling's
 plain path. There is no batch-tile gate: the kernel masks a ragged last tile. An
 input [..., D] is flattened to one [N, D] call and reshaped back.
+
+Under a model mesh the conditioner is split as ``fab_tpu``'s spec says (w1, b1 by
+columns, w2 by rows, the padded last layer replicated). K2 takes whole weights:
+``GatheredWeights`` keeps each split weight whole in a buffer that is gathered
+again only when its shard changes, so K2's prepared copies are rebuilt once per
+update, as without a split; the gradients go back to the shards as their slices.
+The plain path (an f64 input) runs the split MLP itself.
 """
 from __future__ import annotations
 
@@ -22,11 +29,24 @@ import torch
 
 from fab_tpu_torch.flows.coupling import AffineCoupling
 from fab_tpu_torch.ops.coupling_kernel import FusedCoupling, _round128
+from fab_tpu_torch.parallel.tensor import GatheredWeights
 
 
 class LargeFusedCoupling(AffineCoupling):
+    _gathered = None
+
     def _out_width(self) -> int:
         return _round128(2 * self.d_trans)
+
+    def shard_model_axis(self, mesh, name: str = "large coupling") -> None:
+        super().shard_model_axis(mesh, name)
+        specs = []
+        for layer in self.mlp:
+            dims = layer.split_dims()
+            specs += [None if dims.get(k) is None else (dims[k], layer.mesh)
+                      for k in ("w", "b")]
+        if any(specs):
+            self._gathered = GatheredWeights(specs)
 
     def _kernel_ok(self, z: torch.Tensor) -> bool:
         return (
@@ -42,6 +62,7 @@ class LargeFusedCoupling(AffineCoupling):
         y_trans, log_det = FusedCoupling.apply(
             self.scale_cap, inverse, z_cond.contiguous(), z_trans.contiguous(),
             l1.w, l1.b, l2.w, l2.b, l3.w, l3.b,
+            *(() if self._gathered is None else (self._gathered,)),
         )
         return (
             self._merge(z_cond, y_trans).reshape(z.shape),

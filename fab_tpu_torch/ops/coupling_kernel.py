@@ -279,22 +279,28 @@ fused_coupling_apply.launches = 0
 
 
 class FusedCoupling(torch.autograd.Function):
-    """K2 forward; backward by recomputing the plain version under autograd."""
+    """K2 forward; backward by recomputing the plain version under autograd.
+
+    ``gather`` (optional, last): a ``parallel.tensor.GatheredWeights`` for weights
+    split over a model axis. The kernel and the recompute then take the whole
+    weights, and the weights' gradients go back as this rank's slices."""
 
     recomputes = 0
 
     @staticmethod
-    def forward(ctx, scale_cap, inverse, z_cond, z_trans, w1, b1, w2, b2, w3p, b3p):
-        ctx.scale_cap, ctx.inverse = scale_cap, inverse
-        ctx.save_for_backward(z_cond, z_trans, w1, b1, w2, b2, w3p, b3p)
-        return fused_coupling_apply(
-            z_cond, z_trans, w1, b1, w2, b2, w3p, b3p, scale_cap, inverse
-        )
+    def forward(ctx, scale_cap, inverse, z_cond, z_trans, w1, b1, w2, b2, w3p, b3p,
+                gather=None):
+        ctx.scale_cap, ctx.inverse, ctx.gather = scale_cap, inverse, gather
+        weights = (w1, b1, w2, b2, w3p, b3p)
+        if gather is not None:
+            weights = gather.whole(weights)
+        ctx.save_for_backward(z_cond, z_trans, *weights)
+        return fused_coupling_apply(z_cond, z_trans, *weights, scale_cap, inverse)
 
     @staticmethod
     def backward(ctx, grad_y, grad_ld):
         FusedCoupling.recomputes += 1
-        needs = ctx.needs_input_grad[2:]
+        needs = ctx.needs_input_grad[2:10]
         with torch.enable_grad():
             inputs = [
                 t.detach().requires_grad_(need)
@@ -305,7 +311,10 @@ class FusedCoupling(torch.autograd.Function):
             grads = iter(
                 torch.autograd.grad((y, ld), wanted, (grad_y, grad_ld), allow_unused=True)
             )
-        return (None, None, *(next(grads) if need else None for need in needs))
+        grads = [next(grads) if need else None for need in needs]
+        if ctx.gather is not None:
+            grads = grads[:2] + ctx.gather.own(grads[2:])
+        return (None, None, *grads) + ((None,) if ctx.gather is not None else ())
 
 
 def pad_cols(w3: torch.Tensor, b3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

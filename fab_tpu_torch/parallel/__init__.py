@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed`` (``fab_tpu/parallel/``): process-group
-set-up (``distributed``) and the data mesh with its collectives (``mesh``)."""
+"""Parallelism over ``torch.distributed`` (``fab_tpu/parallel/``): process-group set-up
+(``distributed``), the (data, model) mesh with its collectives (``mesh``) and the
+model axis's split layers (``tensor``)."""
 from fab_tpu_torch.parallel.distributed import initialize, is_primary, n_hosts, shutdown
 from fab_tpu_torch.parallel.mesh import (
     DATA_AXIS,

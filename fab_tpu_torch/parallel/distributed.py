@@ -7,7 +7,9 @@ per card, started by a launcher (``python3 -m torch.distributed.run
 (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) or from
 ``fab_tpu``'s (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
 ``JAX_PROCESS_ID``). The backend follows the device: NCCL for CUDA, gloo for the
-CPU, and nothing else. A set-up that fails raises; there is no switch to another
+CPU, unless the caller names one: gloo on a CUDA device carries the cards' tensors
+through the host, the one way to run several ranks on one card (NCCL refuses two
+ranks on one device). A set-up that fails raises; there is no switch to another
 backend.
 
 Only the primary process (rank 0) writes logs, checkpoints and plots
@@ -59,14 +61,15 @@ def launcher_env() -> Optional[dict]:
 
 def initialize(device="cuda", init_method: Optional[str] = None,
                world_size: Optional[int] = None, rank: Optional[int] = None,
-               timeout: datetime.timedelta = TIMEOUT) -> bool:
+               timeout: datetime.timedelta = TIMEOUT, backend: Optional[str] = None) -> bool:
     """Join the process group; True if this process is one of several launched
     together (or the group already exists), False (and nothing done) otherwise.
 
     ``init_method``, ``world_size`` and ``rank`` default to the launcher's variables
     (``launcher_env``). On a CUDA device the backend is NCCL on
-    ``cuda:<local rank>``; on the CPU it is gloo. A collective that waits longer
-    than ``timeout`` for its peers raises.
+    ``cuda:<local rank>``; on the CPU it is gloo; ``backend="gloo"`` on a CUDA
+    device takes gloo there too. A collective that waits longer than ``timeout`` for
+    its peers raises.
     """
     if dist.is_initialized():
         return True
@@ -80,11 +83,16 @@ def initialize(device="cuda", init_method: Optional[str] = None,
         rank=rank if rank is not None else env["rank"],
         timeout=timeout,
     )
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"no process-group backend {backend!r}: nccl or gloo")
     if device.type == "cuda":
         index = device.index if device.index is not None else env.get("local_rank", 0)
         torch.cuda.set_device(index)
-        dist.init_process_group("nccl", device_id=torch.device("cuda", index), **kwargs)
-    elif device.type == "cpu":
+        if backend == "gloo":
+            dist.init_process_group("gloo", **kwargs)
+        else:
+            dist.init_process_group("nccl", device_id=torch.device("cuda", index), **kwargs)
+    elif device.type == "cpu" and backend in (None, "gloo"):
         dist.init_process_group("gloo", **kwargs)
     else:
         raise ValueError(f"no process-group backend for device {device}")

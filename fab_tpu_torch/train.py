@@ -24,6 +24,17 @@ step. Info means, extremes and the log-weight clip are global; checkpoints hold 
 buffer in the one-process layout (gathered on save, scattered on load), written by
 rank 0 only, which also alone plots; every rank evaluates (evaluation has
 collectives).
+
+**Model axis.** Under a mesh with ``n_model > 1`` ``init_state`` splits the flow's
+conditioners over the model group (``parallel/tensor.py:shard_flow_params``, as
+``fab_tpu``'s trainers call its ``shard_flow_params``). The gradient bucket is summed
+over the data group only (the ranks of a model group hold the same rows); Adam's
+moments are shaped like the shards; the guard's and the clip's global norm add the
+split tensors' squares over the model group and count replicated ones once, so the
+logged ``grad_norm`` is one process's. Checkpoints keep the one-process layout:
+split parameters and moments are gathered on save and cut on load; DCP saves them
+as DTensors sharded over the model axis. With a model-split flow every rank runs
+the plotter (a flow pass needs its model group), and rank 0 alone saves the figures.
 """
 from __future__ import annotations
 
@@ -50,7 +61,9 @@ from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.flows.base import flow_log_prob, log_q_noise
 from fab_tpu_torch.model import FABModel, format_transition_info
 from fab_tpu_torch.parallel import mesh
+from fab_tpu_torch.parallel import tensor as model_axis
 from fab_tpu_torch.parallel.distributed import is_primary
+from fab_tpu_torch.parallel.tensor import global_norm
 from fab_tpu_torch.utils.logging import ListLogger, Logger
 from fab_tpu_torch.utils.plotting import pyplot
 
@@ -59,10 +72,6 @@ class AdamState(NamedTuple):
     count: torch.Tensor  # int32 scalar
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
-
-
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
 # The pieces take the integer update count and keep the dtypes fab_tpu's schedules
@@ -179,10 +188,12 @@ class ClippedAdam:
         return self.lr(count) if isinstance(self.lr, LRSchedule) else self.lr
 
     def update(
-        self, grads: Sequence[torch.Tensor], state: AdamState
+        self, grads: Sequence[torch.Tensor], state: AdamState,
+        split: Optional[Sequence[bool]] = None, model_mesh=None,
     ) -> Tuple[List[torch.Tensor], AdamState]:
+        """Adam's step on ``grads``; ``split`` / ``model_mesh`` as ``global_norm``'s."""
         if self.max_gradient_norm is not None:
-            g_norm = global_norm(grads)
+            g_norm = global_norm(grads, split, model_mesh)
             trigger = g_norm < self.max_gradient_norm
             grads = [
                 torch.where(trigger, g, g / g_norm * self.max_gradient_norm) for g in grads
@@ -250,8 +261,11 @@ def _all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def all_reduce_gradients(grads: Sequence[torch.Tensor], loss: torch.Tensor):
-    """Every rank's gradients and loss share summed, as one flattened bucket (one
-    collective per update); returns (grads, loss) over the global batch."""
+    """Every data rank's gradients and loss share summed over the data group, as one
+    flattened bucket (one collective per update); returns (grads, loss) over the
+    global batch. Split parameters' gradients are this rank's shards: the ranks of
+    its model group hold the other shards of the same rows, so nothing is summed
+    over the model axis."""
     flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
     flat = mesh.all_reduce(flat)
     out, offset = [], 0
@@ -267,13 +281,16 @@ def guarded_update(
     opt_state: AdamState,
     params: Sequence[torch.Tensor],
     loss: torch.Tensor,
+    split: Optional[Sequence[bool]] = None,
+    model_mesh=None,
 ) -> Tuple[AdamState, torch.Tensor, torch.Tensor]:
     """Apply an optimizer update to ``params`` in place unless loss/grads are
-    non-finite. Returns (new_opt_state, grad_norm, applied)."""
-    grad_norm = global_norm(grads)
+    non-finite. Returns (new_opt_state, grad_norm, applied). ``split`` /
+    ``model_mesh``: as ``global_norm``'s, for parameters split over a model axis."""
+    grad_norm = global_norm(grads, split, model_mesh)
     ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
     safe_grads = [torch.nan_to_num(g) for g in grads]
-    updates, new_state = optimizer.update(safe_grads, opt_state)
+    updates, new_state = optimizer.update(safe_grads, opt_state, split, model_mesh)
     ok = ok & _all_finite(updates)
     with torch.no_grad():
         for p, u in zip(params, updates):
@@ -335,9 +352,20 @@ class Trainer:
         return [p for p in self.model.flow.parameters() if p.requires_grad]
 
     def init_state(self, generator: torch.Generator) -> TrainState:
-        """Initialise the flow, the transition state and the optimizer."""
+        """Initialise the flow (split over the model axis of the active mesh, if it
+        has one), the transition state and the optimizer."""
         transition_state = self.model.init(generator)
+        model_axis.shard_flow_params(self.model.flow)
         return TrainState(transition_state, self.optimizer.init(self.params), 0)
+
+    def _split(self):
+        """(split flags of ``params``, their mesh) under a model mesh, else (None,
+        None)."""
+        active = mesh.active_mesh()
+        if active is None or active.n_model == 1:
+            return None, None
+        return (model_axis.split_flags(self.model.flow, self._param_names()),
+                model_axis.model_mesh(self.model.flow))
 
     def _step(self, loss: torch.Tensor, opt_state: AdamState):
         """The guarded optimizer step on ``loss``'s gradient (under a mesh, on the
@@ -347,7 +375,9 @@ class Trainer:
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         if mesh.active_mesh() is not None:
             grads, loss = all_reduce_gradients(grads, loss)
-        return (*guarded_update(self.optimizer, grads, opt_state, params, loss), loss.detach())
+        split, model_mesh = self._split()
+        return (*guarded_update(self.optimizer, grads, opt_state, params, loss, split,
+                                model_mesh), loss.detach())
 
     def train_step(
         self, state: TrainState, generator: torch.Generator, batch_size: int
@@ -369,21 +399,21 @@ class Trainer:
         """``<save_path>/model_checkpoints/iter_<i>/state.pkl``; the flow's
         parameters in ``fab_tpu``'s pytree layout, Adam's moments keyed by the
         parameters' names, and the buffer, if the state has one, in the one-process
-        layout. Under a mesh every rank calls it (the buffer is gathered) and rank 0
-        writes."""
+        layout. Under a mesh every rank calls it (the buffer and split parameters and
+        moments are gathered) and rank 0 writes."""
         names = self._param_names()
         opt = state.opt_state
+        flow = self.model.flow
+        whole = lambda values: model_axis.gather_state(flow, dict(zip(names, values)))
         payload = {
             "params": {
-                "flow": to_jax_params(
-                    self.model.flow.state_dict(), len(self.model.flow.bijectors)
-                ),
+                "flow": to_jax_params(flow.state_dict(), len(flow.bijectors), flow=flow),
                 "transition": dict(state.transition_state),
             },
             "opt_state": {
                 "count": opt.count,
-                "mu": dict(zip(names, opt.mu)),
-                "nu": dict(zip(names, opt.nu)),
+                "mu": whole(opt.mu),
+                "nu": whole(opt.nu),
             },
             "step": state.step,
         }
@@ -398,23 +428,23 @@ class Trainer:
         """Load a checkpoint written by ``save_checkpoint`` at any world size, or by
         ``fab_tpu``'s trainers (its Adam state read from the optimizer library's
         records, its buffer from its named tuple): the flow's parameters go into the
-        model in place, the buffer is cut to this rank's shard; returns (state,
+        model in place, the buffer is cut to this rank's shard and, under a model
+        mesh, split parameters and moments to this rank's shards; returns (state,
         step)."""
         raw = checkpoint.load_checkpoint(path)
         tensor = lambda a: torch.as_tensor(a, device=self.device)
         flow = self.model.flow
-        flow.load_state_dict(from_jax_params(raw["params"]["flow"], self.device))
+        model_axis.shard_flow_params(flow)
+        flow.load_state_dict(from_jax_params(raw["params"]["flow"], self.device, flow=flow))
         names = self._param_names()
         opt = raw["opt_state"]
         if isinstance(opt, (tuple, checkpoint.Opaque)):
             opt = _adam_state(opt)
+        own = lambda moments: [v for v in model_axis.cut_state(
+            flow, {n: tensor(moments[n]) for n in names}).values()]
         fields = dict(
             transition_state={k: tensor(v) for k, v in raw["params"]["transition"].items()},
-            opt_state=AdamState(
-                tensor(opt["count"]),
-                [tensor(opt["mu"][n]) for n in names],
-                [tensor(opt["nu"][n]) for n in names],
-            ),
+            opt_state=AdamState(tensor(opt["count"]), own(opt["mu"]), own(opt["nu"])),
             step=int(raw["step"]),
         )
         if "buffer_state" in raw:
@@ -432,14 +462,17 @@ class Trainer:
         """The state as ``checkpoint.save_checkpoint_dcp`` takes it: the flow's state
         dict (its tensors alias the parameters), the transition state, Adam's moments
         by parameter name, the step, and the buffer's slot fields as blocks of
-        ``buffer_blocks``."""
+        ``buffer_blocks``. Split parameters and their moments are DTensors sharded
+        over the model axis (``checkpoint.model_split``)."""
         opt = state.opt_state
         names = self._param_names()
+        flow = self.model.flow
+        split = lambda tree: checkpoint.model_split(flow, tree)
         tree = {
-            "flow": dict(self.model.flow.state_dict()),
+            "flow": split({k: v.detach() for k, v in flow.state_dict().items()}),
             "transition": dict(state.transition_state),
-            "opt_state": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
-                          "nu": dict(zip(names, opt.nu))},
+            "opt_state": {"count": opt.count, "mu": split(dict(zip(names, opt.mu))),
+                          "nu": split(dict(zip(names, opt.nu)))},
             "step": torch.tensor(state.step),
         }
         if hasattr(state, "buffer_state"):
@@ -454,8 +487,9 @@ class Trainer:
 
     def load_state_dcp(self, path: str):
         """Load a ``save_checkpoint_dcp`` directory written by any world size onto
-        this one: the flow's parameters in place, the buffer re-sharded; returns
-        (state, step)."""
+        this one (any mesh shape): the flow's parameters in place, the buffer and
+        split parameters re-sharded; returns (state, step)."""
+        model_axis.shard_flow_params(self.model.flow)
         dim, dtype, device = self.model.flow.dim, self.dtype, self.device
         template = dict(
             transition_state=(self.model.ais.transition_operator.init_state(
@@ -467,12 +501,16 @@ class Trainer:
             template["buffer_state"] = self.buffer.init(dtype, device)
         target = self._dcp_tree(self.state_type(**template))
         tree = checkpoint.load_checkpoint_dcp(path, target)
+        local = checkpoint.to_local
+        with torch.no_grad():
+            for name, value in self.model.flow.state_dict(keep_vars=True).items():
+                value.copy_(local(tree["flow"][name]))
         names = self._param_names()
         opt = tree["opt_state"]
         fields = dict(
             transition_state=tree["transition"],
-            opt_state=AdamState(opt["count"], [opt["mu"][n] for n in names],
-                                [opt["nu"][n] for n in names]),
+            opt_state=AdamState(opt["count"], [local(opt["mu"][n]) for n in names],
+                                [local(opt["nu"][n]) for n in names]),
             step=int(tree["step"]),
         )
         if "buffer_state" in tree:
@@ -497,15 +535,16 @@ class Trainer:
         saved as ``<plots_dir>/<j>_iter_<i>.png``. The plotter draws from a
         generator of its own (seeded with ``i``), so plotting leaves the training
         draws as they would be without it. Under a mesh rank 0 alone plots, whole,
-        with the mesh off."""
-        if self.plotter is None or not is_primary():
+        with the mesh off; with a model-split flow every rank plots (a flow pass needs
+        its model group) and rank 0 alone saves."""
+        if self.plotter is None or not (is_primary() or model_axis.model_mesh(self.model.flow)):
             return
         plt = pyplot()
         plot_generator = torch.Generator(device=self.device).manual_seed(i)
         with mesh.use_mesh(None):
             figures = self.plotter(self.model, state.transition_state, plot_generator)
         for j, figure in enumerate(figures or []):
-            if save:
+            if save and is_primary():
                 figure.savefig(os.path.join(self.plots_dir, f"{j}_iter_{i}.png"))
             plt.close(figure)
 
@@ -631,6 +670,7 @@ def _fill_buffer(trainer, generator: torch.Generator, batch_size: int, add) -> B
     result)`` writes one pass), and the optimizer."""
     model, buffer = trainer.model, trainer.buffer
     transition_state = model.init(generator)
+    model_axis.shard_flow_params(model.flow)
     buffer_state = buffer.init(trainer.dtype, trainer.device)
     while int(buffer_state.n_added) < buffer.min_sample_length:
         result = model.ais.sample_and_log_weights(

@@ -3,10 +3,12 @@ against its own one-process run (``tests/test_torch_parallel_fab_tpu.py`` holds 
 runs against ``fab_tpu`` and through the runners).
 
 - The set-up helpers in one process: ``launcher_env`` / ``initialize`` without a
-  launcher, ``make_mesh``'s errors (no process group, ``n_data`` other than the world
-  size, ``n_model > 1``), ``setup_mesh`` with and without a launcher, the helpers on
-  a mesh that needs no collective (``constrain_batch``, ``check_batch``), and
-  ``resolve_device`` under a launcher.
+  launcher, ``make_mesh``'s error without a process group, ``setup_mesh`` with and
+  without a launcher (``mesh.n_data=2`` or ``mesh.n_model=2`` without one raises,
+  naming the launcher command), the helpers on a mesh that needs no collective
+  (``constrain_batch``, ``check_batch``), and ``resolve_device`` under a launcher.
+- ``make_mesh`` on 2 ranks: the data mesh, the (1, 2) grid, and the ``ValueError`` for
+  a grid the world size does not match.
 - 2 ranks against the port's one process at f64 (ranks spawned by
   ``tests/torch_parallel_workers.py``, which loads no JAX): every reduction, each
   loss's value and gradient, and the buffers' add, sample (with and without
@@ -64,9 +66,14 @@ def test_launcher_env_reads_torchrun_and_fab_tpu_variables(no_launcher, monkeypa
         "init_method": "env://", "world_size": 8, "rank": 5, "local_rank": 1}
 
 
-def test_make_mesh_refuses_the_model_axis():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        mesh.make_mesh(n_model=2)
+def test_make_mesh_refuses_the_model_axis(units):
+    """On 2 ranks: ``make_mesh(n_model=2)`` is the (1, 2) grid (rank r at data index 0,
+    model index r); a model axis or a grid the world size does not match raises."""
+    for rank, result in enumerate(units[0]):
+        assert result["model_mesh"] == (1, 2, 0, rank)
+        assert ("mesh.n_data=2 x mesh.n_model=2 but 2 processes were launched"
+                in result["grid_mismatch"])
+        assert "mesh.n_model=3 does not divide the 2 processes" in result["model_mismatch"]
 
 
 def _cfg(*overrides):
@@ -85,8 +92,12 @@ def test_setup_mesh_without_a_launcher_names_the_launcher(no_launcher, capsys):
 def test_setup_mesh_refuses_what_one_process_cannot_hold(no_launcher):
     with pytest.raises(ValueError, match="--nproc_per_node=2"):
         setup_mesh(_cfg("mesh.n_data=2"), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
+    with pytest.raises(ValueError, match=r"--nproc_per_node=2 .* mesh.n_data=1 "
+                                         r"mesh.n_model=2"):
         setup_mesh(_cfg("mesh.n_model=2"), torch.device("cpu"))
+    with pytest.raises(ValueError, match=r"--nproc_per_node=4 .* mesh.n_data=2 "
+                                         r"mesh.n_model=2"):
+        setup_mesh(_cfg("mesh.n_data=2", "mesh.n_model=2"), torch.device("cpu"))
 
 
 def test_batch_helpers_on_a_mesh():
@@ -138,6 +149,15 @@ def test_make_mesh_on_two_ranks(units):
     for result in units[0]:
         assert result["world_mesh"] is True
         assert "mesh.n_data=3 but 2 processes were launched" in result["n_data_mismatch"]
+
+
+def test_collectives_without_an_active_mesh_span_the_world(units):
+    """With no mesh active (a caller timing a collective, say) the data-axis
+    collectives run over the whole process group."""
+    for result in units[0]:
+        summed, gathered = result["no_mesh_collectives"]
+        np.testing.assert_array_equal(summed, [2.0, 2.0])
+        np.testing.assert_array_equal(gathered, np.ones((2, 2)))
 
 
 @pytest.mark.parametrize("key", UNIT_KEYS)

@@ -163,13 +163,19 @@ def _np(t):
 
 def summary(trainer, state, info=None) -> dict:
     """numpy copies of the flow, Adam's state, the transition state, the buffer (in
-    the one-process layout: a collective under a mesh) and the info's scalars."""
+    the one-process layout: a collective under a mesh) and the info's scalars;
+    parameters and moments split over a model axis are gathered whole."""
+    from fab_tpu_torch.parallel.tensor import gather_state
+
+    flow = trainer.model.flow
+    names = trainer._param_names()
+    whole = lambda values: list(gather_state(flow, dict(zip(names, values))).values())
     out = {
-        "flow": {k: _np(v) for k, v in trainer.model.flow.state_dict().items()},
+        "flow": {k: _np(v) for k, v in gather_state(flow, flow.state_dict()).items()},
         "transition": {k: _np(v) for k, v in state.transition_state.items()},
         "count": int(state.opt_state.count),
-        "mu": [_np(m) for m in state.opt_state.mu],
-        "nu": [_np(v) for v in state.opt_state.nu],
+        "mu": [_np(m) for m in whole(state.opt_state.mu)],
+        "nu": [_np(v) for v in whole(state.opt_state.nu)],
         "step": state.step,
     }
     if hasattr(state, "buffer_state"):
@@ -324,8 +330,8 @@ def _to_numpy(tree):
 
 
 def task_units(args):
-    """``units`` on the mesh, and ``make_mesh``'s answer for an n_data other than the
-    world size."""
+    """``units`` on the mesh, and ``make_mesh``'s answers for an n_data other than the
+    world size, for ``n_model=2`` and for grids the world size does not match."""
     from fab_tpu_torch.parallel import mesh
 
     out = units(args)
@@ -335,17 +341,33 @@ def task_units(args):
     except ValueError as e:
         out["n_data_mismatch"] = str(e)
     out["world_mesh"] = mesh.make_mesh() == mesh.active_mesh()
+    with mesh.use_mesh(None):
+        one = torch.ones(2, dtype=torch.float64)
+        out["no_mesh_collectives"] = (_np(mesh.all_reduce(one)),
+                                      _np(mesh.all_gather_rows(one[None])))
+    grid = mesh.make_mesh(n_model=2)
+    out["model_mesh"] = (grid.n_data, grid.n_model, grid.data_index, grid.model_index)
+    for key, shape in (("grid_mismatch", (2, 2)), ("model_mismatch", (None, 3))):
+        try:
+            mesh.make_mesh(*shape)
+            out[key] = "accepted"
+        except ValueError as e:
+            out[key] = str(e)
     return out
 
 
 def task_replayed_step(args):
     """One PrioritisedBufferTrainer step on replayed noise from a shared state
-    (the buffer given in the one-process layout), as ``tests/torch_parity_utils.py``'s
-    ``check_train_step`` sets it up, or from ``args["checkpoint"]`` (``load_state``)."""
+    (the buffer given in the one-process layout; the flow split over the mesh's
+    model axis, if it has one), as ``tests/torch_parity_utils.py``'s
+    ``check_train_step`` sets it up, or from ``args["checkpoint"]`` (``load_state``);
+    with ``args["save"]`` the state after the step is saved there as a pickle
+    checkpoint."""
     from fab_tpu_torch import random as port_random
     from fab_tpu_torch.buffer import PrioritisedBufferState, PrioritisedReplayBuffer
     from fab_tpu_torch.flows import make_realnvp
     from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.parallel.tensor import shard_flow_params
     from fab_tpu_torch.sampling import HamiltonianMonteCarlo
     from fab_tpu_torch.targets import ManyWellEnergy
     from fab_tpu_torch.train import BufferTrainState, PrioritisedBufferTrainer, make_optimizer
@@ -369,6 +391,7 @@ def task_replayed_step(args):
     else:
         full = PrioritisedBufferState(
             **{k: torch.as_tensor(v) for k, v in args["buffer"].items()})
+        shard_flow_params(flow)
         state = BufferTrainState(
             transition_state={k: torch.as_tensor(v) for k, v in args["transition"].items()},
             opt_state=trainer.optimizer.init(trainer.params),
@@ -386,6 +409,9 @@ def task_replayed_step(args):
         setattr(port_random, kind, replay(kind))
     state, info = trainer.train_step(state, None, batch)
     assert not any(queues.values()), {k: len(v) for k, v in queues.items()}
+    if "save" in args:
+        trainer.checkpoints_dir = args["save"]
+        trainer.save_checkpoint(state, state.step)
     return summary(trainer, state, info)
 
 
@@ -450,6 +476,145 @@ def task_dcp_load(args):
     return {"loaded": loaded, "next": summary(trainer, state, info), "step": step}
 
 
+# ------------------------------------------------------------- the model axis
+
+
+def split_mlp(inputs) -> dict:
+    """A 3-layer f64 MLP (``inputs["sizes"]``, column / row / replicated under a
+    model mesh) on ``inputs["x"]``: this rank's rows of the output, their x-gradient
+    and the parameter gradients of (output ** 2).sum() over the global batch, made
+    whole (parameters gathered over the model group, rows over the data group)."""
+    from fab_tpu_torch.flows.mlp import Dense, mlp_apply, mlp_init, shard_mlp
+    from fab_tpu_torch.parallel import mesh
+    from fab_tpu_torch.parallel.tensor import gather_state
+
+    sizes = inputs["sizes"]
+    layers = torch.nn.ModuleList(Dense(i, o, torch.float64)
+                                 for i, o in zip(sizes[:-1], sizes[1:]))
+    values = mlp_init(sizes, torch.Generator().manual_seed(1), zero_init_last=False,
+                      dtype=torch.float64)
+    for layer, (w, b) in zip(layers, values):
+        layer.assign(w, b)
+    active = mesh.active_mesh()
+    if active is not None:
+        shard_mlp(layers, sizes, active, "mlp")
+    x = mesh.constrain_batch(torch.as_tensor(inputs["x"])).requires_grad_(True)
+    y = mlp_apply(layers, x)
+    loss = (y ** 2).sum()
+    grads = dict(zip([n for n, _ in layers.named_parameters()],
+                     torch.autograd.grad(loss, [x] + list(layers.parameters()))[1:]))
+    x_grad = torch.autograd.grad(mlp_apply(layers, x).sum(), x)[0]
+    whole = (lambda v: v) if active is None else mesh.all_gather_rows
+    param_grads = gather_state(layers, grads)
+    if active is not None:
+        param_grads = {k: mesh.all_reduce(v) for k, v in param_grads.items()}
+    return _to_numpy({"output": whole(y.detach()), "x_grad": whole(x_grad),
+                      "param_grad": param_grads,
+                      "counts": {"/".join(k): v for k, v in mesh.COUNTS.items()}})
+
+
+def task_split_mlp(args):
+    return split_mlp(args)
+
+
+MODEL_KINDS = ["realnvp", "fused", "large", "spline", "maf"]
+MODEL_STEPS = 3
+
+
+def build_model_axis(kind: str):
+    """A small f64 PrioritisedBufferTrainer on ManyWell-4 (HMC) whose flow is
+    ``kind``: the plain RealNVP, the fused one (K1's plain version on the CPU), one
+    of LargeFusedCouplings (K2's plain version), a spline flow or MAF, every
+    conditioner of width 8 (split over 2 or 4 model ranks). The clip (0.05) is
+    below the gradients' norm, so every update clips."""
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.flows import Flow, make_masked_affine_maf, make_realnvp
+    from fab_tpu_torch.flows.base import DiagGaussianBase
+    from fab_tpu_torch.flows.large_coupling import LargeFusedCoupling
+    from fab_tpu_torch.flows.linear import LULinear
+    from fab_tpu_torch.flows.splines import SplineCoupling
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import HamiltonianMonteCarlo
+    from fab_tpu_torch.targets import ManyWellEnergy
+    from fab_tpu_torch.train import PrioritisedBufferTrainer, make_optimizer
+
+    dim, common = 4, dict(dtype=torch.float64, device="cpu")
+    if kind == "spline":
+        bijectors = []
+        for i in range(2):
+            bijectors += [SplineCoupling(dim, 8, n_bins=4, tail_bound=4.0, swap=i % 2 == 1,
+                                         **common), LULinear(dim, **common)]
+        flow = Flow(dim, bijectors, DiagGaussianBase(dim, **common))
+    elif kind == "maf":
+        flow = make_masked_affine_maf(dim, n_layers=2, hidden_units=8, **common)
+    else:
+        flow = make_realnvp(dim, n_flow_layers=2, layer_nodes_per_dim=2,
+                            fused=kind == "fused", fused_coupling=kind == "large", **common)
+    for bij in flow.bijectors:
+        if isinstance(bij, LargeFusedCoupling):
+            # K2's gate takes float32 only; its CPU version (the plain one) takes any
+            # dtype, so the gathered-weight path runs here at f64.
+            bij._kernel_ok = lambda z: True
+    model = FABModel.create(flow, ManyWellEnergy(dim, device="cpu"),
+                            transition_operator=HamiltonianMonteCarlo(
+                                n_ais_intermediate_distributions=2, n_leapfrog=2,
+                                epsilon=0.5),
+                            n_intermediate_distributions=2)
+    buffer = PrioritisedReplayBuffer(dim=dim, max_length=8 * BATCH,
+                                     min_sample_length=2 * BATCH, batch_size=BATCH)
+    return PrioritisedBufferTrainer(model, make_optimizer(1e-3, 0.05), buffer,
+                                    n_batches_buffer_sampling=2, **common)
+
+
+def model_axis_steps(kind: str, save: dict = None) -> dict:
+    """init_state (summarised) and MODEL_STEPS steps of ``build_model_axis(kind)``
+    (summarised, with the last step's info); with ``save`` the end state is also
+    written as a pickle checkpoint (``save["pickle"]``) and with DCP
+    (``save["dcp"]``)."""
+    trainer = build_model_axis(kind)
+    generator = torch.Generator().manual_seed(0)
+    state = trainer.init_state(generator, batch_size=BATCH)
+    out = {"init": summary(trainer, state)}
+    for _ in range(MODEL_STEPS):
+        state, info = trainer.train_step(state, generator, BATCH)
+    out["steps"] = summary(trainer, state, info)
+    if save:
+        trainer.checkpoints_dir = save["pickle"]
+        trainer.save_checkpoint(state, state.step)
+        trainer.save_checkpoint_dcp(state, save["dcp"])
+    return out
+
+
+def task_model_axis(args):
+    """``model_axis_steps`` for every kind in ``args["kinds"]`` (the first one also
+    saves, if ``args["save"]``), and the collectives by (axis, kind)."""
+    from fab_tpu_torch.parallel import mesh
+
+    mesh.COUNTS.clear()
+    out = {kind: model_axis_steps(kind, args.get("save") if i == 0 else None)
+           for i, kind in enumerate(args["kinds"])}
+    out["counts"] = {"/".join(k): v for k, v in mesh.COUNTS.items()}
+    return out
+
+
+def model_axis_resume(args) -> dict:
+    """A realnvp ``build_model_axis`` trainer loaded from ``args["pickle"]`` (a
+    ``state.pkl``) or ``args["dcp"]`` (a directory), then one step from a fixed
+    generator: the summaries of the loaded state and of that step."""
+    trainer = build_model_axis("realnvp")
+    if "pickle" in args:
+        state, step = trainer.load_state(args["pickle"])
+    else:
+        state, step = trainer.load_state_dcp(args["dcp"])
+    loaded = summary(trainer, state)
+    state, info = trainer.train_step(state, torch.Generator().manual_seed(7), BATCH)
+    return {"loaded": loaded, "next": summary(trainer, state, info), "step": step}
+
+
+def task_model_axis_resume(args):
+    return model_axis_resume(args)
+
+
 TASKS = {name[len("task_"):]: fn for name, fn in globals().items()
          if name.startswith("task_")}
 
@@ -466,7 +631,7 @@ def main(argv) -> int:
             distributed.initialize("cpu", init_method=f"tcp://127.0.0.1:{port}",
                                    world_size=int(world), rank=int(rank),
                                    timeout=GROUP_TIMEOUT)
-            mesh.activate_mesh(mesh.make_mesh())
+            mesh.activate_mesh(mesh.make_mesh(*args.get("mesh", (None, 1))))
         result = TASKS[task](args)
     except Exception:
         traceback.print_exc()
