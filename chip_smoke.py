@@ -126,6 +126,25 @@ Phases:
      WrappedTorchDist target (a MixtureSameFamily of GMM-40's shape on the card,
      f64): 5 Trainer steps with gmm.yaml's Metropolis AIS, finite losses, every
      tensor on the card, and one more step under the sync check.
+ 16. The port's bench and scripts, cut in length only where printed (PHASE16_BUDGET_S
+     240 s; the phase prints its wall time): (a) python3 -m fab_tpu_torch.bench at
+     bench.py's settings (ManyWell-32 as phase 3; 2 warm-up and 10 timed steps of the
+     fused and the plain trainer in turns): its one JSON line with bench.py's keys,
+     value and vs_baseline finite and > 0, mfu in (0, 1], K1 38 + 29 per fused step
+     from its stderr. (b) python3 -m fab_tpu_torch.bench_scaling --mesh-sizes 1 under
+     NCCL (batch 2048 per device, 1 warm-up and 2 steps): efficiency_vs_1 1.0. (c)
+     bench_lgcp_kernel at its defaults: K2 within 1e-3 of the plain layer, both
+     layer times, the whole LGCP-1600 flow's sample_and_log_prob and log_prob fused
+     and plain in turns. (d) evaluate.py on the phase 6-7 flow through K2 with the
+     f64 factor and with target.in_graph_kernel=true, same seed and samples: K2
+     launched in both, 0 < max |dL| < IN_GRAPH_L_GAP, the in-graph target built
+     without the f64 factor and factored in f32, every column finite, the
+     flow-side columns within IN_GRAPH_RTOL relative, and a control (the f64 factor
+     rounded to half precision) beyond it. (e) ground_truth_marginals,
+     rejection_sampling_vis, alpha_study, aldp_torsion_scan (72 x 72),
+     aldp_phi_overlay and aldp_external_anchor on phase 11's run and frame,
+     many_well_demo, gmm_demo and aldp_demo --train: every CSV, JSON and .npz value finite, no kernel launched,
+     and without matplotlib no PNG written.
   The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
   fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
   6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
@@ -2418,8 +2437,319 @@ def wrappers_path(device, card) -> dict:
     return {"losses": losses, "s": took}
 
 
+# ------------------------------------------------------------------ phase 16
+
+# Phase 16's own cuts (length only; printed). The bench runs at its defaults.
+PHASE16_BUDGET_S = 240
+SCALING_CUTS = ["--batch-per-device", "2048", "--steps", "2", "--warmup", "1"]
+# 16(d)'s limits, set from readings on an H100 (PERF.md §6): the in-graph f32 L
+# against the f64 factor cast to f32, max |dL| 1.103e-6; the evaluation's flow-side
+# columns 0 to 7.9e-8 relative apart; the control's (the f64 factor rounded to half
+# precision) 1.023e-4 to 2.245e-4. The control must land above IN_GRAPH_RTOL, so the column
+# check can fail.
+IN_GRAPH_L_GAP = 1e-5
+IN_GRAPH_RTOL = 1e-5
+ANCHOR_CUTS = ["--quick", "--n-samples", "512", "--n-steps", "20", "--n-chains", "64",
+               "--n-sweeps", "30"]
+
+
+def _module_run(module, args, label, timeout):
+    """``python3 -m <module> <args>`` from this checkout; (stdout, stderr, seconds).
+    Fails on a non-zero exit, printing the end of both streams."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                          text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.time() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:])
+        print(proc.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"{label} exited {proc.returncode}")
+    return proc.stdout, proc.stderr, seconds
+
+
+def _json_lines(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def _finite_json(tree, label, path=""):
+    """Every number in a JSON tree is finite (null marks a column documented as
+    unavailable)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _finite_json(v, label, f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            _finite_json(v, label, f"{path}[{i}]")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        assert math.isfinite(tree), f"{label}: not finite at {path}"
+
+
+def bench_path(card) -> dict:
+    """16(a) the port's bench at bench.py's settings; 16(b) bench_scaling at one rank
+    under NCCL, cut in length only."""
+    out, err, seconds = _module_run("fab_tpu_torch.bench", [], "fab_tpu_torch.bench", 900)
+    (line,) = [d for d in _json_lines(out) if "metric" in d]
+    assert sorted(line) == sorted(["metric", "value", "unit", "vs_baseline", "mfu",
+                                   "achieved_flops_per_s"]), line
+    assert math.isfinite(line["value"]) and line["value"] > 0, line
+    assert math.isfinite(line["vs_baseline"]) and line["vs_baseline"] > 0, line
+    assert line["mfu"] is not None and 0 < line["mfu"] <= 1, line
+    k1 = re.search(r"K1 per fused step: launches \[(\d+)\], recomputes \[(\d+)\]", err)
+    assert k1 and (int(k1.group(1)), int(k1.group(2))) == (38, 29), err[-2000:]
+    medians = re.search(r"median step: fused ([\d.]+) ms, plain ([\d.]+) ms", err)
+    print(f"[{card}] phase 16(a) python3 -m fab_tpu_torch.bench ({seconds:.1f} s): "
+          + json.dumps(line))
+    print(f"[{card}] phase 16(a) bench median step: fused {medians.group(1)} ms, plain "
+          f"{medians.group(2)} ms (10 each, in turns); K1 38 launches + 29 recomputes per "
+          "fused step; " + [ln for ln in err.splitlines() if ln.startswith("FLOPs")][0])
+    for ln in err.splitlines():
+        if ln.startswith("median step") or ln.startswith("card:"):
+            print(f"    bench stderr: {ln}")
+    result = {"bench": line, "bench_s": seconds, "fused_ms": float(medians.group(1)),
+              "plain_ms": float(medians.group(2))}
+
+    print(f"[{card}] phase 16(b) bench_scaling cut (length only): "
+          f"{' '.join(SCALING_CUTS)} (defaults: 2048, 10, 2)")
+    out, err, seconds = _module_run("fab_tpu_torch.bench_scaling",
+                                    ["--mesh-sizes", "1", *SCALING_CUTS],
+                                    "fab_tpu_torch.bench_scaling", 600)
+    (scaling,) = [d for d in _json_lines(out) if "n_devices" in d]
+    assert scaling["n_devices"] == 1 and scaling["efficiency_vs_1"] == 1.0, scaling
+    assert math.isfinite(scaling["samples_per_s"]) and scaling["samples_per_s"] > 0
+    print(f"[{card}] phase 16(b) bench_scaling --mesh-sizes 1 under NCCL ({seconds:.1f} s): "
+          + json.dumps(scaling))
+    result.update(scaling=scaling, scaling_s=seconds)
+    return result
+
+
+def lgcp_kernel_bench_path(card) -> dict:
+    """16(c) bench_lgcp_kernel at its defaults: K2 against the plain layer, the
+    whole LGCP-1600 flow fused and plain in turns."""
+    from fab_tpu_torch.experiments import bench_lgcp_kernel
+
+    t0 = time.time()
+    result = bench_lgcp_kernel.main([])
+    layer, flow = result["layer"], result["flow"]
+    assert max(layer[m]["max_abs_err"] for m in ("fwd", "inv")) < 1e-3, layer
+    assert flow["fused"]["k2_launches_per_pass"] == LG_LAYERS, flow
+    print(f"[{card}] phase 16(c) bench_lgcp_kernel (B {LG_BATCH}, D {LG_GRID ** 2}, "
+          f"{LG_LAYERS} layers; {time.time() - t0:.1f} s): layer forward K2 "
+          f"{layer['fwd']['kernel_ms']:.4f} ms / plain {layer['fwd']['plain_ms']:.4f} ms, "
+          f"inverse {layer['inv']['kernel_ms']:.4f} / {layer['inv']['plain_ms']:.4f} ms; "
+          f"flow sample_and_log_prob fused {flow['fused']['sample_and_log_prob']:.2f} / "
+          f"plain {flow['plain']['sample_and_log_prob']:.2f} ms, log_prob "
+          f"{flow['fused']['log_prob']:.2f} / {flow['plain']['log_prob']:.2f} ms")
+    return result
+
+
+def in_graph_eval_path(device, card, tmp) -> dict:
+    """16(d) evaluate.py on the LGCP-1600 flow of phases 6-7 through K2, with the
+    target's f64 factor (as 13(c)) and with target.in_graph_kernel=true, same seed
+    and samples. The in-graph L is an f32 factorisation of the f32-coordinate
+    kernel; the f64 factor is cast to f32: they differ by f32 rounding (0 < max |dL|
+    < IN_GRAPH_L_GAP), which moves log p by the printed amount. The flow-side
+    columns are functions of log p and L on the same flow samples, so they agree to
+    IN_GRAPH_RTOL (relative); the AIS columns' HMC accept decisions may flip on such
+    a change of log p, so their differences are printed. The target each evaluation
+    builds is checked: the in-graph one holds no f64 constant and factored L itself.
+    A third evaluation, the control, runs the f64 factor rounded to half precision;
+    its flow-side columns must differ by more than IN_GRAPH_RTOL."""
+    import torch
+
+    from fab_tpu_torch.experiments import evaluate
+    from fab_tpu_torch.targets import LogGaussianCoxProcess
+
+    plain = LogGaussianCoxProcess(grid_size=LG_GRID, device=device)
+    in_graph = LogGaussianCoxProcess(grid_size=LG_GRID, in_graph_kernel=True, device=device)
+    e = torch.randn(LG_BATCH, LG_GRID ** 2, generator=torch.Generator(device=device)
+                    .manual_seed(5), device=device)
+    with torch.no_grad():
+        l_gap = float((in_graph._chol(torch.float32, device).T - plain._chol_t).abs().max())
+        lp_a, lp_b = plain.log_prob(e), in_graph.log_prob(e)
+        lp_gap = float(((lp_a - lp_b).abs() / lp_a.abs().clamp(min=1.0)).max())
+    print(f"[{card}] phase 16(d) in-graph L (f32, on the card) against the f64 factor in "
+          f"f32: max |dL| {l_gap:.3e}; log p on {LG_BATCH} prior draws, max relative "
+          f"difference {lp_gap:.3e}")
+    assert 0 < l_gap < IN_GRAPH_L_GAP, l_gap
+
+    build_target = evaluate.build_target
+    built = {}
+
+    def recording_build_target(cfg, dtype=torch.float32, device="cuda"):
+        target = build_target(cfg, dtype, device)
+        if run == "control":
+            target._chol_t = target._chol_t.half().to(target._chol_t.dtype)
+        built[run] = target
+        return target
+
+    rows, launches = {}, {}
+    evaluate.build_target = recording_build_target
+    try:
+        for run in ("false", "true", "control"):
+            flag = "true" if run == "true" else "false"
+            csv_path = os.path.join(tmp, f"lgcp_eval_in_graph_{run}.csv")
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            evaluate.main(["--config", os.path.join(CONFIGS, "lgcp.yaml"), "--out", csv_path,
+                           "--device", str(device), "--num-samples", str(2 * LG_BATCH),
+                           "--inner-batch", str(LG_BATCH), "--run",
+                           f"fab_seed0={os.path.join(tmp, 'lgcp_checkpoint', 'state.pkl')}",
+                           "flow.fused_coupling=true", f"target.in_graph_kernel={flag}"])
+            torch.cuda.synchronize()
+            launches[run] = _counts()["k2"]
+            assert launches[run] > 0, f"{run}: K2 not launched"
+            (rows[run],) = _finite_csv(csv_path)
+            target = built[run]
+            assert target.in_graph_kernel == (run == "true"), run
+            if run == "true":
+                assert target._chol_t is None, "the in-graph target kept an f64 factor"
+                assert [k[0] for k in target._chol_cache] == [torch.float32], \
+                    "the in-graph target did not factor L in f32"
+            else:
+                assert not target._chol_cache, f"{run}: the f64-factor target factored L"
+            print(f"[{card}] phase 16(d) evaluate.py lgcp.yaml "
+                  + ("control: the f64 factor rounded to half precision"
+                     if run == "control" else f"target.in_graph_kernel={run}")
+                  + f": {time.time() - t0:.1f} s, K2 launches {launches[run]}")
+    finally:
+        evaluate.build_target = build_target
+
+    def relative(other):
+        return {k: abs(float(rows["false"][k]) - float(rows[other][k]))
+                / max(abs(float(rows["false"][k])), 1e-12)
+                for k in rows["false"] if k != "model_name"}
+
+    def flow_side(d):
+        return {k: v for k, v in d.items() if k.startswith(("flow_", "eval_ess_flow"))}
+
+    diffs, control = relative("true"), relative("control")
+    for label, d in (("in-graph", diffs), ("the half-precision control", control)):
+        print(f"[{card}] phase 16(d) relative difference per column (f64 factor against "
+              f"{label}): " + ", ".join(f"{k} {v:.3e}" for k, v in d.items()))
+    assert max(flow_side(diffs).values()) <= IN_GRAPH_RTOL, flow_side(diffs)
+    assert max(flow_side(control).values()) > IN_GRAPH_RTOL, flow_side(control)
+    return {"launches": {k: launches[k] for k in ("false", "true")}, "l_gap": l_gap,
+            "log_p_gap": lp_gap, "diffs": diffs, "control": control}
+
+
+def scripts_path(device, card, tmp) -> dict:
+    """16(e) the scripts that need no matplotlib, cut in length only (printed), on
+    phase 11's ALDP run and reference frame: every CSV, JSON and .npz value finite."""
+    import numpy as np
+    import torch
+
+    from fab_tpu_torch.demo import aldp_demo, gmm_demo, many_well_demo
+    from fab_tpu_torch.experiments import (
+        aldp_external_anchor,
+        aldp_phi_overlay,
+        aldp_torsion_scan,
+        alpha_study,
+        ground_truth_marginals,
+        rejection_sampling_vis,
+    )
+
+    dev = ["--device", str(device)]
+    ref = os.path.join(tmp, "aldp_reference.npy")
+    run = os.path.join(tmp, "aldp")
+    aldp_config = os.path.join(CONFIGS, "aldp.yaml")
+    runs = [
+        ("ground_truth_marginals", ground_truth_marginals.main,
+         ["--dim", "32", "--n-samples", "200000"], "none (the defaults)"),
+        ("rejection_sampling_vis", rejection_sampling_vis.main,
+         ["--out", os.path.join(tmp, "rejection_sampling.png")], "none (the defaults)"),
+        ("alpha_study", alpha_study.main,
+         ["--config", os.path.join(CONFIGS, "gmm_fast.yaml"), "--alphas", "1.0", "2.0",
+          "--seeds", "0", "--num-samples", "1000", "--out", os.path.join(tmp, "alpha.csv"),
+          "training.n_iterations=5"],
+         "2 alphas x 1 seed (6 x 3), 5 iterations (200), 1000 eval samples (10000)"),
+        ("aldp_torsion_scan", aldp_torsion_scan.main,
+         ["--n-grid", "72", "--out", os.path.join(tmp, "scan.csv"), "--test-set",
+          os.path.join(run, "test_set.npy"), "--run-config", aldp_config,
+          f"data.transform={ref}"], "none (the full 72 x 72 grid)"),
+        ("aldp_phi_overlay", aldp_phi_overlay.main,
+         ["--run", run, "--config", aldp_config, "--n-samples", "4000", "--scan",
+          os.path.join(tmp, "scan.csv"), "--out-prefix", os.path.join(tmp, "overlay"),
+          f"data.transform={ref}"], "4000 flow samples (50000)"),
+        ("aldp_external_anchor", aldp_external_anchor.main,
+         [*ANCHOR_CUTS, "--test-set", os.path.join(run, "test_set.npy"), "--data-path", ref,
+          "--out", os.path.join(tmp, "anchor.json")],
+         "--quick, then 512 samples of 20 sweeps per fresh set (2000 of 200), 64 chains x "
+         "30 sweeps for R-hat (64 x 60)"),
+        ("many_well_demo", many_well_demo.main, ["--iters", "3"], "3 iterations (500)"),
+        ("gmm_demo", gmm_demo.main, ["--iters", "3", "--out", os.path.join(tmp, "gmm_demo.png")],
+         "3 iterations (2000)"),
+        ("aldp_demo --train", aldp_demo.main,
+         ["--train", "--iters", "2", "--n-samples", "1000", "--config", aldp_config, "--out",
+          os.path.join(tmp, "aldp_demo.png"), f"data.transform={ref}"],
+         "2 iterations (300), 1000 samples (5000), phase 11's reference frame"),
+    ]
+    seconds, results = {}, {}
+    _zero_counts()
+    for name, main, args, cuts in runs:
+        print(f"[{card}] phase 16(e) {name} cut (length only): {cuts}")
+        t0 = time.time()
+        results[name] = main(args + dev)
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+    _no_kernel_launched("the phase-16 scripts")
+
+    gt = results["ground_truth_marginals"]
+    assert gt["pair_dev"] < 0.01 and gt["triple_dev"] < 0.01
+    assert results["rejection_sampling_vis"]["min_log_gap"] > 0
+    alpha_rows = _finite_csv(os.path.join(tmp, "alpha.csv"))
+    assert [float(r["alpha"]) for r in alpha_rows] == [1.0, 2.0]
+    scan = np.loadtxt(os.path.join(tmp, "scan.csv"), delimiter=",", skiprows=1)
+    assert scan.shape == (72 * 72, 3) and np.isfinite(scan).all()
+    for path in ("overlay.json", "anchor.json"):
+        with open(os.path.join(tmp, path)) as f:
+            _finite_json(json.load(f), path)
+    assert len(results["many_well_demo"]["fab_alpha_div"]) >= 1
+    assert np.isfinite(results["aldp_demo --train"]["mean_log_q"])
+    scan_out = results["aldp_torsion_scan"]
+    anchor = results["aldp_external_anchor"]
+    overlay = results["aldp_phi_overlay"]
+    print(f"[{card}] phase 16(e) ground truth: per-well P(x > 0) "
+          f"{np.round(gt['marginals'][:4], 4).tolist()}..., pair / triple deviation "
+          f"{gt['pair_dev']:.4f} / {gt['triple_dev']:.4f}; alpha study ess_flow "
+          + ", ".join(f"{float(r['alpha'])}: {float(r['eval_ess_flow']):.4g}" for r in alpha_rows))
+    print(f"[{card}] phase 16(e) torsion scan: lowest minima "
+          + "; ".join(f"E {e:.2f} at ({math.degrees(a):.0f}, {math.degrees(b):.0f}) deg"
+                      for e, a, b in scan_out["minima"][:3])
+          + f"; F(-150) - F(-80) {scan_out['F_c5_minus_c7']:.2f} kcal/mol; test set "
+          f"{scan_out['test_set']}")
+    print(f"[{card}] phase 16(e) phi overlay: peaks {overlay['peaks']}; anchor: R-hat "
+          f"{anchor['rhat_alphaR_indicator']:.4f}, test-set basins "
+          f"{anchor['test_set_basins']}")
+    print(f"[{card}] phase 16(e) seconds per script: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"seconds": seconds}
+
+
+def phase16_path(device, card, tmp) -> dict:
+    """Phase 16: the port's bench, bench_scaling and bench_lgcp_kernel, LGCP's
+    in-graph factor through evaluate.py, and the analysis, ALDP-physics and demo
+    scripts. Without matplotlib no PNG is written."""
+    from fab_tpu_torch.utils.plotting import PLOTS_OFF, plots_available
+
+    t0 = time.time()
+    out = {"bench": bench_path(card)}
+    out["lgcp_kernel"] = lgcp_kernel_bench_path(card)
+    out["in_graph"] = in_graph_eval_path(device, card, tmp)
+    out["scripts"] = scripts_path(device, card, tmp)
+    pngs = [os.path.join(d, f) for d, _, files in os.walk(tmp) for f in files
+            if f.endswith(".png")]
+    if not plots_available():
+        assert not pngs, pngs
+        print(f"[{card}] phase 16: {PLOTS_OFF}; no PNG written")
+    out["phase_s"] = time.time() - t0
+    print(f"[{card}] phase 16: {out['phase_s']:.1f} s (budget {PHASE16_BUDGET_S} s)")
+    return out
+
+
 def drive(device, gen, name, card) -> list:
-    """Phases 2-15; returns the kernel records."""
+    """Phases 2-16; returns the kernel records."""
     t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
@@ -2472,6 +2802,10 @@ def drive(device, gen, name, card) -> list:
         phase_s["15 model axis, wrappers"] = time.time() - t0
         print(f"[{card}] phase 15: {time.time() - t15:.1f} s")
 
+        # ------------------------------------------------ 16. bench, scripts
+        p16 = phase16_path(device, card, tmp)
+        phase_s["16 bench, scripts"] = time.time() - t0
+
     kernels = [
         {
             "name": "fused_realnvp_pass",
@@ -2512,6 +2846,9 @@ def drive(device, gen, name, card) -> list:
                 "collective_ms": dp["collective_ms"],
                 "collectives_ms_per_step": dp["collectives_ms_per_step"],
             },
+            "bench": dict(p16["bench"]["bench"], median_fused_step_ms=p16["bench"]["fused_ms"],
+                          median_plain_step_ms=p16["bench"]["plain_ms"],
+                          bench_scaling=p16["bench"]["scaling"]),
             "launches_model_axis": sum(p[0] for p in ma["fused"]["k1_per_step"]),
             "model_axis": {
                 "grid": [1, 2], "backend": "gloo (two ranks on one card)",
@@ -2555,6 +2892,8 @@ def drive(device, gen, name, card) -> list:
             "rebuilds_per_step": lg["rebuilds_per_step"],
             "rebuild_ms_per_coupling": k2_rebuild,
             "launches_evaluation": tools["eval"]["k2_launches"],
+            "bench_lgcp_kernel": p16["lgcp_kernel"],
+            "launches_in_graph_evaluation": p16["in_graph"]["launches"]["true"],
             "launches_model_axis": ma["lgcp"]["counts"]["k2"],
             "model_axis": {"grid": [1, 2], "step_ms": ma["lgcp"]["step_ms"],
                            "rebuilds_per_step": ma["lgcp"]["counts"]["k2_rebuilds"],

@@ -12,7 +12,9 @@ and computes the ESS and the target's metrics with the AIS target set to p; a na
 whose method (the part before ``_seed``) starts with ``snf`` builds the SNF flow,
 one starting with ``rsb`` the resampled (LARS) base. With
 ``flow.fused_coupling=true`` an LGCP checkpoint is evaluated through the fused
-coupling kernel (K2) on the card.
+coupling kernel (K2) on the card, and with ``target.in_graph_kernel=true`` its
+target builds chol(K) as ``fab_tpu``'s in-graph option does
+(``experiments/eval_lgcp_trajectory.sh``).
 """
 from __future__ import annotations
 
@@ -66,13 +68,10 @@ def build_target(cfg, dtype=torch.float32, device="cuda"):
     if "grid_size" in cfg.target:
         from fab_tpu_torch.targets import LogGaussianCoxProcess
 
-        if cfg.target.get("in_graph_kernel"):
-            raise NotImplementedError(
-                "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 10: the "
-                "port keeps chol(K)^T on the device, built once)"
-            )
-        return LogGaussianCoxProcess(grid_size=cfg.target.grid_size, dtype=dtype,
-                                     device=device)
+        return LogGaussianCoxProcess(
+            grid_size=cfg.target.grid_size,
+            in_graph_kernel=bool(cfg.target.get("in_graph_kernel", False)),
+            dtype=dtype, device=device)
     from fab_tpu_torch.targets import ManyWellEnergy
 
     return ManyWellEnergy(dim=cfg.target.dim, device=device)

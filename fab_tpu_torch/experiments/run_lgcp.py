@@ -4,7 +4,9 @@ the repository).
     python3 -m fab_tpu_torch.experiments.run_lgcp --config experiments/configs/lgcp.yaml \
         [--device cpu] [flow.fused_coupling=true ...]
 
-With ``flow.fused_coupling=true`` every coupling runs through K2.
+With ``flow.fused_coupling=true`` every coupling runs through K2; with
+``target.in_graph_kernel=true`` the target builds chol(K) from its float32 grid
+coordinates in the run's dtype (``targets/lgcp.py``).
 """
 from __future__ import annotations
 
@@ -17,12 +19,8 @@ from fab_tpu_torch.utils.training import maybe_enable_x64
 
 def main(argv=None):
     cfg, device = parse_args(argv, "experiments/configs/lgcp.yaml")
-    if cfg.target.get("in_graph_kernel"):
-        raise NotImplementedError(
-            "target.in_graph_kernel is not ported (ROADMAP Queue 1, item 10: the port "
-            "keeps chol(K)^T on the device, built once)"
-        )
     target = LogGaussianCoxProcess(grid_size=cfg.target.grid_size,
+                                   in_graph_kernel=bool(cfg.target.get("in_graph_kernel", False)),
                                    dtype=maybe_enable_x64(cfg), device=device)
     if target.dim != cfg.target.dim:
         raise ValueError(f"target.dim={cfg.target.dim} but the grid gives {target.dim}")

@@ -9,13 +9,20 @@ x = mu + L e, L = chol(K):
 
 The kernel matrix, its f64 Cholesky factor and the synthetic counts are built with
 the same numpy calls and seed as ``fab_tpu``, so they are the same numbers in both
-packages. L^T is kept on the device once, in the target's dtype. ``fab_tpu``'s
-``in_graph_kernel`` option (a workaround for XLA's transport limits) is not ported.
+packages. L^T is kept on the device once, in the target's dtype.
+
+``in_graph_kernel=True`` follows ``fab_tpu``'s in-graph factor instead
+(``_chol``): L is built from the float32 grid coordinates, cast to the latent's
+dtype, with the distances, the kernel, the nugget and the Cholesky factorisation
+all in that dtype. It differs from the f64 factor above by up to ~9e-7 at grid 40.
+L does not depend on the latent, so it is built once per (dtype, device), on first
+use, and cached, as XLA computes it once per compiled program; the f64 factor is
+then not kept on the device.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,11 +40,13 @@ class LogGaussianCoxProcess(TargetDistribution):
         inv_beta: float = 33.0,
         data_seed: int = 0,
         nugget: float = 1e-6,
+        in_graph_kernel: bool = False,
         dtype=torch.float32,
         device="cuda",
     ):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.in_graph_kernel = in_graph_kernel
         m = grid_size
         self.grid_size = m
         self.dim = m * m
@@ -50,11 +59,13 @@ class LogGaussianCoxProcess(TargetDistribution):
         idx = np.arange(m)
         xx, yy = np.meshgrid(idx, idx, indexing="ij")
         coords = np.stack([xx.ravel(), yy.ravel()], -1).astype(np.float64) / m
+        self._coords = coords.astype(np.float32)
+        self._chol_cache: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}
         dists = np.linalg.norm(coords[:, None, :] - coords[None, :, :], axis=-1)
         k = sigma2 * np.exp(-dists * inv_beta) + self.nugget * np.eye(self.dim)
         self.chol_np = np.linalg.cholesky(k)
         as_t = lambda a: torch.tensor(a, dtype=dtype, device=self.device)
-        self._chol_t = as_t(np.ascontiguousarray(self.chol_np.T))
+        self._chol_t = None if in_graph_kernel else as_t(np.ascontiguousarray(self.chol_np.T))
 
         # Deterministic synthetic counts from the generative model.
         rng = np.random.RandomState(data_seed)
@@ -62,8 +73,22 @@ class LogGaussianCoxProcess(TargetDistribution):
         self.counts = as_t(rng.poisson(self.cell_area * np.exp(x_true)))
         self._x_true = as_t(x_true)
 
+    def _chol(self, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+        """The in-graph chol(K) from the float32 coordinates, computed in ``dtype``
+        on ``device`` on first use and cached (``fab_tpu/targets/lgcp.py:95-103``)."""
+        key = (dtype, device)
+        if key not in self._chol_cache:
+            c = torch.as_tensor(self._coords, dtype=dtype, device=device)
+            d = torch.linalg.vector_norm(c[:, None, :] - c[None, :, :], dim=-1)
+            k = self.sigma2 * torch.exp(-d * self.inv_beta) + self.nugget * torch.eye(
+                self.dim, dtype=dtype, device=device)
+            self._chol_cache[key] = torch.linalg.cholesky(k)
+        return self._chol_cache[key]
+
     def latent_to_field(self, e: torch.Tensor) -> torch.Tensor:
         """Whitened latent e -> log-intensity field x = mu + L e."""
+        if self.in_graph_kernel:
+            return self.mu + e @ self._chol(e.dtype, e.device).T
         return self.mu + e @ self._chol_t.to(e.dtype)
 
     def log_prob(self, e: torch.Tensor) -> torch.Tensor:

@@ -114,10 +114,16 @@ def test_fab_tpu_checkpoint_evaluates_to_fab_tpu_numbers(tmp_path, monkeypatch):
 
 
 def test_evaluate_refuses_the_in_graph_kernel():
+    """The option was refused until it was ported: ``build_target`` now passes
+    ``target.in_graph_kernel`` through (fab_tpu's ``experiments/evaluate.py:66``), and
+    the target keeps no f64 factor on the device (tests/test_torch_lgcp_in_graph.py
+    holds its numbers)."""
     cfg = apply_overrides(load_config(str(CONFIGS / "lgcp.yaml")),
                           LGCP_TINY + ["target.in_graph_kernel=true"])
-    with pytest.raises(NotImplementedError, match="in_graph_kernel"):
-        evaluate.build_target(cfg, DT, "cpu")
+    target = evaluate.build_target(cfg, DT, "cpu")
+    assert target.in_graph_kernel and target._chol_t is None
+    cfg.target.in_graph_kernel = False
+    assert not evaluate.build_target(cfg, DT, "cpu").in_graph_kernel
 
 
 GMM_TINY = ["flow.n_layers=2", "flow.layer_nodes_per_dim=4", "training.batch_size=32",

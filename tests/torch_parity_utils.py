@@ -9,6 +9,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import fab_tpu_torch.random as port_random
@@ -390,3 +391,14 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
     assert bool(info["update_applied"]) and bool(info_j["update_applied"])
     assert float(info["loss"]) != 0.0 and int(info["n_valid"]) > 0
     return info, new, info_j, new_j
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a test module's torch work (import this name into the
+    module to use it): the suite runs six workers on the machine's cores, and
+    OpenMP threads that outnumber the cores wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
