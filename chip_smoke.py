@@ -59,7 +59,7 @@ Phases:
      bins, HMC 8 x 4 leapfrog steps of 0.1, batch 1024, buffer 512 / 8 batches, 8
      replay updates, the chirality filter, cosine schedule with 1000 warm-up
      updates), f32, cut in length only (ALDP_CUTS, printed): the model built
-     directly (minimisation, test set, init_state and 5 steps timed, the LR of
+     directly (minimisation, test set, init_state and ALDP_STEPS (3) steps timed, the LR of
      every update printed, a profiled step), then the runner for 3 iterations with
      one eval and the final evaluation, and its resume for one iteration.
  12. The resampled (LARS) base and stochastic normalizing flows, f32/f64 as each
@@ -68,12 +68,13 @@ Phases:
      1024 points; 12 spline blocks of width 256, 8 bins; HMC 8 x 4; batch 1024;
      prioritised buffer; the chirality filter) and aldp_snf.yaml (the same flow over
      the gauss-uni base with 3 MH layers of 10 steps of the vacuum force field, so
-     30 target evaluations inside every log q) through run_aldp: init_state and 3
-     timed steps, one eval (the SNF 2 steps and none, and its buffer starts at one
+     30 target evaluations inside every log q) through run_aldp: init_state and 2
+     timed steps, one eval (the SNF 1 step and none, and its buffer starts at one
      batch: SNF_CUTS), the final evaluation, a profiled step, and the LARS acceptance (Z
      and the mean a(z)); aldp_ml.yaml
-     (vacuum, ML) for 2 iterations between them. The three share rbd's vacuum
-     reference frame and test set. Then GMM-40 through run_gmm on gmm.yaml with
+     (vacuum, ML) for 2 iterations between them. The three share phase 11's
+     minimised reference frame (no second 4000-step minimisation) and rbd's vacuum
+     test set. Then GMM-40 through run_gmm on gmm.yaml with
      flow.resampled_base=true and with flow.use_snf=true (5 MH layers of one step
      of 5.0): 5 iterations, one eval, 5 timed steps, one more with CUDA's sync
      debug mode on "error" (the log-q keys wait for no device); each writes one
@@ -82,7 +83,7 @@ Phases:
      force field on the card (1024 test-set positions of phase 11, implicit
      solvent, f64), then aldp.yaml (phase 11's cuts and reference frame) on the jax
      (on-device) backend and on host_cpp: init_state, 3 timed steps each, taken in
-     turns (HOST_ORDER), and a profiled one: median step, device busy, device ops
+     turns (HOST_ORDER: 2 each), and a profiled one: median step, device busy, device ops
      and server calls per step. (b) profile_aldp at batch 1024 on both backends, its repeats
      cut to 2 (printed). (c) evaluate.py on phase 9's GMM-40 checkpoint and phase
      12's as rsb_* and snf_*, and on the LGCP-1600 flow of phases 6-7 with
@@ -128,8 +129,8 @@ Phases:
      tensor on the card, and one more step under the sync check.
  16. The port's bench and scripts, cut in length only where printed (PHASE16_BUDGET_S
      240 s; the phase prints its wall time): (a) python3 -m fab_tpu_torch.bench at
-     bench.py's settings (ManyWell-32 as phase 3; 2 warm-up and 10 timed steps of the
-     fused and the plain trainer in turns): its one JSON line with bench.py's keys,
+     bench.py's settings (ManyWell-32 as phase 3; 2 warm-up and 5 timed steps of the
+     fused and the plain trainer in turns, BENCH_CUTS from its default 10): its one JSON line with bench.py's keys,
      value and vs_baseline finite and > 0, mfu in (0, 1], K1 38 + 29 per fused step
      from its stderr. (b) python3 -m fab_tpu_torch.bench_scaling --mesh-sizes 1 under
      NCCL (batch 2048 per device, 1 warm-up and 2 steps): efficiency_vs_1 1.0. (c)
@@ -145,6 +146,21 @@ Phases:
      aldp_phi_overlay and aldp_external_anchor on phase 11's run and frame,
      many_well_demo, gmm_demo and aldp_demo --train: every CSV, JSON and .npz value finite, no kernel launched,
      and without matplotlib no PNG written.
+ 17. The experiments/*.sh studies as the port's modules (fab_tpu_torch/experiments/
+     <stem>.py; PHASE17_BUDGET_S 150 s, the phase prints its wall time): (a) each
+     one's --dry-run lists its script's cell count; (b) one cell of each training
+     study runs through its runner's subprocess on the card, cut in length only
+     (STUDY_CUTS, printed: 2 iterations, one eval, one checkpoint): exit 0, its
+     checkpoint written, its CSV finite (MAY_BE_INFINITE aside); (c)
+     eval_gmm_study on the two gmm_study runs (samples cut to GMM_STUDY_EVAL_N) and
+     the unchanged experiments/latex_table.py's table; (d) eval_lgcp_trajectory on
+     the LGCP-1600 flow after phase 6's steps and after phase 7's run, with
+     flow.fused_coupling=true, in this process: K2's counts zeroed just before and
+     read just after (> 0 asserted), every column finite; (e) the options the port
+     gained to match fab_tpu (ESS of normalised weights, the chirality filter's
+     options, circular_bound, PeriodicShift's bound, a Flow's default base,
+     guarded_update's flow_params, init_info) on card tensors against the CPU, f64,
+     within 1e-12.
   The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
   fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
   6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
@@ -783,10 +799,11 @@ def many_well_runner(card, tmp):
 # filter stay the config's. The buffer starts at one batch: the first steps' replay
 # draws of 8 x 1024 rows then take rows not yet written (priority -inf, masked out
 # of the loss), which cost the same flow passes as written ones.
+ALDP_STEPS = 3  # phase 11's timed steps of the model built directly
 ALDP_GROUPS = {"GEMMs": ["gemm", "cutlass", "sm90_xmma"], "reductions": ["reduce"],
                "gather / scatter": ["index", "gather", "scatter"]}
 ALDP_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=1",
-             "training.n_test_samples=2000", "training.test_mcmc_steps=100",
+             "training.n_test_samples=2000", "training.test_mcmc_steps=50",
              "training.final_eval_samples=2000", "training.n_eval=1",
              "training.n_checkpoints=1"]
 
@@ -871,7 +888,7 @@ def aldp_path(device, gen, card, tmp):
           f"({int(state.buffer_state.n_added) // batch} AIS passes of {batch}) in "
           f"{init_s:.2f} s")
     step_ms = []
-    for _ in range(N_STEPS):
+    for _ in range(ALDP_STEPS):
         count = int(state.opt_state.count)
         t0 = time.time()
         state, info = trainer.train_step(state, gen, batch)
@@ -889,7 +906,7 @@ def aldp_path(device, gen, card, tmp):
         assert math.isfinite(frac), "ALDP: no frac_filter_pass"
     steady = statistics.median(step_ms[1:])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[{card}] ALDP FAB+buffer train step: median {steady:.1f} ms over steps 2-{N_STEPS} "
+    print(f"[{card}] ALDP FAB+buffer train step: median {steady:.1f} ms over steps 2-{ALDP_STEPS} "
           f"(all: {', '.join(f'{v:.1f}' for v in step_ms)}), {batch / steady * 1e3:.1f} AIS "
           f"samples/s; peak device memory {peak_gib:.2f} GiB")
     torch.cuda.synchronize()
@@ -957,16 +974,16 @@ def _csv_rows_in(run_dir):
 # size, the 8 replay updates, the schedule and the filter stay each config's. The
 # rbd buffer starts at 7 batches, so that with the first step's AIS batch it holds
 # the 8 x 1024 rows that step's replay draws.
-LARS_SNF_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=7",
+LARS_SNF_CUTS = ["training.max_iter=2", "training.replay_buffer.min_length=7",
                  "training.n_test_samples=2000", "training.test_mcmc_steps=50",
                  "training.final_eval_samples=2000", "training.n_eval=1",
                  "training.n_checkpoints=1"]
-# The SNF's AIS pass takes ~30 s, so it runs 2 iterations, its buffer starts at one
+# The SNF's AIS pass takes ~30 s, so it runs 1 iteration, its buffer starts at one
 # batch, like phase 11's (the first steps' replay draws take unwritten rows, at the
 # same cost), and it leaves out the trainer's eval: two more AIS passes whose only
 # output on ALDP is two ESS values (the target has no eval metrics of its own; the
 # final evaluation runs). GMM-40 with flow.use_snf=true runs an eval.
-SNF_CUTS = (["training.max_iter=2", "training.replay_buffer.min_length=1"]
+SNF_CUTS = (["training.max_iter=1", "training.replay_buffer.min_length=1"]
             + LARS_SNF_CUTS[2:5] + ["training.n_eval=0"] + LARS_SNF_CUTS[6:])
 
 
@@ -1085,7 +1102,7 @@ def lars_snf_path(device, gen, card, tmp):
     """Phase 12: aldp_rbd.yaml (the LARS base) and aldp_snf.yaml (3 MH layers of 10
     steps of the vacuum force field inside every log q) through run_aldp at full
     width, then GMM-40 with flow.resampled_base=true and with flow.use_snf=true. The
-    two ALDP runs share one vacuum reference frame and test set. No kernel runs on
+    two ALDP runs share phase 11's minimised frame and one test set. No kernel runs on
     this path (asserted)."""
     import numpy as np
     import torch
@@ -1096,8 +1113,10 @@ def lars_snf_path(device, gen, card, tmp):
 
     _zero_counts()
     out = {}
-    trainer, rbd_root, out["rbd"] = _aldp_variant("aldp_rbd.yaml", LARS_SNF_CUTS, [], gen,
-                                                  card, "ALDP-rbd", tmp)
+    trainer, rbd_root, out["rbd"] = _aldp_variant(
+        "aldp_rbd.yaml", LARS_SNF_CUTS,
+        [f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}"], gen, card, "ALDP-rbd",
+        tmp)
     base = trainer.model.flow.base
     assert isinstance(base, ResampledGaussianBase) and base.T == 100
     assert base.sizes == [60, 256, 256, 1] and tuple(base.z_points.shape) == (1024, 60)
@@ -1188,8 +1207,8 @@ def lars_snf_path(device, gen, card, tmp):
 # aldp.yaml's phase-13 steps and profile: cut in length only, as phase 11 (ALDP_CUTS);
 # the profiler's repeats cut from 20 (10 for the train step) to PROFILE_REPEATS.
 PROFILE_REPEATS = 2
-# aldp.yaml's steps on the two backends, 3 each, in turns (ABBAAB).
-HOST_ORDER = ("jax", "host_cpp", "host_cpp", "jax", "jax", "host_cpp")
+# aldp.yaml's steps on the two backends, 2 each, in turns (ABBA).
+HOST_ORDER = ("jax", "host_cpp", "host_cpp", "jax")
 ALDP_BATCH = 1024  # aldp.yaml's
 
 
@@ -2442,6 +2461,7 @@ def wrappers_path(device, card) -> dict:
 # Phase 16's own cuts (length only; printed). The bench runs at its defaults.
 PHASE16_BUDGET_S = 240
 SCALING_CUTS = ["--batch-per-device", "2048", "--steps", "2", "--warmup", "1"]
+BENCH_CUTS = ["--steps", "5"]
 # 16(d)'s limits, set from readings on an H100 (PERF.md §6): the in-graph f32 L
 # against the f64 factor cast to f32, max |dL| 1.103e-6; the evaluation's flow-side
 # columns 0 to 7.9e-8 relative apart; the control's (the f64 factor rounded to half
@@ -2486,9 +2506,11 @@ def _finite_json(tree, label, path=""):
 
 
 def bench_path(card) -> dict:
-    """16(a) the port's bench at bench.py's settings; 16(b) bench_scaling at one rank
-    under NCCL, cut in length only."""
-    out, err, seconds = _module_run("fab_tpu_torch.bench", [], "fab_tpu_torch.bench", 900)
+    """16(a) the port's bench at bench.py's settings, its timed steps cut (BENCH_CUTS);
+    16(b) bench_scaling at one rank under NCCL, cut in length only."""
+    print(f"[{card}] phase 16(a) bench cut (length only): {' '.join(BENCH_CUTS)} (default 10)")
+    out, err, seconds = _module_run("fab_tpu_torch.bench", BENCH_CUTS, "fab_tpu_torch.bench",
+                                    900)
     (line,) = [d for d in _json_lines(out) if "metric" in d]
     assert sorted(line) == sorted(["metric", "value", "unit", "vs_baseline", "mfu",
                                    "achieved_flops_per_s"]), line
@@ -2501,7 +2523,7 @@ def bench_path(card) -> dict:
     print(f"[{card}] phase 16(a) python3 -m fab_tpu_torch.bench ({seconds:.1f} s): "
           + json.dumps(line))
     print(f"[{card}] phase 16(a) bench median step: fused {medians.group(1)} ms, plain "
-          f"{medians.group(2)} ms (10 each, in turns); K1 38 launches + 29 recomputes per "
+          f"{medians.group(2)} ms (5 each, in turns); K1 38 launches + 29 recomputes per "
           "fused step; " + [ln for ln in err.splitlines() if ln.startswith("FLOPs")][0])
     for ln in err.splitlines():
         if ln.startswith("median step") or ln.startswith("card:"):
@@ -2748,8 +2770,210 @@ def phase16_path(device, card, tmp) -> dict:
     return out
 
 
+PHASE17_BUDGET_S = 150
+# The study modules, each with its script's cell count, and the one cell of each
+# training study that the phase runs (the script arguments that select it).
+STUDIES = [
+    ("run_gmm_method_study", [], 9, ["--only", "flow_reverse_kl_s0"]),
+    ("run_gmm_method_study_r3", ["target_kld 0", "rsb 1", "snf 2"], 3, ["target_kld 0"]),
+    ("run_gmm_ess_ablation", [], 5, ["control"]),
+    ("run_init_parity_ab", [], 4, ["fabbuf_torch"]),
+    ("run_mw_method_study", [], 12, ["--only", "fab_no_buffer_s0"]),
+    ("run_matmul_cells", [], 4, ["--only", "high_s1", "training.min_buffer_length=8192"]),
+]
+STUDY_CUTS = ["training.n_iterations=2", "training.n_flow_forward_pass=null",
+              "evaluation.n_eval=1", "evaluation.n_checkpoints=1"]
+GMM_STUDY_EVAL_N = 5000  # eval_gmm_study's 50,000 samples, cut
+TRAJECTORY_EVAL_N = 2 * LG_BATCH  # eval_lgcp_trajectory's 2048 samples, cut
+# Columns that may be infinite after two steps of a fresh flow, in fab_tpu too: the
+# min / max of the replay weights over a batch with no valid row (train.py:727-728),
+# and the Z errors of the min-variance AIS target p^2 / q, whose log-weights
+# overflow in f32 for a flow this far from p.
+MAY_BE_INFINITE = ("w_adjust_min", "w_adjust_max", "_MSE_Z_estimate_min_var_target",
+                   "_MSE_log_Z_estimate_min_var_target")
+
+
+def _quiet(fn, argv):
+    """fn(argv) with its standard output captured: (result, the output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(argv)
+    return result, out.getvalue()
+
+
+def _study_run_rows(run_root) -> list:
+    """The one run directory under ``run_root``: its checkpoint is there, the CSV's
+    values are finite (MAY_BE_INFINITE aside); (the rows, the last eval row)."""
+    (run_dir,) = [os.path.join(run_root, d) for d in os.listdir(run_root)]
+    assert os.path.exists(os.path.join(run_dir, "model_checkpoints", "iter_2", "state.pkl")), \
+        f"{run_dir}: no checkpoint"
+    with open(os.path.join(run_dir, "logging_hist.csv")) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        bad = [k for k, v in r.items() if v != "" and not k.endswith(MAY_BE_INFINITE)
+               and not math.isfinite(float(v))]
+        assert not bad, f"{run_dir}: not finite {bad}"
+    evals = [r for r in rows if r.get("eval_ess_flow_p_target") or r.get("eval_ess_flow")]
+    assert evals, f"{run_dir}: no eval row"
+    return rows, evals[-1]
+
+
+def study_path(device, card, tmp) -> dict:
+    """17(a) every study's dry run (its script's cell count); 17(b) one cell of each
+    training study on the card, cut in length only (STUDY_CUTS); 17(c)
+    eval_gmm_study on the GMM runs and its LaTeX table."""
+    import importlib
+
+    root = os.path.join(tmp, "studies")
+    dev = ["--device", str(device), "--results-root", root]
+    studies = {m: importlib.import_module(f"fab_tpu_torch.experiments.{m}")
+               for m, *_ in STUDIES}
+    for module, args, count, _ in STUDIES:
+        cells, out = _quiet(studies[module].main, [*dev, "--dry-run", *args])
+        assert len(cells) == count == len(out.splitlines()), (module, len(cells), out)
+    print(f"[{card}] phase 17(a) dry runs: "
+          + ", ".join(f"{m} {c}" for m, _, c, _ in STUDIES) + " cells")
+    print(f"[{card}] phase 17(b) one cell per training study, cut (length only): "
+          f"{' '.join(STUDY_CUTS)} (scripts: their budgets, evals and checkpoints); the "
+          "matmul cell's buffer fill also training.min_buffer_length=8192 (65536)")
+    seconds = {}
+    for module, _, _, select in STUDIES:
+        t0 = time.time()
+        results, out = _quiet(studies[module].main, [*dev, *select, *STUDY_CUTS])
+        seconds[module] = time.time() - t0
+        ((cell, rc),) = results
+        if rc != 0:
+            with open(os.path.join(root, "logs", f"{cell.log}.log")) as f:
+                print(f.read()[-6000:])
+            raise AssertionError(f"{module} {cell.name} exited {rc}")
+        rows, last = _study_run_rows(os.path.join(root, cell.save_path))
+        ess = last.get("eval_ess_flow_p_target") or last["eval_ess_flow"]
+        print(f"[{card}] phase 17(b) {module} {cell.name}: rc 0, {seconds[module]:.1f} s, "
+              f"{len(rows)} CSV rows, eval ESS of the flow {float(ess):.4g}")
+
+    from fab_tpu_torch.experiments import eval_gmm_study
+
+    t0 = time.time()
+    found, out = _quiet(eval_gmm_study.main, [*dev, str(GMM_STUDY_EVAL_N)])
+    seconds["eval_gmm_study"] = time.time() - t0
+    assert [n for n, _ in found] == ["flow_reverse_kl_seed0", "target_kld_seed0"], found
+    _finite_csv(os.path.join(root, "reports", "gmm_study_results.csv"))
+    with open(os.path.join(root, "reports", "gmm_study_table.tex")) as f:
+        table = f.read()
+    assert "flow\\_reverse\\_kl" in table and "target\\_kld" in table, table
+    print(f"[{card}] phase 17(c) eval_gmm_study {GMM_STUDY_EVAL_N} samples (50000), "
+          f"{seconds['eval_gmm_study']:.1f} s: {len(found)} runs, latex_table.py wrote "
+          f"{len(table.splitlines())} lines")
+    return {"seconds": seconds}
+
+
+def trajectory_path(device, card, tmp) -> dict:
+    """17(d) eval_lgcp_trajectory on the LGCP-1600 flow checkpoints of phases 6-7
+    (iter_<n> after phase 6's steps, iter_<n + 2> after phase 7's run) through K2:
+    its counts zeroed just before and read just after, every column finite."""
+    import torch
+
+    from fab_tpu_torch.experiments import eval_lgcp_trajectory
+
+    run_dir = os.path.join(tmp, "lgcp_run")
+    root = os.path.join(tmp, "studies")
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    found, out = _quiet(eval_lgcp_trajectory.main, [
+        "--device", str(device), "--results-root", root, run_dir, str(TRAJECTORY_EVAL_N),
+        "flow.fused_coupling=true"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = _counts()["k2"]
+    assert launches > 0, "eval_lgcp_trajectory: K2 not launched"
+    rows = _finite_csv(os.path.join(root, "reports", "lgcp_trajectory.csv"))
+    assert [r["model_name"] for r in rows] == [n for n, _ in found] and len(found) == 2, found
+    print(f"[{card}] phase 17(d) eval_lgcp_trajectory {TRAJECTORY_EVAL_N} samples (2048) "
+          f"with flow.fused_coupling=true on {', '.join(n for n, _ in found)}: "
+          f"{seconds:.1f} s, K2 launches {launches}; "
+          + "; ".join(f"{r['model_name']} flow_post_mean_field_rmse "
+                      f"{float(r['flow_post_mean_field_rmse']):.4g}, eval_ess_ais "
+                      f"{float(r['eval_ess_ais']):.4g}" for r in rows))
+    return {"launches": launches, "seconds": seconds}
+
+
+def options_path(device, card) -> dict:
+    """17(e) fab_tpu's options that the port gained, once on card tensors (f64),
+    each against the same call on the CPU: within 1e-12, masks equal."""
+    import numpy as np
+    import torch
+
+    from fab_tpu_torch.flows.base import Flow, UniformGaussianBase
+    from fab_tpu_torch.flows.defensive import DefensiveMixture
+    from fab_tpu_torch.flows.splines import PeriodicShift
+    from fab_tpu_torch.sampling import HamiltonianMonteCarlo, Metropolis
+    from fab_tpu_torch.train import guarded_update, make_optimizer
+    from fab_tpu_torch.utils.aldp_eval import make_chirality_filter
+    from fab_tpu_torch.utils.numerical import effective_sample_size
+
+    rng = np.random.default_rng(17)
+    w = rng.random(4096)
+    x = rng.uniform(-3.0, 3.0, (4096, 60))
+    mask = rng.random(4096) > 0.1
+
+    def run(dev):
+        t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+        out = {"ess_normalised": effective_sample_size(t(w / w.sum()), normalised=True),
+               "chirality": make_chirality_filter(raw=True, threshold=0.5, mean_diff=1.0)(
+                   t(x), torch.tensor(mask, device=dev))}
+        base = UniformGaussianBase(60, (0, 5, 7), circular_bound=2.0, dtype=torch.float64,
+                                   device=dev)
+        out["uniform_base"] = base.log_prob(t(x))
+        shift = PeriodicShift(60, (0, 5, 7), 1.3, bound=2.0, device=dev)
+        out["periodic_shift"] = shift.forward_and_log_det(t(x))[0]
+        flow = Flow(60, [shift]).to(device=dev, dtype=torch.float64)
+        assert flow.base_dist is flow.base and flow.event_shape == (60,)
+        assert DefensiveMixture(flow).event_shape == (60,)
+        out["flow_default_base"] = flow.log_prob(t(x))
+        p = t(x[:4, :8])
+        opt = make_optimizer(1e-2, 1.0)
+        guarded_update(opt, [t(x[4:8, :8])], opt.init([p]), flow_params=[p],
+                       loss=t(1.0))
+        out["guarded_update"] = p
+        for op in (HamiltonianMonteCarlo(2, n_outer=3), Metropolis(2, n_updates=2)):
+            info = op.init_info(device=dev)
+            assert info["p_accept"].device.type == torch.device(dev).type
+        return {k: v.detach().cpu() for k, v in out.items()}
+
+    card_out, cpu_out = run(device), run("cpu")
+    gaps = {}
+    for k in card_out:
+        a, b = card_out[k], cpu_out[k]
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), k
+            gaps[k] = 0.0
+        else:
+            assert torch.equal(torch.isinf(a), torch.isinf(b)), k
+            fin = torch.isfinite(b)
+            gaps[k] = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+            assert gaps[k] <= 1e-12, (k, gaps[k])
+    print(f"[{card}] phase 17(e) the options fab_tpu has and the port gained, on the card "
+          "against the CPU (f64): " + ", ".join(f"{k} {v:.1e}" for k, v in gaps.items()))
+    return gaps
+
+
+def phase17_path(device, card, tmp) -> dict:
+    """Phase 17: the experiments/*.sh studies and the options the port gained."""
+    t0 = time.time()
+    out = {"studies": study_path(device, card, tmp)}
+    out["trajectory"] = trajectory_path(device, card, tmp)
+    out["options"] = options_path(device, card)
+    out["phase_s"] = time.time() - t0
+    print(f"[{card}] phase 17: {out['phase_s']:.1f} s (budget {PHASE17_BUDGET_S} s)")
+    return out
+
+
 def drive(device, gen, name, card) -> list:
-    """Phases 2-16; returns the kernel records."""
+    """Phases 2-17; returns the kernel records."""
     t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
@@ -2764,8 +2988,14 @@ def drive(device, gen, name, card) -> list:
         k2 = check_k2(device, gen)
         lg_dir = os.path.join(tmp, "lgcp")
         trainer, state, lg = lgcp_path(device, gen, card, lg_dir)
+        # Phase 17's trajectory: the flow after phase 6's steps and after phase 7's run.
+        trajectory = os.path.join(tmp, "lgcp_run", "model_checkpoints")
+        _save_flow_checkpoint(trainer, state,
+                              os.path.join(trajectory, f"iter_{state.step}", "state.pkl"))
         lgcp_run_entry(trainer, state, gen, card, lg_dir)
         _save_flow_checkpoint(trainer, state, os.path.join(tmp, "lgcp_checkpoint", "state.pkl"))
+        shutil.copytree(os.path.join(tmp, "lgcp_checkpoint"),
+                        os.path.join(trajectory, f"iter_{state.step + 2}"))
         del trainer, state
         k2_timing, k2_bounds, k2_library, k2_rebuild = time_k2(k2, name, card)
         phase_s["5-7 K2, LGCP"] = time.time() - t0
@@ -2805,6 +3035,10 @@ def drive(device, gen, name, card) -> list:
         # ------------------------------------------------ 16. bench, scripts
         p16 = phase16_path(device, card, tmp)
         phase_s["16 bench, scripts"] = time.time() - t0
+
+        # ------------------------------------------------ 17. studies, options
+        p17 = phase17_path(device, card, tmp)
+        phase_s["17 studies, options"] = time.time() - t0
 
     kernels = [
         {
@@ -2894,6 +3128,7 @@ def drive(device, gen, name, card) -> list:
             "launches_evaluation": tools["eval"]["k2_launches"],
             "bench_lgcp_kernel": p16["lgcp_kernel"],
             "launches_in_graph_evaluation": p16["in_graph"]["launches"]["true"],
+            "launches_trajectory_evaluation": p17["trajectory"]["launches"],
             "launches_model_axis": ma["lgcp"]["counts"]["k2"],
             "model_axis": {"grid": [1, 2], "step_ms": ma["lgcp"]["step_ms"],
                            "rebuilds_per_step": ma["lgcp"]["counts"]["k2_rebuilds"],

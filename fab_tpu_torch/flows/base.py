@@ -74,19 +74,21 @@ class DiagGaussianBase(nn.Module):
 
 
 class UniformGaussianBase(nn.Module):
-    """Uniform on [-pi, pi] on the circular dims and standard normal elsewhere, with
-    no parameters (``fab_tpu/flows/base.py:99-146``; the ALDP flow's base).
+    """Uniform on [-b, b] on the circular dims and standard normal elsewhere, with
+    no parameters (``fab_tpu/flows/base.py:99-146``; the ALDP flow's base); b is
+    ``circular_bound``, pi by default.
 
-    Its log density is -inf outside [-pi, pi] on a circular dim. The module holds
+    Its log density is -inf outside [-b, b] on a circular dim. The module holds
     no state to save; an empty buffer carries its dtype and device, which
     ``Flow.to`` sets.
     """
 
-    def __init__(self, dim: int, circular_dims: Sequence[int], dtype=torch.float32,
-                 device=None):
+    def __init__(self, dim: int, circular_dims: Sequence[int],
+                 circular_bound: float = math.pi, dtype=torch.float32, device=None):
         super().__init__()
         self.dim = dim
         self.circular_dims = tuple(int(i) for i in circular_dims)
+        self.circular_bound = float(circular_bound)
         circ = torch.zeros((dim,), dtype=torch.bool, device=device)
         circ[list(self.circular_dims)] = True
         self.register_buffer("circular", circ, persistent=False)
@@ -99,7 +101,7 @@ class UniformGaussianBase(nn.Module):
     def sample_and_log_prob(
         self, n: int, generator: torch.Generator
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        dtype, device, b = self._like.dtype, self._like.device, math.pi
+        dtype, device, b = self._like.dtype, self._like.device, self.circular_bound
         gauss = constrain_batch(random.normal(generator, (n, self.dim), dtype, device))
         uni = constrain_batch(
             random.uniform(generator, (n, self.dim), dtype, device) * (2 * b) - b).clamp(min=-b)
@@ -107,21 +109,30 @@ class UniformGaussianBase(nn.Module):
         return z, self.log_prob(z)
 
     def log_prob(self, z: torch.Tensor) -> torch.Tensor:
-        b = math.pi
+        b = self.circular_bound
         log_gauss = -0.5 * z**2 - 0.5 * math.log(2 * math.pi)
         log_uni = torch.where(z.abs() <= b, z.new_full((), -math.log(2 * b)), -math.inf)
         return torch.where(self.circular, log_uni, log_gauss).sum(-1)
 
 
 class Flow(nn.Module):
-    """A normalizing flow q: a base (trainable diagonal Gaussian, or
-    ``UniformGaussianBase``) + chain of bijectors."""
+    """A normalizing flow q: a base (``base``: a trainable diagonal Gaussian by
+    default, or ``UniformGaussianBase``) + chain of bijectors."""
 
-    def __init__(self, dim: int, bijectors: Sequence[Bijector], base: nn.Module):
+    def __init__(self, dim: int, bijectors: Sequence[Bijector], base: nn.Module = None):
         super().__init__()
         self.dim = dim
-        self.base = base
+        self.base = base if base is not None else DiagGaussianBase(dim)
         self.bijectors = nn.ModuleList(bijectors)
+
+    @property
+    def base_dist(self) -> nn.Module:
+        """The base distribution (``fab_tpu``'s field of that name)."""
+        return self.base
+
+    @property
+    def event_shape(self) -> Tuple[int, ...]:
+        return (self.dim,)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.base.reset_parameters()

@@ -32,6 +32,10 @@ class DefensiveMixture(nn.Module):
         self.mixture_logit = nn.Parameter(torch.full((), 2.2, dtype=ref.dtype,
                                                      device=ref.device))
 
+    @property
+    def event_shape(self) -> Tuple[int, ...]:
+        return (self.flow.dim,)
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.flow.reset_parameters(generator)
         self.defensive.reset_parameters()

@@ -93,6 +93,11 @@ class StochasticFlow(Flow):
 
     is_stochastic = True
 
+    @property
+    def layers(self) -> nn.ModuleList:
+        """The chain, bijectors and MH layers (``fab_tpu``'s ``layers``)."""
+        return self.bijectors
+
     def forward_and_log_det(self, z: torch.Tensor, generator: torch.Generator):
         log_det = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
         for layer in self.bijectors:

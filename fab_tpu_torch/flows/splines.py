@@ -255,14 +255,17 @@ class SplineCoupling(Bijector):
 
 
 class PeriodicShift(Bijector):
-    """A constant shift of the circular dims, wrapped back to [-pi, pi), with
-    log-det 0 and no parameters (``fab_tpu/flows/splines.py:292-327``)."""
+    """A constant shift of the circular dims, wrapped back to [-bound, bound)
+    (``bound`` pi by default), with log-det 0 and no parameters
+    (``fab_tpu/flows/splines.py:292-327``)."""
 
-    def __init__(self, dim: int, circular_dims: Sequence[int], shift: float, device=None):
+    def __init__(self, dim: int, circular_dims: Sequence[int], shift: float,
+                 bound: float = math.pi, device=None):
         super().__init__()
         self.dim = dim
         self.circular_dims = tuple(int(i) for i in circular_dims)
         self.shift = float(shift)
+        self.bound = float(bound)
         mask = np.zeros(dim, bool)
         mask[list(self.circular_dims)] = True
         self.register_buffer("mask", torch.tensor(mask, device=device), persistent=False)
@@ -272,7 +275,7 @@ class PeriodicShift(Bijector):
 
     def _shift(self, x: torch.Tensor, direction: float) -> torch.Tensor:
         vals = x + direction * self.shift
-        wrapped = torch.remainder(vals + math.pi, 2 * math.pi) - math.pi
+        wrapped = torch.remainder(vals + self.bound, 2 * self.bound) - self.bound
         return torch.where(self.mask, wrapped, x)
 
     def forward_and_log_det(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

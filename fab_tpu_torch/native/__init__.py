@@ -82,6 +82,7 @@ class AldpEnergyServer:
         self.tables = tables
         self.n_threads = int(n_threads)
         self.gb = bool(gb)
+        self.n_atoms = N_ATOMS
         self.dim = 3 * N_ATOMS
         self._activate()
 
@@ -124,6 +125,9 @@ class AldpEnergyServer:
         )
         AldpEnergyServer.calls += 1
         return energy, (force.reshape(batch, N_ATOMS, 3) if with_force else None)
+
+    def n_atoms_out(self) -> int:
+        return N_ATOMS
 
     def energy(self, pos: torch.Tensor) -> torch.Tensor:
         """Differentiable energy: pos [..., 22, 3] -> [...] kcal/mol, in pos's dtype

@@ -97,10 +97,12 @@ def _grid_groups(n_data: int, n_model: int):
     return _GROUPS[(n_data, n_model)]
 
 
-def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
+              devices: Optional[Sequence] = None) -> Mesh:
     """The (data, model) grid over the process group: ``n_data`` null means the
     world size over ``n_model``; n_data x n_model must equal the world size (one
-    process per card)."""
+    process per card). ``devices``, if given, lists the grid's cards, one per
+    process in rank order, so there must be as many as processes."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs a process group: start one process per card with "
@@ -108,6 +110,9 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
             "fab_tpu_torch.parallel.initialize()"
         )
     world, n_model = dist.get_world_size(), int(n_model)
+    if devices is not None and len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} processes: the port runs one "
+                         "process per card")
     if n_model < 1 or world % n_model:
         raise ValueError(f"mesh.n_model={n_model} does not divide the {world} processes "
                          "launched")

@@ -59,6 +59,11 @@ class HamiltonianMonteCarlo:
             "mass": torch.full((dim,), self.mass_init, **kw),
         }
 
+    def init_info(self, device=None) -> Dict[str, torch.Tensor]:
+        """The info a pass reports, zeroed: p_accept per outer step, avg_distance."""
+        return {"p_accept": torch.zeros((self.n_outer,), device=device),
+                "avg_distance": torch.zeros((), device=device)}
+
     @staticmethod
     def _kinetic_energy(p: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
         return (p**2 / mass).sum(-1) / 2

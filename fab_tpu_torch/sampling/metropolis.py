@@ -46,6 +46,11 @@ class Metropolis:
         row = torch.as_tensor(row, dtype=dtype, device=device)
         return {"noise_scalings": row[None, :].repeat(self.n_ais_intermediate_distributions, 1)}
 
+    def init_info(self, device=None) -> Dict[str, torch.Tensor]:
+        """The info a pass reports, zeroed: p_accept per update, avg_distance."""
+        return {"p_accept": torch.zeros((self.n_updates,), device=device),
+                "avg_distance": torch.zeros((), device=device)}
+
     def transition(
         self,
         state: Dict[str, torch.Tensor],

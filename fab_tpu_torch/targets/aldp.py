@@ -134,6 +134,7 @@ class AldpBoltzmann(TargetDistribution):
         backend: str = "jax",
         n_threads: int = 4,
         minimise_steps: int = 4000,
+        ind_circ_dih=IND_CIRC_DIH,
         dtype=torch.float32,
         device="cuda",
     ):
@@ -173,7 +174,7 @@ class AldpBoltzmann(TargetDistribution):
         self.transform = NormalizedInternalTransform.from_data(
             zmat,
             ref_cart,
-            ind_circ_dih=IND_CIRC_DIH,
+            ind_circ_dih=ind_circ_dih,
             default_std={"bond": 0.05, "angle": 0.15, "dih": 0.2},  # Angstrom
         )
         if backend == "host_cpp":

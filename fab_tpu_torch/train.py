@@ -279,12 +279,12 @@ def guarded_update(
     optimizer: ClippedAdam,
     grads: Sequence[torch.Tensor],
     opt_state: AdamState,
-    params: Sequence[torch.Tensor],
+    flow_params: Sequence[torch.Tensor],
     loss: torch.Tensor,
     split: Optional[Sequence[bool]] = None,
     model_mesh=None,
 ) -> Tuple[AdamState, torch.Tensor, torch.Tensor]:
-    """Apply an optimizer update to ``params`` in place unless loss/grads are
+    """Apply an optimizer update to ``flow_params`` in place unless loss/grads are
     non-finite. Returns (new_opt_state, grad_norm, applied). ``split`` /
     ``model_mesh``: as ``global_norm``'s, for parameters split over a model axis."""
     grad_norm = global_norm(grads, split, model_mesh)
@@ -293,7 +293,7 @@ def guarded_update(
     updates, new_state = optimizer.update(safe_grads, opt_state, split, model_mesh)
     ok = ok & _all_finite(updates)
     with torch.no_grad():
-        for p, u in zip(params, updates):
+        for p, u in zip(flow_params, updates):
             p.copy_(torch.where(ok, p + u, p))
     new_state = AdamState(
         torch.where(ok, new_state.count, opt_state.count),

@@ -46,41 +46,62 @@ L_FORM_DIFF = -2.0 * np.pi / 3.0  # HA - CB dihedral difference of the L-form
 THRESHOLD = 0.8
 
 
-def filter_chirality(z_flow: np.ndarray, scale, shift) -> np.ndarray:
+def _require_scale_shift(name, scale, shift, raw) -> None:
+    if (scale is None or shift is None) and not raw:
+        raise ValueError(
+            f"{name}: pass scale=/shift= (chirality_scale_shift(transform)) for "
+            "flow-space coords, or raw=True if the input is genuinely raw radians.")
+
+
+def filter_chirality(z_flow: np.ndarray, scale=None, shift=None, *, ind=CHIRALITY_DIMS,
+                     mean_diff: Optional[float] = None, threshold: float = THRESHOLD,
+                     raw: bool = False) -> np.ndarray:
     """Boolean mask of flow-space samples in the L-alanine chirality basin (numpy).
 
-    The difference of the HA and CB dihedrals about the CA frame (raw radians,
-    IUPAC dihedral sign) sits near -2pi/3 for the L-form and +2pi/3 for the
-    D-form; samples within 0.8 of -2pi/3 pass. ``scale``/``shift``
-    (``chirality_scale_shift(transform)``) map the flow coordinates back to raw
-    radians: dim 48 (HA, z-row 7) is not circular, so the transform standardises
-    it; dim 49 (CB) is circular and stays raw. A difference of a standardised and a
-    raw angle would pick the wrong basin.
+    The difference of the dihedrals at ``ind`` (HA and CB about the CA frame; raw
+    radians, IUPAC dihedral sign) sits near -2pi/3 for the L-form and +2pi/3 for the
+    D-form; samples within ``threshold`` (0.8) of ``mean_diff`` (default -2pi/3, the
+    L-form) pass. ``scale``/``shift`` (``chirality_scale_shift(transform)``) map the
+    flow coordinates back to raw radians: dim 48 (HA, z-row 7) is not circular, so
+    the transform standardises it; dim 49 (CB) is circular and stays raw. A
+    difference of a standardised and a raw angle would pick the wrong basin, so they
+    are required unless ``raw=True`` says the input is raw radians already.
     """
-    a = z_flow[:, CHIRALITY_DIMS[0]] * scale[0] + shift[0]
-    b = z_flow[:, CHIRALITY_DIMS[1]] * scale[1] + shift[1]
+    _require_scale_shift("filter_chirality", scale, shift, raw)
+    mean_diff = L_FORM_DIFF if mean_diff is None else mean_diff
+    a, b = z_flow[:, ind[0]], z_flow[:, ind[1]]
+    if scale is not None:
+        a, b = a * scale[0], b * scale[1]
+    if shift is not None:
+        a, b = a + shift[0], b + shift[1]
     diff = _wrap(_wrap(a) - _wrap(b))
-    return np.abs(_wrap(diff - L_FORM_DIFF)) < THRESHOLD
+    return np.abs(_wrap(diff - mean_diff)) < threshold
 
 
-def chirality_scale_shift(transform):
-    """(scale, shift) tuples mapping the flow coords of the chirality dims to raw
-    radians."""
-    i0, i1 = CHIRALITY_DIMS
+def chirality_scale_shift(transform, ind=CHIRALITY_DIMS):
+    """(scale, shift) tuples mapping the flow coords at ``ind`` (the chirality
+    dims) to raw radians."""
+    i0, i1 = ind
     return (
         (float(transform.std[i0]), float(transform.std[i1])),
         (float(transform.mean[i0]), float(transform.mean[i1])),
     )
 
 
-def make_chirality_filter(scale, shift, min_frac: float = 0.1):
+def make_chirality_filter(scale=None, shift=None, min_frac: float = 0.1, *,
+                          ind=CHIRALITY_DIMS, mean_diff: Optional[float] = None,
+                          threshold: float = THRESHOLD, raw: bool = False):
     """The train-time chirality filter as a torch ``(x, mask) -> mask``
     (``fab_tpu/utils/aldp_eval.py:108-155``): D-form rows are marked invalid, so
     they carry -inf importance weight, unless at most ``min_frac`` of the valid rows
     are L-form (then the mask is returned unfiltered, so training is not starved).
+    ``ind``, ``mean_diff``, ``threshold`` and ``raw`` as ``filter_chirality``'s.
     Runs on the device with no host sync."""
-    (s0, s1), (t0, t1) = scale, shift
-    i0, i1 = CHIRALITY_DIMS
+    _require_scale_shift("make_chirality_filter", scale, shift, raw)
+    mean_diff = L_FORM_DIFF if mean_diff is None else mean_diff
+    s0, s1 = (1.0, 1.0) if scale is None else scale
+    t0, t1 = (0.0, 0.0) if shift is None else shift
+    i0, i1 = ind
 
     def wrap(a):
         return torch.remainder(a + np.pi, 2 * np.pi) - np.pi
@@ -88,7 +109,7 @@ def make_chirality_filter(scale, shift, min_frac: float = 0.1):
     def sample_filter(x, mask):
         # Unscale to raw radians before differencing (see filter_chirality).
         diff = wrap(wrap(x[:, i0] * s0 + t0) - wrap(x[:, i1] * s1 + t1))
-        ind_l = wrap(diff - L_FORM_DIFF).abs() < THRESHOLD
+        ind_l = wrap(diff - mean_diff).abs() < threshold
         frac_l = (ind_l & mask).sum() / mask.sum().clamp(min=1)
         return torch.where(frac_l > min_frac, mask & ind_l, mask)
 

@@ -43,10 +43,21 @@ def _global_weight_sums(log_w: torch.Tensor, mask: Optional[torch.Tensor]):
 
 
 def effective_sample_size(
-    log_w: torch.Tensor, mask: Optional[torch.Tensor] = None
+    log_w: torch.Tensor, mask: Optional[torch.Tensor] = None, normalised: bool = False
 ) -> torch.Tensor:
-    """Normalised ESS ``1 / (N * sum(w_bar**2))`` over valid rows."""
+    """Normalised ESS ``1 / (N * sum(w_bar**2))`` over valid rows.
+
+    With ``normalised`` the input is taken as the normalised weights ``w_bar``
+    themselves, as ``fab_tpu``'s branch does: a row the mask drops is still set to
+    -inf there, so with a mask that drops a row the ESS is 0."""
     assert log_w.dim() == 1
+    if normalised:
+        w_bar = masked_log_weights(log_w, mask)
+        n = log_w.new_tensor(log_w.shape[0]) if mask is None else mask.sum().to(log_w.dtype)
+        s2 = (w_bar**2).sum()
+        if mesh.active_mesh() is not None:
+            s2, n = mesh.all_reduce(torch.stack([s2, n]))
+        return 1.0 / s2 / n.clamp(min=1)
     if mesh.active_mesh() is not None:
         _, s1, s2, n = _global_weight_sums(log_w, mask)
         return s1 * s1 / s2 / n

@@ -27,9 +27,17 @@ from fab_tpu_torch.experiments import (
     aldp_torsion_scan,
     alpha_study,
     bench_lgcp_kernel,
+    eval_gmm_study,
+    eval_lgcp_trajectory,
     ground_truth_marginals,
     rejection_sampling_vis,
     results_vis,
+    run_gmm_ess_ablation,
+    run_gmm_method_study,
+    run_gmm_method_study_r3,
+    run_init_parity_ab,
+    run_matmul_cells,
+    run_mw_method_study,
     visualise_marginal_pairs,
 )
 from fab_tpu_torch.ops.coupling_kernel import fused_coupling_apply
@@ -62,6 +70,14 @@ SCRIPT_MAINS = [
     (gmm_demo.main, []),
     (many_well_demo.main, []),
     (aldp_demo.main, ["--train"]),
+    (run_gmm_method_study.main, []),
+    (run_gmm_method_study_r3.main, ["target_kld 0"]),
+    (run_gmm_ess_ablation.main, []),
+    (run_init_parity_ab.main, []),
+    (run_mw_method_study.main, []),
+    (run_matmul_cells.main, []),
+    (eval_gmm_study.main, []),
+    (eval_lgcp_trajectory.main, ["results/torch/lgcp"]),
 ]
 SCRIPT_IDS = [m.__module__.rsplit(".", 1)[-1] for m, _ in SCRIPT_MAINS]
 

@@ -288,18 +288,23 @@ def assert_buffer(state, state_j, tol):
 
 def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_batches,
                      hmc_kw, tol=1e-8, filters=None, trainer_kw=None,
-                     with_replacement=False, optimizer_kw=None):
+                     with_replacement=False, optimizer_kw=None, n_steps=1, lr=1e-2):
     """One full f64 PrioritisedBufferTrainer step of the port against fab_tpu's, on
     a shared buffer (192 rows, some dead) and shared noise: flow parameters, Adam
     state, HMC state, buffer and logged info agree to ``tol``.
 
+    With ``n_steps`` > 1, that many consecutive steps, each on its own shared noise
+    (step k's key is ``fold_in(key(5), k)``, step 0's ``key(5)``): after every step
+    ``n_valid`` is equal and the flow parameters and logged info agree to ``tol``;
+    the rest is compared after the last.
+
     ``flow_pair`` is (jax flow, jax params, port flow); ``targets`` is (jax target,
     port target); ``filters`` an optional (jax, port) train-time sample filter;
     ``trainer_kw`` and ``optimizer_kw`` go to both trainers and both
-    ``make_optimizer``s; ``with_replacement`` makes both buffers draw with
+    ``make_optimizer``s (with ``lr``); ``with_replacement`` makes both buffers draw with
     replacement. The flow's draws (any base, an SNF's layers) are replayed from the
     fab_tpu flow, and so are an SNF's log-q keys, one per AIS pass and per replay
-    batch. Returns
+    batch. Returns the last step's
     (port info, port state, fab_tpu's info, fab_tpu's state).
     """
     jax_flow, params, flow = flow_pair
@@ -317,7 +322,7 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
         buf_j = JaxBuffer(dim=dim, max_length=512, min_sample_length=128,
                           sample_with_replacement=with_replacement)
         trainer_j = JaxTrainer(
-            model_j, jax_make_optimizer(1e-2, 100.0, **optimizer_kw), buf_j,
+            model_j, jax_make_optimizer(lr, 100.0, **optimizer_kw), buf_j,
             n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
             dtype=jnp.float64, **trainer_kw,
         )
@@ -332,19 +337,24 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
             buffer_state=buffer_j,
             step=jnp.zeros((), jnp.int32),
         )
-        key = jax.random.key(5)
-        key_ais, key_sample = jax.random.split(key)
-        noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64, flow=jax_flow)
-        keys = []
-        if getattr(jax_flow, "is_stochastic", False):
-            # One log-q key per AIS pass (fold_in 0x10C9) and per replay batch.
-            keys = [snf_log_prob_noise(jax_flow, k, (batch, dim), jnp.float64) for k in (
-                [jax.random.fold_in(key_ais, 0x10C9)]
-                + list(jax.random.split(jax.random.fold_in(key, 0x11A7), n_batches)))]
-        gumbel_shape = (n_batches * batch, 512) if with_replacement else (512,)
-        noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, gumbel_shape,
-                                                        jnp.float64))]
-        new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key))
+        step_j = jax.jit(trainer_j._train_step_fn(batch))
+        steps_j = []  # (noise, log-q keys, fab_tpu's new state, its info) per step
+        for k in range(n_steps):
+            key = jax.random.key(5) if k == 0 else jax.random.fold_in(jax.random.key(5), k)
+            key_ais, key_sample = jax.random.split(key)
+            noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64, flow=jax_flow)
+            keys = []
+            if getattr(jax_flow, "is_stochastic", False):
+                # One log-q key per AIS pass (fold_in 0x10C9) and per replay batch.
+                keys = [snf_log_prob_noise(jax_flow, kk, (batch, dim), jnp.float64) for kk in (
+                    [jax.random.fold_in(key_ais, 0x10C9)]
+                    + list(jax.random.split(jax.random.fold_in(key, 0x11A7), n_batches)))]
+            gumbel_shape = (n_batches * batch, 512) if with_replacement else (512,)
+            noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, gumbel_shape,
+                                                            jnp.float64))]
+            state_j = step_j(state_j, key)
+            steps_j.append((noise, keys, *to_np(state_j)))
+            state_j = state_j[0]
 
     model = FABModel.create(
         flow, target, transition_operator=HamiltonianMonteCarlo(**hmc_kw),
@@ -353,7 +363,7 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
     if filters is not None:
         model = dataclasses.replace(model, sample_filter=filters[1])
     trainer = PrioritisedBufferTrainer(
-        model, make_optimizer(1e-2, 100.0, **optimizer_kw),
+        model, make_optimizer(lr, 100.0, **optimizer_kw),
         PrioritisedReplayBuffer(dim=dim, max_length=512, min_sample_length=128,
                                 sample_with_replacement=with_replacement),
         n_batches_buffer_sampling=n_batches, w_adjust_max_clip=10.0,
@@ -365,13 +375,17 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
         buffer_state=buffer_state_from_jax(to_np(buffer_j)),
         step=0,
     )
-    replay = NoiseReplay(monkeypatch, noise, keys)
-    new, info = trainer.train_step(state, None, batch)
-    replay.assert_consumed()
-
-    expected = from_jax_params(new_j.params["flow"])
-    for name, value in flow.state_dict().items():
-        assert_close(value, expected[name], tol, name)
+    for k, (noise, keys, new_j, info_j) in enumerate(steps_j):
+        replay = NoiseReplay(monkeypatch, noise, keys)
+        new, info = trainer.train_step(state, None, batch)
+        replay.assert_consumed()
+        state = new
+        assert int(info["n_valid"]) == int(info_j["n_valid"]), f"step {k + 1}: n_valid"
+        expected = from_jax_params(new_j.params["flow"])
+        for name, value in flow.state_dict().items():
+            assert_close(value, expected[name], tol, f"step {k + 1}: {name}")
+        for key in ("loss", "grad_norm", "ess_ais"):
+            assert_close(info[key], info_j[key], tol, f"step {k + 1}: {key}")
     adam_j = new_j.opt_state[1][0]
     mu_j, nu_j = from_jax_params(adam_j.mu), from_jax_params(adam_j.nu)
     names = [n for n, p in flow.named_parameters() if p.requires_grad]
