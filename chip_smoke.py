@@ -129,10 +129,12 @@ Phases:
      tensor on the card, and one more step under the sync check.
  16. The port's bench and scripts, cut in length only where printed (PHASE16_BUDGET_S
      240 s; the phase prints its wall time): (a) python3 -m fab_tpu_torch.bench at
-     bench.py's settings (ManyWell-32 as phase 3; 2 warm-up and 5 timed steps of the
-     fused and the plain trainer in turns, BENCH_CUTS from its default 10): its one JSON line with bench.py's keys,
-     value and vs_baseline finite and > 0, mfu in (0, 1], K1 38 + 29 per fused step
-     from its stderr. (b) python3 -m fab_tpu_torch.bench_scaling --mesh-sizes 1 under
+     bench.py's settings (ManyWell-32 as phase 3; 2 warm-up and 5 timed compiled steps
+     (make_train_step, CUDA graphs) of the fused and the plain trainer in turns, then
+     5 eager steps each in turns, BENCH_CUTS from its default 10): its one JSON line
+     with bench.py's keys, value and vs_baseline (the compiled steps') finite and > 0,
+     mfu in (0, 1], K1 38 + 29 per eager fused step and in its graph, from its
+     stderr. (b) python3 -m fab_tpu_torch.bench_scaling --mesh-sizes 1 under
      NCCL (batch 2048 per device, 1 warm-up and 2 steps): efficiency_vs_1 1.0. (c)
      bench_lgcp_kernel at its defaults: K2 within 1e-3 of the plain layer, both
      layer times, the whole LGCP-1600 flow's sample_and_log_prob and log_prob fused
@@ -161,6 +163,23 @@ Phases:
      options, circular_bound, PeriodicShift's bound, a Flow's default base,
      guarded_update's flow_params, init_info) on card tensors against the CPU, f64,
      within 1e-12.
+ 18. The compiled step (Trainer.make_train_step: one whole step captured as a CUDA
+     graph and replayed; PHASE18_BUDGET_S 120 s) on the trainers phases 3, 7 and 9
+     leave: ManyWell-32 (K1; captured here), LGCP-1600 (K2; captured by phase 7's run)
+     and GMM-40 (f64; captured by phase 9's runner). Each against an eager twin (a
+     copy of its model) from one state and seed: one warm-up step each, then steps in
+     turns (GRAPH_TURNS: 3 each, GMM-40 5), their medians; the capture and
+     instantiation seconds and the graph's private pool; the wrappers' counts (the
+     eager twin's) against the captured step's; parameters, step sizes and buffer
+     priorities within relative 1e-5 (f32) / 1e-12 (f64), bitwise equality printed;
+     on LGCP-1600 perform_eval after the graphed steps against after the eager ones
+     (relative 1e-5); one replay under the profiler: device busy, and K1's kernels
+     (38) and K2's five kernels per launch (400 each, plus 96 k2_prepare_weight) in
+     the graph, as captured; the state's copy back, captured alone and replayed;
+     make_scanned_train_step(b, 4) against 4 single replays, bitwise.
+  The runs of phases 7, 9-10, 16(a) and 17(b) go through the compiled step too (run
+  prints "train step: compiled (...)"); phases 11-15 keep the eager step, for the
+  reason graph_supported prints (splines, host_cpp, LARS, SNF, a mesh, wrappers).
   The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
   fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
   6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
@@ -273,15 +292,9 @@ def _zero_counts() -> None:
 
 
 def _counts() -> dict:
-    from fab_tpu_torch.flows.fused import FusedPass
-    from fab_tpu_torch.ops import coupling_kernel as ck
-    from fab_tpu_torch.ops import realnvp_kernel as rk
+    from fab_tpu_torch import graph
 
-    return {
-        "k1": rk.fused_realnvp_pass.launches, "k1_recomputes": FusedPass.recomputes,
-        "k2": ck.fused_coupling_apply.launches, "k2_recomputes": ck.FusedCoupling.recomputes,
-        "k2_rebuilds": ck.prepared_weight.rebuilds,
-    }
+    return graph.counts()
 
 
 def _train(trainer, gen, batch, card, label):
@@ -534,7 +547,7 @@ def manywell_path(device, gen, card):
                                     {"K1": ["k1_tf32x3"], "triangular solves": ["trsm"]})
     assert groups["K1"] > 0, "the profiler saw no K1 kernel"
     run["busy"], run["k1_group_ms"] = busy, groups["K1"]
-    return run
+    return run, trainer, state
 
 
 def time_k1(k1, name, card):
@@ -690,6 +703,9 @@ def gmm_runner(device, gen, card, tmp):
     run_s = time.time() - t0
     _no_kernel_launched("the GMM-40 runner")
     assert type(trainer) is Trainer and state.step == 20 and trainer.dtype == torch.float64
+    # Two chunks of log_every (10) steps, each one make_scanned_train_step call.
+    program = trainer._programs[128]
+    assert program.graph is not None and program.replays == 20, program.replays
     rows = _csv_rows(first)
     eval_rows = [r for r in rows if r.get("eval_ess_ais")]
     assert [r["step"] for r in rows] == ["10.0", "20.0", "20.0"] and len(eval_rows) == 1, rows
@@ -723,8 +739,9 @@ def gmm_runner(device, gen, card, tmp):
     ais_ms = (time.time() - t0) * 1e3
     print(f"[{card}] GMM-40 AIS pass alone: {ais_ms:.1f} ms ({ais_ms / steady:.1%} of the "
           "median step)")
-    _, busy, groups, _ = _profile_step(trainer, state, gen, batch, steady, card, "GMM-40", {
+    state, busy, groups, _ = _profile_step(trainer, state, gen, batch, steady, card, "GMM-40", {
         "triangular solves": ["trsm"], "GEMMs": ["gemm", "cutlass", "sm90_xmma"]})
+    gmm_trainer = (trainer, state)
     _no_kernel_launched("the GMM-40 steps")
 
     # Resume from the checkpoint at iteration 20.
@@ -759,7 +776,7 @@ def gmm_runner(device, gen, card, tmp):
           f"{float(train_rows[-1]['replay_loss']):.4f}; eval "
           + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
     return {"steady_ms": steady, "busy": busy, "ais_ms": ais_ms, "run_s": run_s,
-            "groups": groups}
+            "groups": groups, "trainer": gmm_trainer}
 
 
 def many_well_runner(card, tmp):
@@ -1723,6 +1740,11 @@ def lgcp_run_entry(trainer, state, gen, card, log_dir):
     trainer.run(gen, n_iterations=2, batch_size=LG_BATCH, eval_batch_size=LG_BATCH,
                 n_eval=1, n_checkpoints=0, state=state)
     run_s = time.time() - t0
+    # run's steps were replays of one captured step: its counts are phase 6's per step.
+    program = trainer._programs[LG_BATCH]
+    assert program.replays == 2 and program.captured_counts == {
+        "k1": 0, "k1_recomputes": 0, "k2": 400, "k2_recomputes": 360, "k2_rebuilds": 96,
+    }, (program.replays, program.captured_counts)
     with open(path) as f:
         rows = list(csv.DictReader(f))
     eval_rows = [r for r in rows if r.get("eval_ess_ais_min_var_target")]
@@ -1734,7 +1756,8 @@ def lgcp_run_entry(trainer, state, gen, card, log_dir):
         shown[key] = float(eval_rows[0][key])
         assert math.isfinite(shown[key]), f"{key} is not finite"
     print(f"[{card}] LGCP-1600 run(n_iterations=2, n_eval=1, eval_batch_size=512): "
-          f"{run_s:.1f} s, {len(rows)} CSV rows; eval " +
+          f"{run_s:.1f} s (its step captured as a CUDA graph and replayed twice: K2 400 "
+          f"launches, 360 recomputes, 96 rebuilds per step), {len(rows)} CSV rows; eval " +
           ", ".join(f"{k} {v:.4g}" for k, v in shown.items()))
 
 
@@ -1867,15 +1890,17 @@ def _state_diff(trainer_a, state_a, trainer_b, state_b) -> dict:
 
 
 def _flow_summary(trainer, state) -> dict:
-    """The flow (split parameters gathered), step sizes, buffer priorities and cursor
-    on the host."""
+    """The flow (split parameters gathered), the transition state (step sizes) and,
+    with a buffer, its priorities and cursor, on the host."""
     from fab_tpu_torch.parallel.tensor import gather_state
 
     flow = trainer.model.flow
-    return {"flow": {k: v.cpu() for k, v in gather_state(flow, flow.state_dict()).items()},
-            "transition": {k: v.cpu() for k, v in state.transition_state.items()},
-            "log_w": state.buffer_state.log_w.cpu(),
-            "cursor": (int(state.buffer_state.cursor), int(state.buffer_state.n_added))}
+    out = {"flow": {k: v.cpu() for k, v in gather_state(flow, flow.state_dict()).items()},
+           "transition": {k: v.cpu() for k, v in state.transition_state.items()}}
+    if hasattr(state, "buffer_state"):
+        out["log_w"] = state.buffer_state.log_w.cpu()
+        out["cursor"] = (int(state.buffer_state.cursor), int(state.buffer_state.n_added))
+    return out
 
 
 def _summary_diff(a: dict, b: dict) -> dict:
@@ -1885,16 +1910,18 @@ def _summary_diff(a: dict, b: dict) -> dict:
     import torch
 
     rel = lambda x, y: float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
-    finite = torch.isfinite(b["log_w"])
-    assert torch.equal(finite, torch.isfinite(a["log_w"])), "buffer finite patterns differ"
-    assert a["cursor"] == b["cursor"], (a["cursor"], b["cursor"])
     same = (all(torch.equal(a["flow"][k], v) for k, v in b["flow"].items())
-            and torch.equal(torch.where(finite, a["log_w"], 0), torch.where(finite, b["log_w"], 0))
             and all(torch.equal(a["transition"][k], v) for k, v in b["transition"].items()))
-    return {"params": max(rel(a["flow"][k], v) for k, v in b["flow"].items()),
-            "step_sizes": max(rel(a["transition"][k], b["transition"][k])
-                              for k in ("epsilons", "common_epsilon")),
-            "priorities": rel(a["log_w"][finite], b["log_w"][finite]), "bitwise": same}
+    out = {"params": max(rel(a["flow"][k], v) for k, v in b["flow"].items()),
+           "step_sizes": max(rel(a["transition"][k], v) for k, v in b["transition"].items())}
+    if "log_w" in b:
+        finite = torch.isfinite(b["log_w"])
+        assert torch.equal(finite, torch.isfinite(a["log_w"])), "buffer finite patterns differ"
+        assert a["cursor"] == b["cursor"], (a["cursor"], b["cursor"])
+        same = same and torch.equal(torch.where(finite, a["log_w"], 0),
+                                    torch.where(finite, b["log_w"], 0))
+        out["priorities"] = rel(a["log_w"][finite], b["log_w"][finite])
+    return dict(out, bitwise=same)
 
 
 def _dir_bytes(path) -> int:
@@ -2519,17 +2546,23 @@ def bench_path(card) -> dict:
     assert line["mfu"] is not None and 0 < line["mfu"] <= 1, line
     k1 = re.search(r"K1 per fused step: launches \[(\d+)\], recomputes \[(\d+)\]", err)
     assert k1 and (int(k1.group(1)), int(k1.group(2))) == (38, 29), err[-2000:]
+    k1 = re.search(r"K1 in the fused step's graph: launches (\d+), recomputes (\d+)", err)
+    assert k1 and (int(k1.group(1)), int(k1.group(2))) == (38, 29), err[-2000:]
+    eager = re.search(r"median eager step: fused ([\d.]+) ms, plain ([\d.]+) ms", err)
     medians = re.search(r"median step: fused ([\d.]+) ms, plain ([\d.]+) ms", err)
     print(f"[{card}] phase 16(a) python3 -m fab_tpu_torch.bench ({seconds:.1f} s): "
           + json.dumps(line))
-    print(f"[{card}] phase 16(a) bench median step: fused {medians.group(1)} ms, plain "
-          f"{medians.group(2)} ms (5 each, in turns); K1 38 launches + 29 recomputes per "
+    print(f"[{card}] phase 16(a) bench median compiled step: fused {medians.group(1)} ms, "
+          f"plain {medians.group(2)} ms; eager fused {eager.group(1)} ms, plain "
+          f"{eager.group(2)} ms (5 each, in turns); K1 38 launches + 29 recomputes per "
           "fused step; " + [ln for ln in err.splitlines() if ln.startswith("FLOPs")][0])
     for ln in err.splitlines():
-        if ln.startswith("median step") or ln.startswith("card:"):
+        if ln.startswith(("median", "card:", "compiled", "eager", "fused compiled",
+                          "plain compiled")):
             print(f"    bench stderr: {ln}")
     result = {"bench": line, "bench_s": seconds, "fused_ms": float(medians.group(1)),
-              "plain_ms": float(medians.group(2))}
+              "plain_ms": float(medians.group(2)), "eager_fused_ms": float(eager.group(1)),
+              "eager_plain_ms": float(eager.group(2))}
 
     print(f"[{card}] phase 16(b) bench_scaling cut (length only): "
           f"{' '.join(SCALING_CUTS)} (defaults: 2048, 10, 2)")
@@ -2972,12 +3005,295 @@ def phase17_path(device, card, tmp) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 18
+# The compiled step (Trainer.make_train_step: one step captured as a CUDA graph) on
+# the trainers phases 3, 7 and 9 leave: ManyWell-32 (K1), LGCP-1600 (K2; its step
+# was captured by phase 7's run) and GMM-40 (f64; captured by phase 9's runner).
+# Each takes turns with an eager twin (a copy of its model) from one state and seed.
+GRAPH_TURNS = {"ManyWell-32": 3, "LGCP-1600": 3, "GMM-40": 5}
+GRAPH_SCANNED = 4
+PHASE18_BUDGET_S = 120
+
+
+def _twin(trainer):
+    """A trainer like ``trainer`` on a copy of its model, with no compiled step."""
+    import copy
+
+    twin = copy.copy(trainer)
+    twin.model, twin._programs = copy.deepcopy(trainer.model), {}
+    return twin
+
+
+def _device_events(fn):
+    """fn() under torch.profiler: (wall ms, {kernel name: (ms, count)} of the device
+    work fn launched, the same of the kernels its CUDA graph launches held, the
+    device records that belong to no launch in the profiled window). A device record
+    is fn's when its correlation id is that of a CUDA API call made in the window;
+    records of earlier graph replays can reach a later window."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    events = list(prof.profiler.kineto_results.events())
+    on_card = lambda e: e.device_type() == torch.autograd.DeviceType.CUDA
+    calls = [e for e in events if not on_card(e) and e.name().startswith(("cuda", "cu"))]
+    launched = {e.correlation_id() for e in calls}
+    graph_launches = {e.correlation_id() for e in calls if "GraphLaunch" in e.name()}
+    assert graph_launches, sorted({e.name() for e in calls})
+    by_name, in_graph, foreign = {}, {}, 0
+    for e in filter(on_card, events):
+        if e.correlation_id() not in launched:
+            foreign += 1
+            continue
+        for table in (by_name, in_graph) if e.correlation_id() in graph_launches else (by_name,):
+            ms, count = table.get(e.name(), (0.0, 0))
+            table[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    return wall, by_name, in_graph, foreign
+
+
+# K1's and K2's kernels, as their sources name them.
+GRAPH_KERNELS = ("k1_tf32x3_chain", "k2_split_rows", "k2_tf32x3_dense", "k2_tf32x3_coupling",
+                 "k2_row_sum", "k2_prepare_weight")
+
+
+def _graph_kernels(cuda_graph) -> dict:
+    """The kernel nodes of a captured graph (kept: ``keep_graph=True``) by name, read
+    through libcuda (cuGraphGetNodes, cuGraphKernelNodeGetParams_v2,
+    cuFuncGetName): {name: nodes} for GRAPH_KERNELS, and "kernel nodes" for all."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(cuda_graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_byte * 512)()  # CUDA_KERNEL_NODE_PARAMS_v2; func comes first
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0
+        name = ctypes.c_char_p()
+        func = ctypes.c_void_p.from_buffer(params).value
+        assert cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) == 0
+        names.append(name.value.decode())
+    out = {word: sum(word in name for name in names) for word in GRAPH_KERNELS}
+    out["kernel nodes"] = len(names)
+    return out
+
+
+def _kernel_count(by_name, word) -> int:
+    """Launches of the kernels whose names hold ``word`` (the trace demangles them:
+    ``void k1_tf32x3_chain(...)``)."""
+    return sum(n for name, (_, n) in by_name.items() if word in name)
+
+
+def graph_turns(label, trainer, state, batch, tol, card, eval_check=False) -> dict:
+    """Phase 18 on one path: the compiled step of ``trainer`` against its eager twin
+    from ``state`` and one seed, in turns; agreement after the turns; a profiled
+    replay (device busy, K1's and K2's kernels per step); optionally perform_eval
+    after both; make_scanned_train_step against single replays."""
+    import torch
+
+    from fab_tpu_torch import graph
+    from fab_tpu_torch.utils.logging import ListLogger
+
+    device = trainer.device
+    t_path = time.time()
+    captured_before = batch in trainer._programs
+    eager = _twin(trainer)
+    states = {"graph": state, "eager": _clone_state(state)}
+    gens = {k: torch.Generator(device=device).manual_seed(18) for k in states}
+    step = trainer.make_train_step(batch)
+    program = trainer._program(batch)
+    take = {"graph": lambda s: step(s, gens["graph"]),
+            "eager": lambda s: eager.train_step(s, gens["eager"], batch)}
+
+    def timed(kind):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        states[kind], info = take[kind](states[kind])
+        torch.cuda.synchronize()
+        loss = float(info["loss"])
+        assert math.isfinite(loss), f"{label} {kind}: non-finite loss"
+        if "n_valid" in info:
+            assert int(info["n_valid"]) > 0, f"{label} {kind}: no valid AIS row"
+        return (time.time() - t0) * 1e3
+
+    _zero_counts()
+    warm = {kind: timed(kind) for kind in ("graph", "eager")}
+    print(f"[{card}] phase 18 {label}: step "
+          f"{'captured by the run before' if captured_before else 'captured now'}: capture "
+          f"{program.capture_s:.2f} s, instantiation {program.instantiate_s:.3f} s, private "
+          f"pool {program.pool_bytes / 2**30:.2f} GiB, {len(program.tape.ops)} taped draws "
+          f"and splits; warm-up step graphed {warm['graph']:.1f} ms, eager "
+          f"{warm['eager']:.1f} ms")
+    n = GRAPH_TURNS[label]
+    order = [("graph", "eager", "eager", "graph")[i % 4] for i in range(2 * n)]
+    ms = {"graph": [], "eager": []}
+    _zero_counts()
+    replays = program.replays
+    for kind in order:
+        ms[kind].append(timed(kind))
+    wrapper_counts = _counts()
+    per_step = program.captured_counts
+    assert program.replays - replays == n
+    medians = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"[{card}] phase 18 {label} steps in turns {'/'.join(order)}: graphed "
+          f"{', '.join(f'{t:.1f}' for t in ms['graph'])} ms, eager "
+          f"{', '.join(f'{t:.1f}' for t in ms['eager'])} ms; median {medians['graph']:.1f} / "
+          f"{medians['eager']:.1f} ms")
+    # The wrappers count the eager twin's launches only; a replay's are the captured
+    # step's.
+    for k, v in per_step.items():
+        assert wrapper_counts[k] == n * v, (label, k, wrapper_counts[k], v)
+    print(f"[{card}] phase 18 {label}: kernel counts per captured step {per_step} (the eager "
+          f"twin's per step equal), times {n} replays")
+    diff = _state_diff(trainer, states["graph"], eager, states["eager"])
+    assert max(v for k, v in diff.items() if k != "bitwise") <= tol, (label, diff)
+    print(f"[{card}] phase 18 {label} after {n + 1} steps each: max relative difference "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diff.items() if k != "bitwise")
+          + f" (tolerance {tol:g}); bitwise equal: {diff['bitwise']}")
+
+    out = {"graph_ms": ms["graph"], "eager_ms": ms["eager"], "medians": medians,
+           "diff": diff, "per_step": per_step, "capture_s": program.capture_s,
+           "instantiate_s": program.instantiate_s, "pool_bytes": program.pool_bytes,
+           "captured_by_run": captured_before}
+    if eval_check:
+        evals = {}
+        for kind, t in (("graph", trainer), ("eager", eager)):
+            logger, t.logger = t.logger, ListLogger()
+            t.perform_eval(states[kind], torch.Generator(device=device).manual_seed(81), 1,
+                           batch, batch)
+            evals[kind], t.logger = t.logger.history, logger
+        keys = [k for k, v in evals["eager"].items() if k != "step"]
+        rel = {k: abs(evals["graph"][k][0] - evals["eager"][k][0])
+               / max(abs(evals["eager"][k][0]), 1e-30) for k in keys
+               if math.isfinite(evals["eager"][k][0])}
+        assert all(math.isfinite(evals["graph"][k][0]) == math.isfinite(evals["eager"][k][0])
+                   for k in keys)
+        assert max(rel.values()) <= 1e-5, rel
+        print(f"[{card}] phase 18 {label} perform_eval after the graphed steps against after "
+              f"the eager ones (same seed): {len(keys)} columns, max relative difference "
+              f"{max(rel.values()):.3e} (tolerance 1e-5)")
+        out["eval_max_rel"] = max(rel.values())
+
+    # One replay under the profiler, and the graph's own kernel nodes.
+    wall, by_name, in_graph, foreign = _device_events(lambda: take["graph"](states["graph"]))
+    busy = sum(v[0] for v in by_name.values())
+    words = {"k1_tf32x3_chain": "k1_tf32x3_chain", "k2_tf32x3_coupling": "k2_tf32x3_coupling",
+             "k2_split_rows": "k2_split_rows", "k2_tf32x3_dense": "k2_tf32x3_dense",
+             "k2_row_sum": "k2_row_sum", "k2_prepare_weight": "k2_prepare_weight"}
+    launches = {k: _kernel_count(in_graph, w) for k, w in words.items()}
+    nodes = _graph_kernels(program.graph)
+    want = {"k1_tf32x3_chain": per_step["k1"], "k2_tf32x3_coupling": per_step["k2"],
+            "k2_split_rows": per_step["k2"], "k2_tf32x3_dense": 2 * per_step["k2"],
+            "k2_row_sum": per_step["k2"], "k2_prepare_weight": per_step["k2_rebuilds"]}
+    assert {k: nodes[k] for k in want} == want, (nodes, want)
+    # The replay ran the path's kernels. The profiler's records of a graph's kernels
+    # are not exact (a replay of LGCP-1600's 75k nodes lost 1 of 400 coupling records;
+    # one of GMM-40's named 42 records K1, which that graph does not hold), so the
+    # exact count is the graph's own, above.
+    assert all(launches[k] > 0 for k, v in want.items() if v), (launches, want)
+    print(f"[{card}] phase 18 {label}: the graph holds {nodes['kernel nodes']} kernel nodes "
+          f"(read through libcuda), of them " + ", ".join(
+              f"{k} {nodes[k]}" for k in want) + ": the captured counts")
+    print(f"[{card}] phase 18 {label} profiled replay: wall {wall:.1f} ms (profiler on), "
+          f"device busy {busy:.1f} ms ({busy / medians['graph']:.1%} of the graphed median "
+          f"step), {sum(v[1] for v in by_name.values())} device ops "
+          f"({sum(v[1] for v in in_graph.values())} in the graph's one launch; {foreign} "
+          f"records of no launch of this replay left out); its records by name "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    if launches != want:
+        print(f"[{card}] phase 18 {label}: the profiler's records against the graph's "
+              "nodes: " + ", ".join(f"{k} {launches[k]} / {v}" for k, v in want.items()
+                                    if launches[k] != v)
+              + " (the records of graph kernels are off, not the graph)")
+    out.update(busy=busy / medians["graph"], profiled_kernels=launches, graph_nodes=nodes)
+
+    # The copy of the new state into the static one, at the end of every step, timed
+    # as the graph runs it: captured alone and replayed.
+    copies = [t.clone() for t in program.static]
+    copy_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(copy_graph):
+        for c, s in zip(copies, program.static):
+            c.copy_(s)
+    copy_ms = _time_ms(copy_graph.replay, n=10)
+    size = sum(t.numel() * t.element_size() for t in program.static)
+    del copies, copy_graph
+    print(f"[{card}] phase 18 {label}: the state's copy back ({size / 1e6:.1f} MB of static "
+          f"state) {copy_ms:.3f} ms a step")
+    out["copy_back_ms"] = copy_ms
+
+    # make_scanned_train_step(batch, 4) against 4 single replays from one state.
+    start = _clone_state(states["graph"])
+    saved = {k: v.clone() for k, v in trainer.model.flow.state_dict().items()}
+    runs = {}
+    for kind in ("scanned", "single"):
+        trainer.model.flow.load_state_dict(saved)
+        gen = torch.Generator(device=device).manual_seed(180)
+        s = _clone_state(start)
+        if kind == "scanned":
+            s, _ = trainer.make_scanned_train_step(batch, GRAPH_SCANNED)(s, gen)
+        else:
+            for _ in range(GRAPH_SCANNED):
+                s, _ = step(s, gen)
+        runs[kind] = (_clone_state(s), {k: v.clone() for k, v in
+                                        trainer.model.flow.state_dict().items()})
+    same = (all(torch.equal(runs["scanned"][1][k], v) for k, v in runs["single"][1].items())
+            and all(torch.equal(a, b) for a, b in zip(graph._leaves(runs["scanned"][0])[0],
+                                                      graph._leaves(runs["single"][0])[0])))
+    assert same and runs["scanned"][0].step == runs["single"][0].step
+    print(f"[{card}] phase 18 {label}: make_scanned_train_step({batch}, {GRAPH_SCANNED}) "
+          f"equals {GRAPH_SCANNED} single replays bitwise (parameters and every state tensor)")
+    out["replays"] = program.replays
+    out["path_s"] = time.time() - t_path
+    print(f"[{card}] phase 18 {label}: {out['path_s']:.1f} s")
+    return out
+
+
+def _graph_record(run: dict, kernel: str) -> dict:
+    """A kernel's phase-18 figures for the kernels line: it runs inside the path's
+    captured step."""
+    return {
+        "launches_per_captured_step": run["per_step"][kernel], "replays": run["replays"],
+        "launches_in_replays": run["per_step"][kernel] * run["replays"],
+        "profiled_replay_kernels": run["profiled_kernels"],
+        "graph_kernel_nodes": run["graph_nodes"],
+        "step_ms_graphed": run["graph_ms"], "step_ms_eager": run["eager_ms"],
+        "device_busy_share_graphed": run["busy"], "capture_s": run["capture_s"],
+        "instantiate_s": run["instantiate_s"], "pool_bytes": run["pool_bytes"],
+        "max_rel_diff_vs_eager": {k: v for k, v in run["diff"].items() if k != "bitwise"},
+        "bitwise_vs_eager": run["diff"]["bitwise"], "copy_back_ms": run["copy_back_ms"],
+    }
+
+
+def phase18_path(card, mw, lgcp, gmm) -> dict:
+    """Phase 18: the compiled step on ManyWell-32 (K1 in the graph), LGCP-1600 (K2 in
+    the graph, and perform_eval after graphed against after eager steps) and GMM-40
+    (f64), each ``(trainer, state)``."""
+    t0 = time.time()
+    out = {"ManyWell-32": graph_turns("ManyWell-32", *mw, MW_BATCH, 1e-5, card)}
+    out["LGCP-1600"] = graph_turns("LGCP-1600", *lgcp, LG_BATCH, 1e-5, card, eval_check=True)
+    out["GMM-40"] = graph_turns("GMM-40", *gmm, 128, 1e-12, card)
+    out["phase_s"] = time.time() - t0
+    print(f"[{card}] phase 18: {out['phase_s']:.1f} s (budget {PHASE18_BUDGET_S} s)")
+    return out
+
+
 def drive(device, gen, name, card) -> list:
     """Phases 2-17; returns the kernel records."""
     t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
-    mw = manywell_path(device, gen, card)
+    mw, *mw_trainer = manywell_path(device, gen, card)
     k1_timing, k1_bounds = time_k1(k1, name, card)
     phase_s["2-4 K1, ManyWell"] = time.time() - t0
 
@@ -2996,6 +3312,7 @@ def drive(device, gen, name, card) -> list:
         _save_flow_checkpoint(trainer, state, os.path.join(tmp, "lgcp_checkpoint", "state.pkl"))
         shutil.copytree(os.path.join(tmp, "lgcp_checkpoint"),
                         os.path.join(trajectory, f"iter_{state.step + 2}"))
+        lgcp_trainer = (trainer, state)  # phase 18's; its step was captured by the run
         del trainer, state
         k2_timing, k2_bounds, k2_library, k2_rebuild = time_k2(k2, name, card)
         phase_s["5-7 K2, LGCP"] = time.time() - t0
@@ -3040,6 +3357,11 @@ def drive(device, gen, name, card) -> list:
         p17 = phase17_path(device, card, tmp)
         phase_s["17 studies, options"] = time.time() - t0
 
+        # ------------------------------------------------ 18. the compiled step
+        p18 = phase18_path(card, mw_trainer, lgcp_trainer, gmm.pop("trainer"))
+        del mw_trainer, lgcp_trainer
+        phase_s["18 compiled step"] = time.time() - t0
+
     kernels = [
         {
             "name": "fused_realnvp_pass",
@@ -3082,7 +3404,10 @@ def drive(device, gen, name, card) -> list:
             },
             "bench": dict(p16["bench"]["bench"], median_fused_step_ms=p16["bench"]["fused_ms"],
                           median_plain_step_ms=p16["bench"]["plain_ms"],
+                          median_eager_fused_step_ms=p16["bench"]["eager_fused_ms"],
+                          median_eager_plain_step_ms=p16["bench"]["eager_plain_ms"],
                           bench_scaling=p16["bench"]["scaling"]),
+            "in_graph": _graph_record(p18["ManyWell-32"], "k1"),
             "launches_model_axis": sum(p[0] for p in ma["fused"]["k1_per_step"]),
             "model_axis": {
                 "grid": [1, 2], "backend": "gloo (two ranks on one card)",
@@ -3129,6 +3454,7 @@ def drive(device, gen, name, card) -> list:
             "bench_lgcp_kernel": p16["lgcp_kernel"],
             "launches_in_graph_evaluation": p16["in_graph"]["launches"]["true"],
             "launches_trajectory_evaluation": p17["trajectory"]["launches"],
+            "in_graph": _graph_record(p18["LGCP-1600"], "k2"),
             "launches_model_axis": ma["lgcp"]["counts"]["k2"],
             "model_axis": {"grid": [1, 2], "step_ms": ma["lgcp"]["step_ms"],
                            "rebuilds_per_step": ma["lgcp"]["counts"]["k2_rebuilds"],
@@ -3156,6 +3482,11 @@ def drive(device, gen, name, card) -> list:
           f"{statistics.median(dp['dp_ms']):.1f} ms against the plain trainer's "
           f"{statistics.median(dp['plain_ms']):.1f} ms in turns, device busy {dp['busy']:.1%}, "
           f"NCCL {dp['nccl_ms']:.3f} ms and {dp['collectives']} collectives per step")
+    for label, run in p18.items():
+        if label != "phase_s":
+            print(f"[{card}] {label} compiled step (phase 18): median "
+                  f"{run['medians']['graph']:.1f} ms graphed against {run['medians']['eager']:.1f}"
+                  f" ms eager, in turns; device busy {run['busy']:.1%} of the graphed step")
     print(f"[{card}] wall time by phase (s, cumulative from phase 2): "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     return kernels

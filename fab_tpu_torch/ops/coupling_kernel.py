@@ -194,6 +194,13 @@ def prepared_weight(w: torch.Tensor, n_cols: int) -> torch.Tensor:
 prepared_weight.rebuilds = 0
 
 
+def forget_prepared() -> None:
+    """Empty the prepared-weight cache, so the next pass rebuilds every copy. A
+    replayed CUDA graph updates the weights without moving their ``_version``
+    (``graph.py`` calls this around a capture and after each replay)."""
+    _PREPARED.clear()
+
+
 def fused_coupling_apply(
     z_cond: torch.Tensor,  # [B, d_cond]
     z_trans: torch.Tensor,  # [B, d_trans]

@@ -11,11 +11,24 @@ through ``restart``, so that every log-q call given one key draws the same noise
 a JAX key does. Both work on the generators' host-side state only (a CUDA
 generator's state is its Philox seed and offset), so neither waits for the device
 nor launches anything.
+
+**The noise tape.** A step captured as a CUDA graph (``graph.py``) cannot draw: a
+replay would repeat the draws of the capture, and a generator cannot be re-seeded
+inside a graph. Inside ``taped(tape)`` every draw, split and restart of this module
+is served by a ``Tape`` instead: the first run records each call (its generator's
+place, as a ``TapeKey``, and its arguments) and gives it a static tensor of its own;
+every later run must make the same calls, in the same order, and gets the same
+tensors back. Before each run ``noise_pass(tape, generator)`` makes those calls on
+the caller's generator, with this module's functions as they stand (a test may have
+replaced them), and writes the draws into the static tensors. The step then draws
+exactly what the eager step draws from that generator.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
-from typing import Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -77,3 +90,113 @@ def categorical(generator: torch.Generator, logits: torch.Tensor, n: int) -> tor
     trick over an [n, len(logits)] draw."""
     g = gumbel(generator, (n, logits.shape[-1]), logits.dtype, logits.device)
     return torch.argmax(g + logits, dim=-1)
+
+
+# ---------------------------------------------------------------- the noise tape
+
+KINDS = ("normal", "exponential", "gumbel", "uniform", "randint")
+# The module's own draws, for the recording run (the step is not given the caller's
+# generator then, and a test's replacements must not be consumed by it).
+_OWN = {kind: globals()[kind] for kind in KINDS}
+_OWN["gumbel"] = lambda generator, *args: -torch.log(_OWN["exponential"](generator, *args))
+
+
+class TapeKey:
+    """A generator's place in a tape: 0 is the generator the step is given, and
+    each split or restart makes the next."""
+
+    __slots__ = ("tape", "index")
+
+    def __init__(self, tape: "Tape", index: int):
+        self.tape, self.index = tape, index
+
+
+class Tape:
+    """The draws of one step in call order: ``ops`` holds ("split", parent),
+    ("restart", parent) or (kind, parent, args), ``noise`` one static tensor per
+    draw. Recorded by the first run inside ``taped``; each later run is held to it
+    and raises at the first call that differs."""
+
+    def __init__(self):
+        self.ops: List[Tuple] = []
+        self.noise: List[torch.Tensor] = []
+        self.recorded = False
+        self._scratch: Dict[Tuple[int, torch.device], torch.Generator] = {}
+
+    def root(self) -> TapeKey:
+        """The key that stands for the step's generator."""
+        return TapeKey(self, 0)
+
+    def _begin(self) -> None:
+        self._cursor, self._n_keys, self._n_draws = 0, 1, 0
+
+    def _end(self) -> None:
+        if self._cursor != len(self.ops):
+            raise RuntimeError(f"the step made {self._cursor} draws and splits, its tape "
+                               f"{len(self.ops)}")
+        self.recorded = True
+
+    def _op(self, kind: str, key, args: Tuple = ()) -> int:
+        if not (isinstance(key, TapeKey) and key.tape is self):
+            raise RuntimeError(f"a taped step drew from {key!r}, not from its own generator "
+                               "or a key split from it")
+        op = (kind, key.index) + ((args,) if kind in KINDS else ())
+        if self.recorded:
+            have = self.ops[self._cursor] if self._cursor < len(self.ops) else None
+            if have != op:
+                raise RuntimeError(f"the step's draws changed: call {self._cursor} is {op}, "
+                                   f"its tape has {have}")
+        else:
+            self.ops.append(op)
+        self._cursor += 1
+        return key.index
+
+    def _draw(self, kind: str, key, *args) -> torch.Tensor:
+        index = self._op(kind, key, args)
+        if not self.recorded:
+            # Real noise from a scratch generator: the recording run computes on it.
+            device = torch.device(args[-1] if args[-1] is not None else "cpu")
+            scratch = self._scratch.get((index, device))
+            if scratch is None:
+                scratch = torch.Generator(device=device).manual_seed(index)
+                self._scratch[(index, device)] = scratch
+            self.noise.append(_OWN[kind](scratch, *args))
+        self._n_draws += 1
+        return self.noise[self._n_draws - 1]
+
+    def _new_key(self, kind: str, key) -> TapeKey:
+        self._op(kind, key)
+        self._n_keys += 1
+        return TapeKey(self, self._n_keys - 1)
+
+
+_SERVED = KINDS + ("split", "restart")
+
+
+@contextlib.contextmanager
+def taped(tape: Tape):
+    """Within, this module's draws, splits and restarts are served by ``tape`` (see
+    the module docstring); a run that ends without error completes or matches it."""
+    saved = {name: globals()[name] for name in _SERVED}
+    globals().update({kind: functools.partial(tape._draw, kind) for kind in KINDS})
+    globals().update(split=functools.partial(tape._new_key, "split"),
+                     restart=functools.partial(tape._new_key, "restart"))
+    tape._begin()
+    try:
+        yield tape.root()
+        tape._end()
+    finally:
+        globals().update(saved)
+
+
+def noise_pass(tape: Tape, generator) -> None:
+    """Make the tape's calls on ``generator``, in its order, with this module's
+    functions as they stand, and write each draw into its static tensor."""
+    keys = [generator]
+    draws = iter(tape.noise)
+    for op in tape.ops:
+        fn = globals()[op[0]]
+        if op[0] in KINDS:
+            next(draws).copy_(fn(keys[op[1]], *op[2]))
+        else:
+            keys.append(fn(keys[op[1]]))

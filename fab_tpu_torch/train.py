@@ -48,7 +48,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
-from fab_tpu_torch import checkpoint
+from fab_tpu_torch import checkpoint, graph
 from fab_tpu_torch import losses as losses_lib
 from fab_tpu_torch.buffer import (
     PrioritisedBufferState,
@@ -345,6 +345,7 @@ class Trainer:
         self.checkpoints_dir = os.path.join(save_path, "model_checkpoints")
         self.dtype = dtype
         self.model.flow.to(device=self.device, dtype=dtype)
+        self._programs: Dict[int, graph.StepProgram] = {}  # compiled steps by batch size
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
@@ -389,6 +390,37 @@ class Trainer:
         opt_state, grad_norm, ok, loss = self._step(loss, state.opt_state)
         info = dict(info, loss=loss, grad_norm=grad_norm, update_applied=ok)
         return TrainState(transition_state, opt_state, state.step + 1), info
+
+    # ------------------------------------------------------- the compiled step
+
+    def _program(self, batch_size: int) -> graph.StepProgram:
+        if batch_size not in self._programs:
+            self._programs[batch_size] = graph.StepProgram(self, batch_size)
+        return self._programs[batch_size]
+
+    def make_train_step(self, batch_size: int):
+        """``step(state, generator) -> (state, info)``: ``train_step`` compiled
+        (``fab_tpu``'s ``jax.jit`` of it). On the card its first call captures one
+        step as a CUDA graph, after one warm-up step whose effects it undoes, and
+        every call replays it after drawing the step's noise from ``generator``; on
+        the CPU it runs the same static-tensor and noise-tape path without a graph
+        (``graph.py``). The draws, and so the steps, are ``train_step``'s.
+
+        Donation: the state a call returns holds the step's static tensors, which the
+        next call of any step of this trainer at this batch size overwrites; the
+        state passed in is read, not kept. Copy what must outlive the next step. One
+        program per batch size, shared with ``make_scanned_train_step``."""
+        program = self._program(batch_size)
+        return lambda state, generator: program(state, generator)
+
+    def make_scanned_train_step(self, batch_size: int, n_steps: int):
+        """``steps(state, generator) -> (state, info)``: ``n_steps`` replays of
+        ``make_train_step``'s program, each after its own noise pass, enqueued with
+        no host read between them (``fab_tpu``'s ``lax.scan`` in one dispatch).
+        Returns the state after the last and the last step's info, with the same
+        donation as ``make_train_step``."""
+        program = self._program(batch_size)
+        return lambda state, generator: program(state, generator, n_steps)
 
     # ------------------------------------------------------------ run loop
 
@@ -574,10 +606,13 @@ class Trainer:
         stop at ``tlimit`` hours (``fab_tpu/train.py:277-394``).
 
         Steps run in chunks of up to ``log_every`` iterations that stop at every
-        scheduled event; the logger gets the last step of each chunk. Without jit
-        there is nothing to amortise, but the schedule and the log rows stay
-        ``fab_tpu``'s. Without ``state``, ``init_state`` makes one (a buffer
-        trainer fills its buffer with its default batch, as in ``fab_tpu``).
+        scheduled event, each chunk one call of ``make_train_step`` (one step) or
+        ``make_scanned_train_step`` (more), as in ``fab_tpu``; the logger gets the
+        last step of each chunk. A configuration ``graph.graph_supported`` refuses
+        takes the eager ``train_step`` instead; the choice and its reason are printed
+        once. Without ``state``, ``init_state`` makes one (a buffer trainer fills its
+        buffer with its default batch, eagerly, as ``fab_tpu``'s jitted fill does).
+        The state returned is the compiled step's (see ``make_train_step``).
         """
         if save and is_primary():
             pathlib.Path(self.plots_dir).mkdir(parents=True, exist_ok=True)
@@ -589,6 +624,19 @@ class Trainer:
             raise ValueError("n_eval needs eval_batch_size")
         if state is None:
             state = self.init_state(generator)
+        compiled, reason = graph.graph_supported(self)
+        if is_primary():
+            print(f"train step: {'compiled' if compiled else 'eager'} ({reason})", flush=True)
+
+        def run_chunk(state, k: int):
+            if compiled:
+                step = (self.make_train_step(batch_size) if k == 1
+                        else self.make_scanned_train_step(batch_size, k))
+                return step(state, generator)
+            for _ in range(k):
+                state, info = self.train_step(state, generator, batch_size)
+            return state, info
+
         events = sorted({n_iterations} | checkpoint_iter | eval_iter | plot_iter)
         start_time = time()
         max_it_time = 0.0
@@ -602,8 +650,7 @@ class Trainer:
             it_start = time()
             next_event = min(e for e in events if e > i)
             k = max(min(log_every, next_event - i), 1)
-            for _ in range(k):
-                state, info = self.train_step(state, generator, batch_size)
+            state, info = run_chunk(state, k)
             i += k
             t_info = info.pop("transition", None)
             host_info = {name: float(v) for name, v in info.items()}

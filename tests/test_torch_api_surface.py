@@ -159,11 +159,6 @@ REASONS = {
     "targets/gmm.py:GMM(expectation_key)": "renamed expectation_generator (a torch.Generator)",
     "train.py:Trainer(lr_schedule)":
         "fab_tpu takes it and discards it (train.py:188): a schedule is the optimizer's",
-    "train.py:Trainer.make_train_step":
-        "a jax.jit of the step: the port's step is Trainer.train_step, run eagerly",
-    "train.py:Trainer.make_scanned_train_step":
-        "a lax.scan chunk of steps in one dispatch: the port's run loop takes the same steps "
-        "one at a time, and the runner parity tests hold its outputs",
     "wrappers/haiku_module.py:WrappedHaikuFlow.transformed":
         "a haiku MultiTransformed: the port wraps an nn.Module (WrappedModuleFlow.module)",
 }

@@ -2,7 +2,8 @@
 
 - ``python3 -m fab_tpu_torch.bench --device cpu`` at a small batch and width prints
   exactly one JSON line on stdout, with the keys of the repository's ``bench.py``
-  (read from its source), ``mfu`` null and a reason on stderr;
+  (read from its source), ``mfu`` null and a reason on stderr; its value is the
+  compiled step's (``make_train_step``), the eager steps' on stderr before it;
 - the bench's settings are ``bench.py``'s (the trainer's hyperparameters, read from
   both sources), and its fused and plain trainers start from the same parameters and
   take the same step (K1's plain version on the CPU: float32, 1e-5);
@@ -56,7 +57,14 @@ def test_bench_prints_one_json_line_with_bench_py_keys():
     assert line["mfu"] is None and "mfu null" in proc.stderr
     assert line["value"] > 0 and line["vs_baseline"] > 0 and line["achieved_flops_per_s"] > 0
     assert "K1 per fused step: launches [0], recomputes [29]" in proc.stderr
+    # value and vs_baseline are the compiled steps'; the eager ones come first.
+    for kind in ("fused", "plain"):
+        assert f"{kind} compiled step, first call" in proc.stderr
     assert re.search(r"median step: fused [\d.]+ ms, plain [\d.]+ ms", proc.stderr)
+    assert re.search(r"median eager step: fused [\d.]+ ms, plain [\d.]+ ms", proc.stderr)
+    rates = dict(re.findall(r"(compiled|eager) samples/s: fused ([\d.]+)", proc.stderr))
+    assert set(rates) == {"compiled", "eager"}
+    assert float(rates["compiled"]) == pytest.approx(line["value"], rel=0.5)
 
 
 def test_bench_settings_are_bench_py_settings():

@@ -292,3 +292,90 @@ def test_host_energy_server_matches_the_torch_force_field_on_the_card(card):
     assert e.device.type == "cuda" and e.dtype == torch.float64
     torch.testing.assert_close(e, e_ref.detach(), rtol=1e-9, atol=0)
     torch.testing.assert_close(g, g_ref, rtol=1e-6, atol=1e-8)
+
+
+def _graph_trainer(kind, device):
+    """A small trainer on the card: GMM-shaped Trainer / BufferTrainer (Metropolis
+    AIS, f64) or a ManyWell PrioritisedBufferTrainer with the fused flow (K1, f32)."""
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer, ReplayBuffer
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import HamiltonianMonteCarlo, Metropolis
+    from fab_tpu_torch.targets import GMM, ManyWellEnergy
+    from fab_tpu_torch.train import (BufferTrainer, PrioritisedBufferTrainer, Trainer,
+                                     make_optimizer)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    if kind == "prioritised_fused":
+        flow = make_realnvp(8, 4, 8, fused=True, generator=gen, device=device)
+        hmc = HamiltonianMonteCarlo(n_ais_intermediate_distributions=2, n_outer=1,
+                                    n_leapfrog=2, epsilon=1.0)
+        model = FABModel.create(flow, ManyWellEnergy(8, device=device), hmc, 2)
+        return PrioritisedBufferTrainer(
+            model, make_optimizer(3e-4, 100.0),
+            PrioritisedReplayBuffer(dim=8, max_length=1024, min_sample_length=256),
+            n_batches_buffer_sampling=2, w_adjust_max_clip=10.0, device=device)
+    f64 = torch.float64
+    flow = make_realnvp(2, 3, 8, generator=gen, dtype=f64, device=device)
+    target = GMM(n_mixes=8, loc_scaling=5.0, dtype=f64, device=device,
+                 true_expectation_estimation_n_samples=1000)
+    mh = Metropolis(n_ais_intermediate_distributions=1, n_updates=2, max_step_size=3.0,
+                    min_step_size=1.0)
+    model = FABModel.create(flow, target, mh, 1)
+    if kind == "trainer":
+        return Trainer(model, make_optimizer(1e-2, 100.0), dtype=f64, device=device)
+    return BufferTrainer(model, make_optimizer(1e-2, 100.0), ReplayBuffer(2, 512, 128, 1.0),
+                         clip_ais_weights_frac=0.1, dtype=f64, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["trainer", "buffer", "prioritised_fused"])
+def test_compiled_step_replays_a_cuda_graph_equal_to_eager(card, kind):
+    """make_train_step on the card captures a CUDA graph; 3 replays against 3 eager
+    steps from one state and seed (parameters and every state tensor bitwise; K1's
+    launches counted once, at capture), then make_scanned_train_step(b, 2) against
+    2 single replays."""
+    from torch.utils import _pytree as pytree
+
+    from fab_tpu_torch import graph
+
+    leaves = lambda s: pytree.tree_leaves(tuple(s)[:-1])
+    trainers = [_graph_trainer(kind, card) for _ in range(2)]
+    kw = {} if kind == "trainer" else {"batch_size": 128}
+    states = [t.init_state(torch.Generator(device=card).manual_seed(1), **kw)
+              for t in trainers]
+    gens = [torch.Generator(device=card).manual_seed(2) for _ in trainers]
+    eager, compiled = trainers
+    step = compiled.make_train_step(128)
+    for i in range(3):
+        states[0], _ = eager.train_step(states[0], gens[0], 128)
+        before = graph.counts()
+        states[1], info = step(states[1], gens[1])
+        torch.cuda.synchronize()
+        assert torch.isfinite(info["loss"])
+        assert i == 0 or graph.counts() == before  # a replay reaches no wrapper
+    program = compiled._program(128)
+    assert program.graph is not None and program.replays == 3
+    # K1 per step: a flow draw, a gradient pass, 2 x 2 leapfrog passes; 2 replay
+    # batches of a probe and a differentiated pass.
+    assert program.captured_counts["k1"] == (10 if kind == "prioritised_fused" else 0)
+    for a, b in zip(eager.model.flow.parameters(), compiled.model.flow.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(states[0]), leaves(states[1])):
+        assert torch.equal(a, b)
+    start = [t.clone() for t in leaves(states[1])]
+    params = {k: v.clone() for k, v in compiled.model.flow.state_dict().items()}
+    ends = []
+    for scanned in (True, False):
+        compiled.model.flow.load_state_dict(params)
+        state = type(states[1])(*pytree.tree_unflatten(
+            [t.clone() for t in start], pytree.tree_flatten(tuple(states[1])[:-1])[1]),
+            states[1].step)
+        gen = torch.Generator(device=card).manual_seed(3)
+        if scanned:
+            state, _ = compiled.make_scanned_train_step(128, 2)(state, gen)
+        else:
+            for _ in range(2):
+                state, _ = step(state, gen)
+        ends.append([t.clone() for t in leaves(state)]
+                    + [p.detach().clone() for p in compiled.model.flow.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*ends))

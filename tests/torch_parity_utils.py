@@ -288,7 +288,8 @@ def assert_buffer(state, state_j, tol):
 
 def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_batches,
                      hmc_kw, tol=1e-8, filters=None, trainer_kw=None,
-                     with_replacement=False, optimizer_kw=None, n_steps=1, lr=1e-2):
+                     with_replacement=False, optimizer_kw=None, n_steps=1, lr=1e-2,
+                     compiled=None):
     """One full f64 PrioritisedBufferTrainer step of the port against fab_tpu's, on
     a shared buffer (192 rows, some dead) and shared noise: flow parameters, Adam
     state, HMC state, buffer and logged info agree to ``tol``.
@@ -306,6 +307,11 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
     fab_tpu flow, and so are an SNF's log-q keys, one per AIS pass and per replay
     batch. Returns the last step's
     (port info, port state, fab_tpu's info, fab_tpu's state).
+
+    ``compiled``: ``"step"`` takes the port's steps through ``make_train_step``;
+    ``"scanned"`` takes all ``n_steps`` in one ``make_scanned_train_step`` call
+    against ``fab_tpu``'s (its ``lax.scan`` over ``split(key(5), n_steps)``, whose
+    keys then make each step's noise), and compares after the last only.
     """
     jax_flow, params, flow = flow_pair
     target_j, target = targets
@@ -339,8 +345,11 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
         )
         step_j = jax.jit(trainer_j._train_step_fn(batch))
         steps_j = []  # (noise, log-q keys, fab_tpu's new state, its info) per step
+        scanned = compiled == "scanned"
         for k in range(n_steps):
             key = jax.random.key(5) if k == 0 else jax.random.fold_in(jax.random.key(5), k)
+            if scanned:
+                key = jax.random.split(jax.random.key(5), n_steps)[k]
             key_ais, key_sample = jax.random.split(key)
             noise = ais_noise(key_ais, n_dists, 1, batch, dim, jnp.float64, flow=jax_flow)
             keys = []
@@ -352,9 +361,19 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
             gumbel_shape = (n_batches * batch, 512) if with_replacement else (512,)
             noise["gumbel"] = [np.asarray(jax.random.gumbel(key_sample, gumbel_shape,
                                                             jnp.float64))]
+            if scanned:
+                steps_j.append((noise, keys))
+                continue
             state_j = step_j(state_j, key)
             steps_j.append((noise, keys, *to_np(state_j)))
             state_j = state_j[0]
+        if scanned:
+            merged = {}
+            for noise, _ in steps_j:
+                for kind, values in noise.items():
+                    merged.setdefault(kind, []).extend(values)
+            steps_j = [(merged, [k for _, keys in steps_j for k in keys], *to_np(
+                trainer_j.make_scanned_train_step(batch, n_steps)(state_j, jax.random.key(5))))]
 
     model = FABModel.create(
         flow, target, transition_operator=HamiltonianMonteCarlo(**hmc_kw),
@@ -375,9 +394,14 @@ def check_train_step(monkeypatch, flow_pair, targets, dim, batch, n_dists, n_bat
         buffer_state=buffer_state_from_jax(to_np(buffer_j)),
         step=0,
     )
+    take = lambda s: trainer.train_step(s, None, batch)
+    if compiled == "step":
+        take = lambda s: trainer.make_train_step(batch)(s, None)
+    elif compiled == "scanned":
+        take = lambda s: trainer.make_scanned_train_step(batch, n_steps)(s, None)
     for k, (noise, keys, new_j, info_j) in enumerate(steps_j):
         replay = NoiseReplay(monkeypatch, noise, keys)
-        new, info = trainer.train_step(state, None, batch)
+        new, info = take(state)
         replay.assert_consumed()
         state = new
         assert int(info["n_valid"]) == int(info_j["n_valid"]), f"step {k + 1}: n_valid"
