@@ -59,7 +59,7 @@ Phases:
      bins, HMC 8 x 4 leapfrog steps of 0.1, batch 1024, buffer 512 / 8 batches, 8
      replay updates, the chirality filter, cosine schedule with 1000 warm-up
      updates), f32, cut in length only (ALDP_CUTS, printed): the model built
-     directly (minimisation, test set, init_state and ALDP_STEPS (3) steps timed, the LR of
+     directly (minimisation, test set, init_state and ALDP_STEPS (2) steps timed, the LR of
      every update printed, a profiled step), then the runner for 3 iterations with
      one eval and the final evaluation, and its resume for one iteration.
  12. The resampled (LARS) base and stochastic normalizing flows, f32/f64 as each
@@ -67,11 +67,13 @@ Phases:
      value): aldp_rbd.yaml (vacuum; the LARS base, acceptance net 2 x 256, T = 100,
      1024 points; 12 spline blocks of width 256, 8 bins; HMC 8 x 4; batch 1024;
      prioritised buffer; the chirality filter) and aldp_snf.yaml (the same flow over
-     the gauss-uni base with 3 MH layers of 10 steps of the vacuum force field, so
-     30 target evaluations inside every log q) through run_aldp: init_state and 2
-     timed steps, one eval (the SNF 1 step and none, and its buffer starts at one
-     batch: SNF_CUTS), the final evaluation, a profiled step, and the LARS acceptance (Z
-     and the mean a(z)); aldp_ml.yaml
+     the gauss-uni base with 3 MH layers of the vacuum force field, their steps cut
+     10 -> SNF_MH_STEPS (5), so 15 target evaluations inside every log q) through
+     run_aldp: init_state (their buffers start empty) and 2 compiled steps, each
+     call of the compiled step timed (the first with its build), one eval (the SNF
+     1 step and none: SNF_CUTS), the final evaluation, a profiled eager step (not the
+     SNF's, cut: phase 19 profiles a replay of its captured step), and the LARS
+     acceptance (Z and the mean a(z)); aldp_ml.yaml
      (vacuum, ML) for 2 iterations between them. The three share phase 11's
      minimised reference frame (no second 4000-step minimisation) and rbd's vacuum
      test set. Then GMM-40 through run_gmm on gmm.yaml with
@@ -83,7 +85,7 @@ Phases:
      force field on the card (1024 test-set positions of phase 11, implicit
      solvent, f64), then aldp.yaml (phase 11's cuts and reference frame) on the jax
      (on-device) backend and on host_cpp: init_state, 3 timed steps each, taken in
-     turns (HOST_ORDER: 2 each), and a profiled one: median step, device busy, device ops
+     turns (HOST_ORDER: 1 each), and a profiled one: median step, device busy, device ops
      and server calls per step. (b) profile_aldp at batch 1024 on both backends, its repeats
      cut to 2 (printed). (c) evaluate.py on phase 9's GMM-40 checkpoint and phase
      12's as rsb_* and snf_*, and on the LGCP-1600 flow of phases 6-7 with
@@ -113,7 +115,8 @@ Phases:
  15. (a) The mesh's model axis on the card: two processes of this script
      (--model-axis-rank, a gloo group on tcp://127.0.0.1:<free port>: gloo carries
      the CUDA tensors through the host) form a (1, 2) grid. Each runs ManyWell-32 at
-     phase 3's widths, f64 (MA_DTYPE), init_state and 3 steps, with the plain flow
+     phase 3's widths, f64 (MA_DTYPE), init_state (one batch) and MA_STEPS (2) steps,
+     with the plain flow
      Megatron-split (H = 320 -> 160 per rank) and with the fused flow, whose K1
      takes the gathered weights, while this process runs both from the same seeds
      alone. Parameters, step sizes and buffer priorities agree (relative 1e-5),
@@ -129,9 +132,9 @@ Phases:
      tensor on the card, and one more step under the sync check.
  16. The port's bench and scripts, cut in length only where printed (PHASE16_BUDGET_S
      240 s; the phase prints its wall time): (a) python3 -m fab_tpu_torch.bench at
-     bench.py's settings (ManyWell-32 as phase 3; 2 warm-up and 5 timed compiled steps
+     bench.py's settings (ManyWell-32 as phase 3; 2 warm-up and 3 timed compiled steps
      (make_train_step, CUDA graphs) of the fused and the plain trainer in turns, then
-     5 eager steps each in turns, BENCH_CUTS from its default 10): its one JSON line
+     3 eager steps each in turns, BENCH_CUTS from its default 10): its one JSON line
      with bench.py's keys, value and vs_baseline (the compiled steps') finite and > 0,
      mfu in (0, 1], K1 38 + 29 per eager fused step and in its graph, from its
      stderr. (b) python3 -m fab_tpu_torch.bench_scaling --mesh-sizes 1 under
@@ -177,20 +180,45 @@ Phases:
      (38) and K2's five kernels per launch (400 each, plus 96 k2_prepare_weight) in
      the graph, as captured; the state's copy back, captured alone and replayed;
      make_scanned_train_step(b, 4) against 4 single replays, bitwise.
-  The runs of phases 7, 9-10, 16(a) and 17(b) go through the compiled step too (run
-  prints "train step: compiled (...)"); phases 11-15 keep the eager step, for the
-  reason graph_supported prints (splines, host_cpp, LARS, SNF, a mesh, wrappers).
-  The runner, ALDP, LARS and SNF paths launch no kernel (fab_tpu's runners build no
-  fused flow; K2 is reached through flow.fused_coupling=true on lgcp.yaml, phases
-  6-7; the ALDP flow is a spline chain; the LARS and SNF flows are unfused): their
-  counts are zeroed before and asserted 0 after.
+ 19. The compiled programs of the spline, LARS, SNF and data-mesh paths (graph.Program;
+     PHASE19_BUDGET_S 300 s, the phase prints its wall time), on the trainers phases
+     3, 11, 12 and 14 leave, at full width: ManyWell-32's data-parallel step under a
+     new NCCL group of world size 1 (captured here: its collectives per captured step
+     equal expected_collectives, K1's 38 kernel nodes in its graph), GMM-40 with
+     flow.resampled_base and flow.use_snf (f64), aldp.yaml (phase 11's resumed run),
+     aldp_rbd and aldp_snf (phase 12's runs; their steps captured by the runs). Each
+     against an eager twin from one state and seed, in turns (PHASE19_TURNS: 3 for
+     the data mesh, 5 for GMM-40, 2 for aldp.yaml and aldp_rbd, 1 for aldp_snf; the
+     ALDP paths take no warm-up step, their kernels ran in phases 11-12): the
+     medians, capture and instantiation seconds, the private pool, the host's
+     resident memory around the build, the graph's kernel nodes through libcuda,
+     one profiled replay's busy share; the state within
+     relative 1e-5 (f32) / 1e-12 (f64), bitwise equality printed. Then the compiled
+     fill against the eager fill from one seed, buffers and transition states
+     compared, each fill's seconds: aldp.yaml (its buffer's minimum cut 64 -> 4
+     batches, FILL_BATCHES, printed) and ManyWell-32 (4 passes, 22 K1 launches
+     captured per pass).
+  Every buffer trainer's init_state fills through a captured fill pass (phases 3 and
+  6 assert its counts: 22 K1 / 336 K2 launches per replayed pass, the wrappers
+  counting the warm-up pass and the capture). The runs of phases 7, 9-12, 14's
+  launcher, 16(a) and 17(b) go through the compiled step (run prints "train step:
+  compiled (...)", run_ml_training "ml step: compiled (...)"); phases 11-12 time the
+  compiled step's calls, and their profiled steps are eager. Phase 13's host_cpp
+  trainer and phase 15 keep the eager step, for the reason graph_supported prints
+  (host_cpp, the model axis, the wrappers). The runner, ALDP, LARS and SNF paths
+  launch no kernel (fab_tpu's runners build no fused flow; K2 is reached through
+  flow.fused_coupling=true on lgcp.yaml, phases 6-7; the ALDP flow is a spline
+  chain; the LARS and SNF flows are unfused): their counts are zeroed before and
+  asserted 0 after.
 
 Prints the kernel JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero on any failure, and without a card.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import contextlib
 import csv
 import json
 import math
@@ -309,6 +337,15 @@ def _train(trainer, gen, batch, card, label):
     torch.cuda.synchronize()
     init_s = time.time() - t0
     init_counts = _counts()
+    fill = trainer.fill_program
+    assert fill is not None and fill.graph is not None, "init_state did not capture its fill"
+    fill_info = {"captured": fill.captured_counts, "replays": fill.replays,
+                 "capture_s": fill.capture_s, "instantiate_s": fill.instantiate_s,
+                 "pool_bytes": fill.pool_bytes}
+    print(f"[{card}] {label} init_state: {fill.replays} replays of the captured fill pass "
+          f"(capture {fill.capture_s:.2f} s, instantiation {fill.instantiate_s:.3f} s, private "
+          f"pool {fill.pool_bytes / 2**30:.2f} GiB; kernel counts per pass "
+          f"{fill.captured_counts})")
     step_ms, per_step = [], []
     for _ in range(N_STEPS):
         before = _counts()
@@ -329,15 +366,15 @@ def _train(trainer, gen, batch, card, label):
           f"2-{N_STEPS} (all: {', '.join(f'{t:.1f}' for t in step_ms)}), "
           f"{batch / steady * 1e3:.1f} AIS samples/s; init_state {init_s:.2f} s")
     return state, info, {"init": init_counts, "per_step": per_step, "total": total,
-                         "steady_ms": steady, "init_s": init_s}
+                         "steady_ms": steady, "init_s": init_s, "fill": fill_info}
 
 
 def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
     """One more step under torch.profiler, recording the device: its busy time
-    (one stream, so kernels do not overlap) against the step, the top device ops,
-    and the share of named groups of ops (an op counts in the first group whose
-    words its name holds). Returns the state, the busy share, each group's ms and
-    the device op count."""
+    (one stream, so kernels do not overlap) against the step (``steady``, or with
+    None the profiled step's own wall), the top device ops, and the share of named
+    groups of ops (an op counts in the first group whose words its name holds).
+    Returns the state, the busy share, each group's ms and the device op count."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -355,6 +392,7 @@ def _profile_step(trainer, state, gen, batch, steady, card, label, groups):
     busy_ms = sum(ms for ms, _ in by_name.values())
     n_ops = sum(count for _, count in by_name.values())
     assert n_ops > 0, "the profiler saw no device work"
+    steady = steady or prof_ms
     print(f"[{card}] {label} profiled step: wall {prof_ms:.1f} ms (profiler on), device "
           f"busy {busy_ms:.1f} ms ({busy_ms / prof_ms:.1%} of the profiled wall, "
           f"{busy_ms / steady:.1%} of the median step), {n_ops} device ops")
@@ -512,13 +550,17 @@ def manywell_path(device, gen, card):
     )
     state, _, run = _train(trainer, gen, MW_BATCH, card, "ManyWell-32")
     init, per_step, total = run["init"], run["per_step"], run["total"]
-    assert init["k1"] == 22 * 4, f"init_state launched K1 {init['k1']} times"
+    # The fill: 4 AIS passes of 22 K1 launches, each a replay of the captured pass;
+    # the wrappers counted the warm-up pass and the capture.
+    fill = run["fill"]
+    assert (fill["replays"], fill["captured"]["k1"], init["k1"]) == (4, 22, 2 * 22), (fill, init)
     assert all((p["k1"], p["k1_recomputes"]) == (38, 29) for p in per_step), (
         f"K1 launches/recomputes per step: {per_step}"
     )
     assert total["k2"] == total["k2_rebuilds"] == 0, "K2 is not on the ManyWell path"
-    print(f"ManyWell-32 path: K1 launches {total['k1']} (init_state {init['k1']}, 38 per "
-          f"step), backward recomputations {total['k1_recomputes']} (29 per step)")
+    print(f"ManyWell-32 path: K1 launches {total['k1']} (init_state {init['k1']}: its fill's "
+          f"warm-up and capture; 22 in each of its 4 replays; 38 per step), backward "
+          f"recomputations {total['k1_recomputes']} (29 per step)")
 
     # Output check: finite parameters and buffer, and the trained fused flow agrees
     # with the plain Flow holding the same parameters on buffer rows.
@@ -813,14 +855,16 @@ def many_well_runner(card, tmp):
 # ------------------------------------------------------------------------ ALDP
 
 # aldp.yaml cut in length only; every width, the buffer's size, the schedule and the
-# filter stay the config's. The buffer starts at one batch: the first steps' replay
-# draws of 8 x 1024 rows then take rows not yet written (priority -inf, masked out
-# of the loss), which cost the same flow passes as written ones.
-ALDP_STEPS = 3  # phase 11's timed steps of the model built directly
+# filter stay the config's. The buffer starts empty (no fill pass: a compiled fill
+# costs a warm-up pass and a capture; phase 19 checks aldp.yaml's compiled fill): the
+# first steps' replay draws of 8 x 1024 rows then take rows not yet written
+# (priority -inf, masked out of the loss), which cost the same flow passes as
+# written ones.
+ALDP_STEPS = 2  # phase 11's timed steps of the model built directly
 ALDP_GROUPS = {"GEMMs": ["gemm", "cutlass", "sm90_xmma"], "reductions": ["reduce"],
                "gather / scatter": ["index", "gather", "scatter"]}
-ALDP_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=1",
-             "training.n_test_samples=2000", "training.test_mcmc_steps=50",
+ALDP_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=0",
+             "training.n_test_samples=2000", "training.test_mcmc_steps=20",
              "training.final_eval_samples=2000", "training.n_eval=1",
              "training.n_checkpoints=1"]
 
@@ -966,9 +1010,11 @@ def aldp_path(device, gen, card, tmp):
         print(f"[{card}] ALDP final evaluation (2000 flow samples against the test set): "
               + _finite_metrics(metrics, "ALDP final evaluation"))
         t0 = time.time()
-        _, r_state, metrics = run_aldp.main(["--config", config, *common, "training.max_iter=4"])
+        runner, r_state, metrics = run_aldp.main(["--config", config, *common,
+                                                  "training.max_iter=4"])
         torch.cuda.synchronize()
         assert starts == [0, 3] and r_state.step == 4, (starts, r_state.step)
+        assert runner._program(batch).graph is not None, "the resumed run did not compile"
         _finite_metrics(metrics, "ALDP resumed evaluation")
         print(f"[{card}] ALDP runner resumed at iteration {starts[-1]} for 1 iteration "
               f"({time.time() - t0:.1f} s)")
@@ -977,7 +1023,7 @@ def aldp_path(device, gen, card, tmp):
     _no_kernel_launched("the ALDP phase")
     return {"steady_ms": steady, "busy": busy, "ais_ms": ais_ms, "init_s": init_s,
             "minimise_s": minimise_s, "test_set_s": test_set_s, "groups": groups,
-            "run_s": run_s}
+            "run_s": run_s, "trainer": (runner, r_state)}
 
 
 def _csv_rows_in(run_dir):
@@ -989,19 +1035,21 @@ def _csv_rows_in(run_dir):
 
 # aldp_rbd.yaml and aldp_snf.yaml cut in length only: every width, the buffer's
 # size, the 8 replay updates, the schedule and the filter stay each config's. The
-# rbd buffer starts at 7 batches, so that with the first step's AIS batch it holds
-# the 8 x 1024 rows that step's replay draws.
-LARS_SNF_CUTS = ["training.max_iter=2", "training.replay_buffer.min_length=7",
-                 "training.n_test_samples=2000", "training.test_mcmc_steps=50",
+# buffers start empty, as aldp.yaml's in phase 11 (a fill is one more capture; phase
+# 19 checks the compiled fill).
+LARS_SNF_CUTS = ["training.max_iter=2", "training.replay_buffer.min_length=0",
+                 "training.n_test_samples=2000", "training.test_mcmc_steps=20",
                  "training.final_eval_samples=2000", "training.n_eval=1",
                  "training.n_checkpoints=1"]
-# The SNF's AIS pass takes ~30 s, so it runs 1 iteration, its buffer starts at one
-# batch, like phase 11's (the first steps' replay draws take unwritten rows, at the
-# same cost), and it leaves out the trainer's eval: two more AIS passes whose only
-# output on ALDP is two ESS values (the target has no eval metrics of its own; the
-# final evaluation runs). GMM-40 with flow.use_snf=true runs an eval.
-SNF_CUTS = (["training.max_iter=1", "training.replay_buffer.min_length=1"]
-            + LARS_SNF_CUTS[2:5] + ["training.n_eval=0"] + LARS_SNF_CUTS[6:])
+# The SNF's step takes ~30 s eager and its build ~130 s (capture and instantiation of
+# ~1.5M kernel nodes at aldp_snf.yaml's 10 MH steps a layer), so it runs 1 iteration,
+# its MH layers take SNF_MH_STEPS steps each (depth: the 3 layers, their places and
+# proposal scale stay), and it leaves out the trainer's eval: two more AIS passes
+# whose only output on ALDP is two ESS values (the target has no eval metrics of its
+# own; the final evaluation runs). GMM-40 with flow.use_snf=true runs an eval.
+SNF_MH_STEPS = 5
+SNF_CUTS = (["training.max_iter=1", f"flow.snf.steps={SNF_MH_STEPS}"] + LARS_SNF_CUTS[1:5]
+            + ["training.n_eval=0"] + LARS_SNF_CUTS[6:])
 
 
 def _lars_share(base, gen, card, label) -> dict:
@@ -1024,15 +1072,17 @@ def _lars_share(base, gen, card, label) -> dict:
 
 
 def _timed_aldp_runner(argv, card, label):
-    """run_aldp.main with the prioritised trainer's init_state and every train step
-    timed (each ends in a synchronize). Returns (trainer, state, metrics, times)."""
+    """run_aldp.main with the prioritised trainer's init_state and every call of its
+    compiled step timed (each ends in a synchronize; the first builds the program: a
+    warm-up step and the capture). Returns (trainer, state, metrics, times)."""
     import torch
 
+    from fab_tpu_torch import graph
     from fab_tpu_torch.experiments import run_aldp
     from fab_tpu_torch.train import PrioritisedBufferTrainer
 
-    times = {"steps_ms": []}
-    init, step = PrioritisedBufferTrainer.init_state, PrioritisedBufferTrainer.train_step
+    times = {"calls": []}
+    init, call = PrioritisedBufferTrainer.init_state, graph.StepProgram.__call__
 
     def timed_init(self, *args, **kw):
         torch.cuda.synchronize()
@@ -1042,18 +1092,21 @@ def _timed_aldp_runner(argv, card, label):
         times["init_s"] = time.time() - t0
         return out
 
-    def timed_step(self, *args, **kw):
+    def timed_call(self, state, generator, n_steps=1):
+        built = self.static is not None
         t0 = time.time()
-        out = step(self, *args, **kw)
+        out = call(self, state, generator, n_steps)
         torch.cuda.synchronize()
-        times["steps_ms"].append((time.time() - t0) * 1e3)
-        print(f"{label} step {out[0].step}: {times['steps_ms'][-1]:.1f} ms, replay loss "
-              f"{float(out[1]['loss']):.4f}, n_valid {int(out[1]['n_valid'])}, "
-              f"frac_filter_pass {float(out[1]['frac_filter_pass']):.4f}", flush=True)
+        times["calls"].append((n_steps, (time.time() - t0) * 1e3, built))
+        print(f"{label} compiled step call of {n_steps} step(s) to step {out[0].step}"
+              f"{'' if built else ' (its build: a warm-up step and the capture)'}: "
+              f"{times['calls'][-1][1]:.1f} ms, replay loss {float(out[1]['loss']):.4f}, "
+              f"n_valid {int(out[1]['n_valid'])}, frac_filter_pass "
+              f"{float(out[1]['frac_filter_pass']):.4f}", flush=True)
         return out
 
     PrioritisedBufferTrainer.init_state = timed_init
-    PrioritisedBufferTrainer.train_step = timed_step
+    graph.StepProgram.__call__ = timed_call
     try:
         t0 = time.time()
         trainer, state, metrics = run_aldp.main(argv)
@@ -1061,14 +1114,15 @@ def _timed_aldp_runner(argv, card, label):
         times["run_s"] = time.time() - t0
     finally:
         PrioritisedBufferTrainer.init_state = init
-        PrioritisedBufferTrainer.train_step = step
+        graph.StepProgram.__call__ = call
     return trainer, state, metrics, times
 
 
-def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
+def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp, profile=True):
     """One ALDP variant through run_aldp with ``cuts`` (and ``extra`` overrides):
-    init_state and the cuts' max_iter timed steps, the evals the cuts leave, the
-    final evaluation; then one profiled step."""
+    init_state (its fill compiled) and the cuts' max_iter steps through the compiled
+    step, the evals the cuts leave, the final evaluation; then, with ``profile``, one
+    profiled eager step. Returns (trainer, state, run directory, figures)."""
     import torch
 
     from fab_tpu_torch.train import PrioritisedBufferTrainer
@@ -1086,8 +1140,15 @@ def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
         card, label)
     n_steps = int(next(c for c in cuts if c.startswith("training.max_iter=")).split("=")[1])
     assert isinstance(trainer, PrioritisedBufferTrainer) and state.step == n_steps
-    assert len(times["steps_ms"]) == n_steps, times
-    steady = statistics.median(times["steps_ms"])
+    assert sum(n for n, _, _ in times["calls"]) == n_steps, times
+    program = trainer._program(batch)
+    fill = trainer.fill_program  # built only if the buffer's minimum asks for a pass
+    assert program.graph is not None and fill is not None, "the run did not compile"
+    fill_text = "an empty buffer, no fill pass"
+    if fill.replays:
+        fill_text = (f"buffer filled to {int(state.buffer_state.n_added) - n_steps * batch} "
+                     f"rows in {fill.replays} replays of the captured fill pass: capture "
+                     f"{fill.capture_s:.2f} s, instantiation {fill.instantiate_s:.2f} s")
     rows = _csv_rows_in(root)
     shown = _finite_columns([r for r in rows if r.get("loss")][-1],
                             ("loss", "n_valid", "frac_filter_pass"))
@@ -1099,20 +1160,22 @@ def _aldp_variant(config_name, cuts, extra, gen, card, label, tmp):
             "eval_ess_flow_p_target", "eval_ess_ais_p_target", "eval_ess_ais_min_var_target"))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{card}] {label} ({config_name}, the cuts above): init_state {times['init_s']:.2f} s "
-          f"(buffer filled to {int(state.buffer_state.n_added)} rows); train step median "
-          f"{steady:.1f} ms over {n_steps} steps (all: "
-          f"{', '.join(f'{v:.1f}' for v in times['steps_ms'])}"
-          f"), {batch / steady * 1e3:.1f} AIS samples/s; the whole run {times['run_s']:.1f} s; "
-          f"peak device memory {peak_gib:.2f} GiB; last step "
+          f"({fill_text}); {n_steps} compiled steps in calls of "
+          + ", ".join(f"{n} ({ms:.1f} ms{'' if built else ', with the build'})"
+                      for n, ms, built in times["calls"])
+          + f" (capture {program.capture_s:.2f} s, instantiation {program.instantiate_s:.2f} s, "
+          f"private pool {program.pool_bytes / 2**30:.2f} GiB); the whole run "
+          f"{times['run_s']:.1f} s; peak device memory {peak_gib:.2f} GiB; last step "
           + ", ".join(f"{k} {v:.4g}" for k, v in shown.items()) + "; eval "
           + (", ".join(f"{k} {v:.4g}" for k, v in eval_shown.items()) or "cut"))
     print(f"[{card}] {label} final evaluation (2000 flow samples against the test set): "
           + _finite_metrics(metrics, f"{label} final evaluation"))
-    _, busy, groups, _ = _profile_step(trainer, state, gen, batch, steady, card, label,
-                                       ALDP_GROUPS)
-    return trainer, root, {"steady_ms": steady, "busy": busy, "groups": groups,
-                           "init_s": times["init_s"], "run_s": times["run_s"],
-                           "steps_ms": times["steps_ms"], "peak_gib": peak_gib}
+    out = {"init_s": times["init_s"], "run_s": times["run_s"], "calls": times["calls"],
+           "peak_gib": peak_gib}
+    if profile:
+        state, out["busy_profiled"], out["groups"], out["device_ops"] = _profile_step(
+            trainer, state, gen, batch, None, card, f"{label} eager", ALDP_GROUPS)
+    return trainer, state, root, out
 
 
 def lars_snf_path(device, gen, card, tmp):
@@ -1129,8 +1192,8 @@ def lars_snf_path(device, gen, card, tmp):
     from fab_tpu_torch.train import Trainer
 
     _zero_counts()
-    out = {}
-    trainer, rbd_root, out["rbd"] = _aldp_variant(
+    out = {"trainers": {}}
+    trainer, state, rbd_root, out["rbd"] = _aldp_variant(
         "aldp_rbd.yaml", LARS_SNF_CUTS,
         [f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}"], gen, card, "ALDP-rbd",
         tmp)
@@ -1140,7 +1203,7 @@ def lars_snf_path(device, gen, card, tmp):
     out["rbd"]["lars"] = _lars_share(base, gen, card, "ALDP-rbd")
     ref_path = os.path.join(tmp, "aldp_vacuum_reference.npy")
     np.save(ref_path, trainer.model.target.ref_cartesian)
-    del trainer
+    out["trainers"]["aldp_rbd"] = (trainer, state)
     _no_kernel_launched("the ALDP rbd run")
     for label in ("ALDP-snf", "ALDP-ml"):
         os.makedirs(os.path.join(tmp, label))
@@ -1150,7 +1213,7 @@ def lars_snf_path(device, gen, card, tmp):
     t0 = time.time()
     _, _, ml_metrics = run_aldp.main([
         "--config", os.path.join(CONFIGS, "aldp_ml.yaml"), "--device", "cuda",
-        "training.max_iter=2", "training.n_train_samples=2000", "training.test_mcmc_steps=50",
+        "training.max_iter=2", "training.n_train_samples=2000", "training.test_mcmc_steps=20",
         "training.final_eval_samples=2000", f"data.transform={ref_path}",
         f"training.save_root={os.path.join(tmp, 'ALDP-ml')}"])
     torch.cuda.synchronize()
@@ -1159,14 +1222,19 @@ def lars_snf_path(device, gen, card, tmp):
           + _finite_metrics(ml_metrics, "ALDP ML evaluation"))
     _no_kernel_launched("the ALDP ML run")
 
-    trainer, _, out["snf"] = _aldp_variant(
-        "aldp_snf.yaml", SNF_CUTS, [f"data.transform={ref_path}"], gen, card, "ALDP-snf", tmp)
+    # Cut: no profiled eager step (~45 s); phase 19 times an eager step and profiles a
+    # replay of this run's captured step.
+    print(f"[{card}] ALDP-snf cut: no profiled eager step here (phase 19 profiles a replay)")
+    trainer, state, _, out["snf"] = _aldp_variant(
+        "aldp_snf.yaml", SNF_CUTS, [f"data.transform={ref_path}"], gen, card, "ALDP-snf", tmp,
+        profile=False)
     flow = trainer.model.flow
     mh = [(b.lam, b.n_steps, b.proposal_scale) for b in flow.bijectors if hasattr(b, "lam")]
     assert isinstance(flow, StochasticFlow) and mh == [
-        (4 / 12, 10, 0.1), (8 / 12, 10, 0.1), (1.0, 10, 0.1)], mh
+        (4 / 12, SNF_MH_STEPS, 0.1), (8 / 12, SNF_MH_STEPS, 0.1), (1.0, SNF_MH_STEPS, 0.1)], mh
     print(f"[{card}] ALDP-snf flow: MH layers (lam, steps, proposal scale) {mh}, each log q "
-          "runs 30 MH steps of the vacuum force field")
+          f"runs {3 * SNF_MH_STEPS} MH steps of the vacuum force field")
+    out["trainers"]["aldp_snf"] = (trainer, state)
     del trainer, flow
     _no_kernel_launched("the ALDP snf run")
 
@@ -1180,6 +1248,7 @@ def lars_snf_path(device, gen, card, tmp):
         torch.cuda.synchronize()
         run_s = time.time() - t0
         assert type(g_trainer) is Trainer and g_state.step == 5
+        assert g_trainer._program(128).graph is not None, f"{label}: the run did not compile"
         rows = _csv_rows(os.path.join(tmp, label))
         eval_rows = [r for r in rows if r.get("eval_ess_ais")]
         assert len(eval_rows) == 1, rows
@@ -1210,6 +1279,7 @@ def lars_snf_path(device, gen, card, tmp):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         out[label] = {"steady_ms": steady, "run_s": run_s}
+        out["trainers"][label] = (g_trainer, g_state)
         print(f"[{card}] {label} runner (gmm.yaml, {flag}, f64, Trainer): 5 iterations and "
               f"one eval in {run_s:.1f} s, loss {losses[-1]:.4f}; train step median "
               f"{steady:.1f} ms over steps 2-{N_STEPS} (all: "
@@ -1223,9 +1293,9 @@ def lars_snf_path(device, gen, card, tmp):
 
 # aldp.yaml's phase-13 steps and profile: cut in length only, as phase 11 (ALDP_CUTS);
 # the profiler's repeats cut from 20 (10 for the train step) to PROFILE_REPEATS.
-PROFILE_REPEATS = 2
-# aldp.yaml's steps on the two backends, 2 each, in turns (ABBA).
-HOST_ORDER = ("jax", "host_cpp", "host_cpp", "jax")
+PROFILE_REPEATS = 1
+# aldp.yaml's steps on the two backends, one each.
+HOST_ORDER = ("jax", "host_cpp")
 ALDP_BATCH = 1024  # aldp.yaml's
 
 
@@ -1360,7 +1430,7 @@ def profile_aldp_path(device, card, tmp) -> dict:
 
     print(f"[{card}] profile_aldp cut: --repeats {PROFILE_REPEATS} (the script's default "
           f"20, 10 for the train step; its 3 warm-up calls kept) and "
-          f"training.replay_buffer.min_length=1 (aldp.yaml: 64); a full-length run is "
+          f"training.replay_buffer.min_length=0 (aldp.yaml: 64); a full-length run is "
           "python3 -m fab_tpu_torch.experiments.profile_aldp [system.backend=host_cpp]")
     out = {}
     for backend in ("jax", "host_cpp"):
@@ -1368,7 +1438,7 @@ def profile_aldp_path(device, card, tmp) -> dict:
         rows = profile_aldp.main([
             "--config", os.path.join(CONFIGS, "aldp.yaml"), "--device", str(device),
             "--batch", str(ALDP_BATCH),
-            "--repeats", str(PROFILE_REPEATS), "training.replay_buffer.min_length=1",
+            "--repeats", str(PROFILE_REPEATS), "training.replay_buffer.min_length=0",
             f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}",
             f"system.backend={backend}"])
         assert len(rows) == 9 and all(math.isfinite(s) and s > 0 for _, s, _ in rows), rows
@@ -1668,27 +1738,35 @@ def lgcp_path(device, gen, card, save_path):
     want_step = (per_ais + 2 * LG_REPLAY * LG_LAYERS,
                  per_ais_recompute + LG_REPLAY * LG_LAYERS)
     assert want_step == (400, 360)
-    assert init["k2"] == ais_passes * per_ais == 2688, f"init_state launched K2 {init['k2']} times"
-    assert init["k2_recomputes"] == ais_passes * per_ais_recompute
+    # The fill: 8 AIS passes, each a replay of the captured pass (336 launches, 328
+    # recomputes, 24 prepared-weight rebuilds); the wrappers counted the warm-up pass
+    # and the capture.
+    fill, per_layer = run["fill"], 3 * LG_LAYERS
+    captured = fill["captured"]
+    assert fill["replays"] == ais_passes == 8, fill
+    assert (captured["k2"], captured["k2_recomputes"], captured["k2_rebuilds"]) == (
+        per_ais, per_ais_recompute, per_layer), fill
+    assert (init["k2"], init["k2_recomputes"], init["k2_rebuilds"]) == (
+        2 * per_ais, 2 * per_ais_recompute, 2 * per_layer), init
     assert all((p["k2"], p["k2_recomputes"]) == want_step for p in per_step), (
         f"K2 launches/recomputes per step: {per_step}"
     )
     assert total["k1"] == 0, "K1 is not on the LGCP path"
-    # Prepared weight copies (w1, w2, w3p of 8 couplings) are built by init_state's
-    # first pass and rebuilt after each of a step's 4 updates, at the next pass:
-    # replay batches 2-4 of the same step and the next step's AIS pass.
-    per_layer = 3 * LG_LAYERS
-    assert init["k2_rebuilds"] == per_layer, f"init_state rebuilt {init['k2_rebuilds']}"
-    want_rebuilds = [(LG_REPLAY - 1) * per_layer] + [LG_REPLAY * per_layer] * (N_STEPS - 1)
+    # Prepared weight copies (w1, w2, w3p of 8 couplings) are rebuilt after each of a
+    # step's 4 updates, at the next pass: replay batches 2-4 of the same step and the
+    # next step's AIS pass; step 1's AIS pass rebuilds them too (the fill's replays
+    # left the cache empty).
+    want_rebuilds = [LG_REPLAY * per_layer] * N_STEPS
     assert [p["k2_rebuilds"] for p in per_step] == want_rebuilds, (
         f"prepared-weight rebuilds per step: {[p['k2_rebuilds'] for p in per_step]}"
     )
     run["rebuilds_per_step"] = want_rebuilds[-1]
-    print(f"LGCP-1600 path: K2 launches {total['k2']} (init_state {init['k2']}, "
+    print(f"LGCP-1600 path: K2 launches {total['k2']} (init_state {init['k2']}: its fill's "
+          f"warm-up and capture; {per_ais} in each of its {fill['replays']} replays; "
           f"{want_step[0]} per step), backward recomputations {total['k2_recomputes']} "
           f"(init_state {init['k2_recomputes']}, {want_step[1]} per step), prepared-weight "
           f"rebuilds {total['k2_rebuilds']} (init_state {init['k2_rebuilds']}, "
-          f"{want_rebuilds[0]} in step 1, {want_rebuilds[-1]} per later step); peak device "
+          f"{want_rebuilds[-1]} per step); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # Output check: finite parameters and buffer, and the trained flow agrees with
@@ -1841,7 +1919,7 @@ def expected_collectives(n_dists: int, n_outer: int, n_replay: int) -> dict:
     return terms
 
 
-def _manywell_trainer(device, seed: int, fused: bool = True, dtype=None):
+def _manywell_trainer(device, seed: int, fused: bool = True, dtype=None, min_batches: int = 4):
     from fab_tpu_torch.buffer import PrioritisedReplayBuffer
     from fab_tpu_torch.flows import make_realnvp
     from fab_tpu_torch.model import FABModel
@@ -1861,7 +1939,8 @@ def _manywell_trainer(device, seed: int, fused: bool = True, dtype=None):
         n_intermediate_distributions=4, loss_type="fab_alpha_div",
     )
     buffer = PrioritisedReplayBuffer(dim=MW_DIM, max_length=MW_BATCH * 16,
-                                     min_sample_length=MW_BATCH * 4, batch_size=MW_BATCH)
+                                     min_sample_length=MW_BATCH * min_batches,
+                                     batch_size=MW_BATCH)
     return PrioritisedBufferTrainer(model, make_optimizer(3e-4, 100.0), buffer,
                                     n_batches_buffer_sampling=8, w_adjust_max_clip=10.0,
                                     device=device, dtype=dtype or torch.float32)
@@ -2089,7 +2168,8 @@ def data_parallel_path(device, card, tmp) -> dict:
         print(f"[{card}] one collective (NCCL, world size 1): all_reduce of 2 values "
               f"{cost['all_reduce'] * 1e3:.1f} us, all_gather of {tuple(payload.shape)} f64 "
               f"{cost['all_gather'] * 1e3:.1f} us; 38 + 9 per step = {per_step:.2f} ms")
-        out.update(collective_ms=cost, collectives_ms_per_step=per_step)
+        out.update(collective_ms=cost, collectives_ms_per_step=per_step,
+                   trainer=(dp, states["dp"]))
     finally:
         distributed.shutdown()
     out["launcher_s"] = _launcher_run(device, card, tmp)
@@ -2148,7 +2228,7 @@ def _launcher_run(device, card, tmp) -> float:
 # the fused flow, whose K1 takes the gathered weights, then one LGCP-1600 step
 # through K2 on gathered weights. The LGCP buffer starts at one batch (lgcp.yaml's
 # 4096 rows cut to 512: the fill is not what this phase measures).
-MA_STEPS = 3
+MA_STEPS = 2
 MA_LG_BUFFER_MIN = LG_BATCH
 # Both flows run in many_well.yaml's float64 (K1 still computes in f32 inside and
 # casts back). In f32 the grid ends off one process after 3 steps on the card: the
@@ -2198,7 +2278,10 @@ def _model_axis_run(device, fused: bool) -> dict:
 
     from fab_tpu_torch.parallel import mesh
 
-    trainer = _manywell_trainer(device, 1, fused=fused, dtype=getattr(torch, MA_DTYPE))
+    # The buffer starts at one batch (4 in phase 14): the grid's fill is eager, through
+    # gloo.
+    trainer = _manywell_trainer(device, 1, fused=fused, dtype=getattr(torch, MA_DTYPE),
+                                min_batches=1)
     _zero_counts()
     mesh.COUNTS.clear()
     t0 = time.time()
@@ -2488,7 +2571,7 @@ def wrappers_path(device, card) -> dict:
 # Phase 16's own cuts (length only; printed). The bench runs at its defaults.
 PHASE16_BUDGET_S = 240
 SCALING_CUTS = ["--batch-per-device", "2048", "--steps", "2", "--warmup", "1"]
-BENCH_CUTS = ["--steps", "5"]
+BENCH_CUTS = ["--steps", "3"]
 # 16(d)'s limits, set from readings on an H100 (PERF.md §6): the in-graph f32 L
 # against the f64 factor cast to f32, max |dL| 1.103e-6; the evaluation's flow-side
 # columns 0 to 7.9e-8 relative apart; the control's (the f64 factor rounded to half
@@ -3038,26 +3121,38 @@ def _device_events(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
-    events = list(prof.profiler.kineto_results.events())
-    on_card = lambda e: e.device_type() == torch.autograd.DeviceType.CUDA
-    calls = [e for e in events if not on_card(e) and e.name().startswith(("cuda", "cu"))]
-    launched = {e.correlation_id() for e in calls}
-    graph_launches = {e.correlation_id() for e in calls if "GraphLaunch" in e.name()}
-    assert graph_launches, sorted({e.name() for e in calls})
-    by_name, in_graph, foreign = {}, {}, 0
-    for e in filter(on_card, events):
-        if e.correlation_id() not in launched:
-            foreign += 1
+    # One pass over the records (a replay of aldp_snf's graph leaves 1.5M of them):
+    # the device's by (correlation id, name), the host's CUDA calls by id.
+    cuda = torch.autograd.DeviceType.CUDA
+    on_card = collections.defaultdict(lambda: [0, 0])
+    launched, graph_launches, call_names = set(), set(), set()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            record = on_card[(e.correlation_id(), e.name())]
+            record[0] += e.duration_ns()
+            record[1] += 1
             continue
-        for table in (by_name, in_graph) if e.correlation_id() in graph_launches else (by_name,):
-            ms, count = table.get(e.name(), (0.0, 0))
-            table[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+        name = e.name()
+        if name.startswith(("cuda", "cu")):
+            call_names.add(name)
+            launched.add(e.correlation_id())
+            if "GraphLaunch" in name:
+                graph_launches.add(e.correlation_id())
+    assert graph_launches, sorted(call_names)
+    by_name, in_graph, foreign = {}, {}, 0
+    for (correlation, name), (ns, n) in on_card.items():
+        if correlation not in launched:
+            foreign += n
+            continue
+        for table in (by_name, in_graph) if correlation in graph_launches else (by_name,):
+            ms, count = table.get(name, (0.0, 0))
+            table[name] = (ms + ns / 1e6, count + n)
     return wall, by_name, in_graph, foreign
 
 
 # K1's and K2's kernels, as their sources name them.
 GRAPH_KERNELS = ("k1_tf32x3_chain", "k2_split_rows", "k2_tf32x3_dense", "k2_tf32x3_coupling",
-                 "k2_row_sum", "k2_prepare_weight")
+                 "k2_row_sum", "k2_prepare_weight", "nccl")
 
 
 def _graph_kernels(cuda_graph) -> dict:
@@ -3072,20 +3167,27 @@ def _graph_kernels(cuda_graph) -> dict:
     assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
     nodes = (ctypes.c_void_p * n.value)()
     assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
-    names = []
+    node_type, get_params = cu.cuGraphNodeGetType, cu.cuGraphKernelNodeGetParams_v2
+    node_type.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    get_params.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    kind = ctypes.c_int()
+    params = (ctypes.c_byte * 512)()  # CUDA_KERNEL_NODE_PARAMS_v2; func comes first
+    func = ctypes.c_void_p.from_buffer(params)
+    # Kernel nodes by function (aldp_snf's graph holds 1.48M nodes of ~300 functions).
+    by_func = collections.Counter()
     for node in nodes:
-        kind = ctypes.c_int()
-        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        assert node_type(node, ctypes.byref(kind)) == 0
         if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
             continue
-        params = (ctypes.c_byte * 512)()  # CUDA_KERNEL_NODE_PARAMS_v2; func comes first
-        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0
+        assert get_params(node, params) == 0
+        by_func[func.value] += 1
+    names = collections.Counter()
+    for f, count in by_func.items():
         name = ctypes.c_char_p()
-        func = ctypes.c_void_p.from_buffer(params).value
-        assert cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) == 0
-        names.append(name.value.decode())
-    out = {word: sum(word in name for name in names) for word in GRAPH_KERNELS}
-    out["kernel nodes"] = len(names)
+        assert cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(f)) == 0
+        names[name.value.decode()] += count
+    out = {word: sum(c for name, c in names.items() if word in name) for word in GRAPH_KERNELS}
+    out["kernel nodes"] = sum(names.values())
     return out
 
 
@@ -3095,17 +3197,22 @@ def _kernel_count(by_name, word) -> int:
     return sum(n for name, (_, n) in by_name.items() if word in name)
 
 
-def graph_turns(label, trainer, state, batch, tol, card, eval_check=False) -> dict:
-    """Phase 18 on one path: the compiled step of ``trainer`` against its eager twin
-    from ``state`` and one seed, in turns; agreement after the turns; a profiled
-    replay (device busy, K1's and K2's kernels per step); optionally perform_eval
-    after both; make_scanned_train_step against single replays."""
+def graph_turns(label, trainer, state, batch, tol, card, eval_check=False, phase=18,
+                turns=None, warm=True, scanned=True) -> dict:
+    """Phase 18 (or 19) on one path: the compiled step of ``trainer`` against its
+    eager twin from ``state`` and one seed, ``turns`` each in turns (after a warm-up
+    step each, unless ``warm`` is False); agreement after the turns; the kernels'
+    and the mesh's counts per captured step against the twin's; a profiled replay
+    (device busy, K1's and K2's kernels per step); optionally perform_eval after
+    both; make_scanned_train_step against single replays (``scanned``)."""
     import torch
+    from torch.utils import _pytree as pytree
 
-    from fab_tpu_torch import graph
+    from fab_tpu_torch.parallel import mesh
     from fab_tpu_torch.utils.logging import ListLogger
 
     device = trainer.device
+    turns = turns or GRAPH_TURNS[label]
     t_path = time.time()
     captured_before = batch in trainer._programs
     eager = _twin(trainer)
@@ -3128,37 +3235,44 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False) -> di
         return (time.time() - t0) * 1e3
 
     _zero_counts()
-    warm = {kind: timed(kind) for kind in ("graph", "eager")}
-    print(f"[{card}] phase 18 {label}: step "
+    if warm:
+        warm_ms = {kind: timed(kind) for kind in ("graph", "eager")}
+        warm_text = (f"warm-up step graphed {warm_ms['graph']:.1f} ms, eager "
+                     f"{warm_ms['eager']:.1f} ms")
+    else:
+        warm_text = "no warm-up step (the path's kernels ran before)"
+    assert warm or captured_before, f"{label}: a turn without warm-up would time the capture"
+    print(f"[{card}] phase {phase} {label}: step "
           f"{'captured by the run before' if captured_before else 'captured now'}: capture "
           f"{program.capture_s:.2f} s, instantiation {program.instantiate_s:.3f} s, private "
           f"pool {program.pool_bytes / 2**30:.2f} GiB, {len(program.tape.ops)} taped draws "
-          f"and splits; warm-up step graphed {warm['graph']:.1f} ms, eager "
-          f"{warm['eager']:.1f} ms")
-    n = GRAPH_TURNS[label]
+          f"and splits; {warm_text}")
+    n = turns
     order = [("graph", "eager", "eager", "graph")[i % 4] for i in range(2 * n)]
     ms = {"graph": [], "eager": []}
     _zero_counts()
+    mesh.COUNTS.clear()
     replays = program.replays
     for kind in order:
         ms[kind].append(timed(kind))
-    wrapper_counts = _counts()
+    wrapper_counts = dict(_counts(), **{f"{a} {k}": v for (a, k), v in mesh.COUNTS.items()})
     per_step = program.captured_counts
     assert program.replays - replays == n
     medians = {k: statistics.median(v) for k, v in ms.items()}
-    print(f"[{card}] phase 18 {label} steps in turns {'/'.join(order)}: graphed "
+    print(f"[{card}] phase {phase} {label} steps in turns {'/'.join(order)}: graphed "
           f"{', '.join(f'{t:.1f}' for t in ms['graph'])} ms, eager "
           f"{', '.join(f'{t:.1f}' for t in ms['eager'])} ms; median {medians['graph']:.1f} / "
           f"{medians['eager']:.1f} ms")
-    # The wrappers count the eager twin's launches only; a replay's are the captured
-    # step's.
+    # The wrappers and the mesh count the eager twin's launches and collectives only;
+    # a replay's are the captured step's.
     for k, v in per_step.items():
-        assert wrapper_counts[k] == n * v, (label, k, wrapper_counts[k], v)
-    print(f"[{card}] phase 18 {label}: kernel counts per captured step {per_step} (the eager "
-          f"twin's per step equal), times {n} replays")
+        assert wrapper_counts.get(k, 0) == n * v, (label, k, wrapper_counts.get(k), v)
+    print(f"[{card}] phase {phase} {label}: kernel and collective counts per captured step "
+          f"{per_step} (the eager twin's per step equal), times {n} replays")
     diff = _state_diff(trainer, states["graph"], eager, states["eager"])
     assert max(v for k, v in diff.items() if k != "bitwise") <= tol, (label, diff)
-    print(f"[{card}] phase 18 {label} after {n + 1} steps each: max relative difference "
+    print(f"[{card}] phase {phase} {label} after {n + int(warm)} steps each: max relative "
+          "difference "
           + ", ".join(f"{k} {v:.3e}" for k, v in diff.items() if k != "bitwise")
           + f" (tolerance {tol:g}); bitwise equal: {diff['bitwise']}")
 
@@ -3180,7 +3294,7 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False) -> di
         assert all(math.isfinite(evals["graph"][k][0]) == math.isfinite(evals["eager"][k][0])
                    for k in keys)
         assert max(rel.values()) <= 1e-5, rel
-        print(f"[{card}] phase 18 {label} perform_eval after the graphed steps against after "
+        print(f"[{card}] phase {phase} {label} perform_eval after the graphed steps against after "
               f"the eager ones (same seed): {len(keys)} columns, max relative difference "
               f"{max(rel.values()):.3e} (tolerance 1e-5)")
         out["eval_max_rel"] = max(rel.values())
@@ -3202,17 +3316,17 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False) -> di
     # one of GMM-40's named 42 records K1, which that graph does not hold), so the
     # exact count is the graph's own, above.
     assert all(launches[k] > 0 for k, v in want.items() if v), (launches, want)
-    print(f"[{card}] phase 18 {label}: the graph holds {nodes['kernel nodes']} kernel nodes "
+    print(f"[{card}] phase {phase} {label}: the graph holds {nodes['kernel nodes']} kernel nodes "
           f"(read through libcuda), of them " + ", ".join(
               f"{k} {nodes[k]}" for k in want) + ": the captured counts")
-    print(f"[{card}] phase 18 {label} profiled replay: wall {wall:.1f} ms (profiler on), "
+    print(f"[{card}] phase {phase} {label} profiled replay: wall {wall:.1f} ms (profiler on), "
           f"device busy {busy:.1f} ms ({busy / medians['graph']:.1%} of the graphed median "
           f"step), {sum(v[1] for v in by_name.values())} device ops "
           f"({sum(v[1] for v in in_graph.values())} in the graph's one launch; {foreign} "
           f"records of no launch of this replay left out); its records by name "
           + ", ".join(f"{k} {v}" for k, v in launches.items()))
     if launches != want:
-        print(f"[{card}] phase 18 {label}: the profiler's records against the graph's "
+        print(f"[{card}] phase {phase} {label}: the profiler's records against the graph's "
               "nodes: " + ", ".join(f"{k} {launches[k]} / {v}" for k, v in want.items()
                                     if launches[k] != v)
               + " (the records of graph kernels are off, not the graph)")
@@ -3228,10 +3342,15 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False) -> di
     copy_ms = _time_ms(copy_graph.replay, n=10)
     size = sum(t.numel() * t.element_size() for t in program.static)
     del copies, copy_graph
-    print(f"[{card}] phase 18 {label}: the state's copy back ({size / 1e6:.1f} MB of static "
+    print(f"[{card}] phase {phase} {label}: the state's copy back ({size / 1e6:.1f} MB of static "
           f"state) {copy_ms:.3f} ms a step")
     out["copy_back_ms"] = copy_ms
 
+    out["replays"] = program.replays
+    out["path_s"] = time.time() - t_path
+    if not scanned:
+        print(f"[{card}] phase {phase} {label}: {out['path_s']:.1f} s")
+        return out
     # make_scanned_train_step(batch, 4) against 4 single replays from one state.
     start = _clone_state(states["graph"])
     saved = {k: v.clone() for k, v in trainer.model.flow.state_dict().items()}
@@ -3247,15 +3366,16 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False) -> di
                 s, _ = step(s, gen)
         runs[kind] = (_clone_state(s), {k: v.clone() for k, v in
                                         trainer.model.flow.state_dict().items()})
+    leaves = lambda s: pytree.tree_leaves(tuple(s)[:-1])
     same = (all(torch.equal(runs["scanned"][1][k], v) for k, v in runs["single"][1].items())
-            and all(torch.equal(a, b) for a, b in zip(graph._leaves(runs["scanned"][0])[0],
-                                                      graph._leaves(runs["single"][0])[0])))
+            and all(torch.equal(a, b) for a, b in zip(leaves(runs["scanned"][0]),
+                                                      leaves(runs["single"][0]))))
     assert same and runs["scanned"][0].step == runs["single"][0].step
-    print(f"[{card}] phase 18 {label}: make_scanned_train_step({batch}, {GRAPH_SCANNED}) "
+    print(f"[{card}] phase {phase} {label}: make_scanned_train_step({batch}, {GRAPH_SCANNED}) "
           f"equals {GRAPH_SCANNED} single replays bitwise (parameters and every state tensor)")
     out["replays"] = program.replays
     out["path_s"] = time.time() - t_path
-    print(f"[{card}] phase 18 {label}: {out['path_s']:.1f} s")
+    print(f"[{card}] phase {phase} {label}: {out['path_s']:.1f} s")
     return out
 
 
@@ -3288,8 +3408,168 @@ def phase18_path(card, mw, lgcp, gmm) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 19
+# The compiled programs of the spline, LARS, SNF and data-mesh paths (graph.py): the ALDP
+# family's steps (captured by phases 11-12's runs), GMM-40's LARS and SNF steps
+# (phase 12's runs), ManyWell-32's data-parallel step under NCCL at world size 1
+# (captured here), and the compiled fill against the eager one. Each path takes
+# turns with an eager twin from one state and seed.
+PHASE19_BUDGET_S = 300
+PHASE19_TURNS = {"ManyWell-32 data-parallel": 3, "GMM-40-rbd": 5, "GMM-40-snf": 5,
+                 "aldp.yaml": 2, "aldp_rbd": 2, "aldp_snf": 1}
+# aldp.yaml's fill cut in length only: 64 batches of 1024 rows to FILL_BATCHES.
+FILL_BATCHES = 4
+
+
+def _rss_gib() -> float:
+    """This process's resident host memory (GiB)."""
+    with open("/proc/self/status") as f:
+        line = next(line for line in f if line.startswith("VmRSS:"))
+    return int(line.split()[1]) / 2**20
+
+
+def _record_builds() -> None:
+    """Every program's build records the host's resident memory before and after it
+    (``program.rss_gib``)."""
+    from fab_tpu_torch import graph
+
+    build = graph.Program._build
+
+    def recorded(self, state):
+        before = _rss_gib()
+        build(self, state)
+        self.rss_gib = (before, _rss_gib())
+
+    graph.Program._build = recorded
+
+
+def fill_turns(label, trainer, batches, batch, card, tol) -> dict:
+    """The compiled fill of a copy of ``trainer`` (its buffer's minimum set to
+    ``batches`` batches) against the eager fill of another copy, from one seed: the
+    buffers and the transition states compared, each fill's seconds."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from fab_tpu_torch import graph
+
+    twins = {kind: _twin(trainer) for kind in ("compiled", "eager")}
+    states, seconds = {}, {}
+    for kind, twin in twins.items():
+        twin.buffer = dataclasses.replace(trainer.buffer, min_sample_length=batches * batch)
+        refuse = mock.patch.object(graph, "graph_supported",
+                                   lambda t: (False, "the eager twin of phase 19's fill"))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with refuse if kind == "eager" else contextlib.nullcontext():
+            states[kind] = twin.init_state(torch.Generator(device=trainer.device).manual_seed(19),
+                                           batch_size=batch)
+        torch.cuda.synchronize()
+        seconds[kind] = time.time() - t0
+    fill = twins["compiled"].fill_program
+    assert fill.graph is not None and fill.replays == batches
+    assert twins["eager"].fill_program is None
+    a, b = states["compiled"], states["eager"]
+    assert int(a.buffer_state.n_added) == int(b.buffer_state.n_added) == batches * batch
+    rel = lambda x, y: float((x.double() - y.double()).abs().max()
+                             / y.double().abs().max().clamp(min=1e-30))
+    finite = torch.isfinite(b.buffer_state.log_w)
+    assert torch.equal(finite, torch.isfinite(a.buffer_state.log_w)), label
+    diff = {"x": rel(a.buffer_state.x, b.buffer_state.x),
+            "log_w": rel(a.buffer_state.log_w[finite], b.buffer_state.log_w[finite]),
+            "transition": max(rel(v, b.transition_state[k])
+                              for k, v in a.transition_state.items())}
+    bitwise = (all(torch.equal(x, y) for x, y in zip(a.buffer_state, b.buffer_state))
+               and all(torch.equal(v, b.transition_state[k])
+                       for k, v in a.transition_state.items()))
+    assert max(diff.values()) <= tol, (label, diff)
+    print(f"[{card}] phase 19 {label} fill of {batches} batches of {batch}: compiled "
+          f"{seconds['compiled']:.2f} s ({fill.replays} replays of the captured pass; capture "
+          f"{fill.capture_s:.2f} s, instantiation {fill.instantiate_s:.3f} s, private pool "
+          f"{fill.pool_bytes / 2**30:.2f} GiB, kernel counts per pass {fill.captured_counts}), "
+          f"eager {seconds['eager']:.2f} s; max relative difference "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diff.items())
+          + f" (tolerance {tol:g}); bitwise equal: {bitwise}")
+    return {"seconds": seconds, "diff": diff, "bitwise": bitwise,
+            "captured": fill.captured_counts, "replays": fill.replays,
+            "capture_s": fill.capture_s, "instantiate_s": fill.instantiate_s,
+            "pool_bytes": fill.pool_bytes}
+
+
+def data_mesh_turns(trainer, state, card) -> dict:
+    """ManyWell-32's data-parallel step compiled under an NCCL group of world size 1:
+    graph_turns against its eager twin on the mesh; its captured collectives against
+    ``expected_collectives``, K1's 38 nodes in its graph."""
+    import torch
+
+    from fab_tpu_torch import graph
+    from fab_tpu_torch.parallel import distributed, mesh
+
+    device = trainer.device
+    assert distributed.initialize(device, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                  world_size=1, rank=0)
+    try:
+        with mesh.use_mesh(mesh.make_mesh()):
+            supported, reason = graph.graph_supported(trainer)
+            assert supported and "nccl collectives" in reason, reason
+            print(f"[{card}] phase 19 ManyWell-32 data-parallel: {reason}")
+            run = graph_turns("ManyWell-32 data-parallel", trainer, state, MW_BATCH, 1e-5, card,
+                              phase=19, turns=PHASE19_TURNS["ManyWell-32 data-parallel"])
+    finally:
+        distributed.shutdown()
+    captured = {k: v for k, v in run["per_step"].items() if " " in k}
+    expect = expected_collectives(4, 1, 8)
+    assert sum(captured.values()) == expect["total"], (captured, expect)
+    assert run["graph_nodes"]["k1_tf32x3_chain"] == 38, run["graph_nodes"]
+    print(f"[{card}] phase 19 ManyWell-32 data-parallel: collectives per captured step "
+          f"{captured} = {sum(captured.values())}, reckoned from the code {expect['total']}; "
+          f"K1 {run['graph_nodes']['k1_tf32x3_chain']} kernel nodes, NCCL "
+          f"{run['graph_nodes']['nccl']} kernel nodes in the graph")
+    return run
+
+
+def phase19_path(card, mw, dp, gmm, aldp, rbd, snf) -> dict:
+    """Phase 19: each ``(trainer, state)``'s compiled step against its eager twin
+    (``graph_turns``), and the compiled fill against the eager one on aldp.yaml (cut
+    to FILL_BATCHES batches) and ManyWell-32 (its 4 passes)."""
+    from fab_tpu_torch.ops import coupling_kernel as ck
+
+    t0 = time.time()
+    out = {"ManyWell-32 data-parallel": data_mesh_turns(*dp, card)}
+    for label, (trainer, state) in gmm.items():
+        out[label] = graph_turns(label, trainer, state, 128, 1e-12, card, phase=19,
+                                 turns=PHASE19_TURNS[label], scanned=False)
+    # The ALDP steps were captured by phases 11-12's runs, their kernels ran there:
+    # no warm-up step.
+    for label, (trainer, state) in (("aldp.yaml", aldp), ("aldp_rbd", rbd), ("aldp_snf", snf)):
+        out[label] = graph_turns(label, trainer, state, 1024, 1e-5, card, phase=19,
+                                 turns=PHASE19_TURNS[label], warm=False, scanned=False)
+        program = trainer._program(1024)
+        before, after = program.rss_gib
+        print(f"[{card}] phase 19 {label}: the program's build (warm-up step, capture, "
+              f"instantiation) took the host's resident memory from {before:.2f} to "
+              f"{after:.2f} GiB")
+        out[label]["rss_gib"] = program.rss_gib
+        if label == "aldp.yaml":
+            print(f"[{card}] aldp.yaml fill cut (length only): "
+                  f"training.replay_buffer.min_length = {FILL_BATCHES} (aldp.yaml: 64)")
+            out["fill aldp.yaml"] = fill_turns("aldp.yaml", trainer, FILL_BATCHES, 1024, card,
+                                               1e-5)
+    _zero_counts()
+    out["fill ManyWell-32"] = fill_turns("ManyWell-32", mw[0], 4, MW_BATCH, card, 1e-5)
+    assert out["fill ManyWell-32"]["captured"]["k1"] == 22
+    assert _counts()["k1"] == 2 * 22 + 4 * 22  # the compiled twin's warm-up and
+    # capture, and the eager twin's 4 passes
+    assert ck.fused_coupling_apply.launches == 0
+    out["phase_s"] = time.time() - t0
+    print(f"[{card}] phase 19: {out['phase_s']:.1f} s (budget {PHASE19_BUDGET_S} s)")
+    return out
+
+
 def drive(device, gen, name, card) -> list:
-    """Phases 2-17; returns the kernel records."""
+    """Phases 2-19; returns the kernel records."""
+    _record_builds()
     t0, phase_s = time.time(), {}
     # ------------------------------------------------ 2-4. K1 and the ManyWell path
     k1 = check_k1(device, gen)
@@ -3359,8 +3639,17 @@ def drive(device, gen, name, card) -> list:
 
         # ------------------------------------------------ 18. the compiled step
         p18 = phase18_path(card, mw_trainer, lgcp_trainer, gmm.pop("trainer"))
-        del mw_trainer, lgcp_trainer
+        del lgcp_trainer
         phase_s["18 compiled step"] = time.time() - t0
+
+        # ------------------------------------------------ 19. the programs since
+        trainers = lars_snf.pop("trainers")
+        p19 = phase19_path(card, mw_trainer, dp.pop("trainer"),
+                           {k: trainers.pop(k) for k in ("GMM-40-rbd", "GMM-40-snf")},
+                           aldp.pop("trainer"), trainers.pop("aldp_rbd"),
+                           trainers.pop("aldp_snf"))
+        del mw_trainer, trainers
+        phase_s["19 compiled programs"] = time.time() - t0
 
     kernels = [
         {
@@ -3408,6 +3697,16 @@ def drive(device, gen, name, card) -> list:
                           median_eager_plain_step_ms=p16["bench"]["eager_plain_ms"],
                           bench_scaling=p16["bench"]["scaling"]),
             "in_graph": _graph_record(p18["ManyWell-32"], "k1"),
+            "in_graph_data_parallel": dict(
+                _graph_record(p19["ManyWell-32 data-parallel"], "k1"), backend="nccl",
+                world_size=1, collectives_per_captured_step=sum(
+                    v for k, v in p19["ManyWell-32 data-parallel"]["per_step"].items()
+                    if " " in k)),
+            "in_fill_graph": dict(mw["fill"],
+                                  launches_per_captured_pass=mw["fill"]["captured"]["k1"],
+                                  launches_in_replays=mw["fill"]["captured"]["k1"]
+                                  * mw["fill"]["replays"],
+                                  fill_s_compiled_vs_eager=p19["fill ManyWell-32"]["seconds"]),
             "launches_model_axis": sum(p[0] for p in ma["fused"]["k1_per_step"]),
             "model_axis": {
                 "grid": [1, 2], "backend": "gloo (two ranks on one card)",
@@ -3455,6 +3754,10 @@ def drive(device, gen, name, card) -> list:
             "launches_in_graph_evaluation": p16["in_graph"]["launches"]["true"],
             "launches_trajectory_evaluation": p17["trajectory"]["launches"],
             "in_graph": _graph_record(p18["LGCP-1600"], "k2"),
+            "in_fill_graph": dict(lg["fill"],
+                                  launches_per_captured_pass=lg["fill"]["captured"]["k2"],
+                                  launches_in_replays=lg["fill"]["captured"]["k2"]
+                                  * lg["fill"]["replays"]),
             "launches_model_axis": ma["lgcp"]["counts"]["k2"],
             "model_axis": {"grid": [1, 2], "step_ms": ma["lgcp"]["step_ms"],
                            "rebuilds_per_step": ma["lgcp"]["counts"]["k2_rebuilds"],
@@ -3467,11 +3770,9 @@ def drive(device, gen, name, card) -> list:
     print(f"[{card}] ALDP path (no kernel): median step {aldp['steady_ms']:.1f} ms, "
           f"{1024 / aldp['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
           f"{aldp['busy']:.1%} of the median step")
-    for label, key in (("ALDP-rbd", "rbd"), ("ALDP-snf", "snf")):
-        run = lars_snf[key]
-        print(f"[{card}] {label} path (no kernel): median step {run['steady_ms']:.1f} ms, "
-              f"{1024 / run['steady_ms'] * 1e3:.1f} AIS samples/s, device busy "
-              f"{run['busy']:.1%} of the median step")
+    run = lars_snf["rbd"]
+    print(f"[{card}] ALDP-rbd path (no kernel): a profiled eager step, device busy "
+          f"{run['busy_profiled']:.1%} of its wall, {run['device_ops']} device ops")
     for backend in ("jax", "host_cpp"):
         run = tools["host_cpp"][backend]
         print(f"[{card}] ALDP aldp.yaml with system.backend={backend} (phase 13): median step "
@@ -3482,11 +3783,19 @@ def drive(device, gen, name, card) -> list:
           f"{statistics.median(dp['dp_ms']):.1f} ms against the plain trainer's "
           f"{statistics.median(dp['plain_ms']):.1f} ms in turns, device busy {dp['busy']:.1%}, "
           f"NCCL {dp['nccl_ms']:.3f} ms and {dp['collectives']} collectives per step")
-    for label, run in p18.items():
-        if label != "phase_s":
-            print(f"[{card}] {label} compiled step (phase 18): median "
-                  f"{run['medians']['graph']:.1f} ms graphed against {run['medians']['eager']:.1f}"
-                  f" ms eager, in turns; device busy {run['busy']:.1%} of the graphed step")
+    for phase, runs in ((18, p18), (19, p19)):
+        for label, run in runs.items():
+            if label != "phase_s" and not label.startswith("fill"):
+                print(f"[{card}] {label} compiled step (phase {phase}): median "
+                      f"{run['medians']['graph']:.1f} ms graphed against "
+                      f"{run['medians']['eager']:.1f} ms eager, in turns; device busy "
+                      f"{run['busy']:.1%} of the graphed step; capture {run['capture_s']:.2f} s, "
+                      f"instantiation {run['instantiate_s']:.2f} s, "
+                      f"{run['graph_nodes']['kernel nodes']} kernel nodes")
+    for label in ("fill aldp.yaml", "fill ManyWell-32"):
+        run = p19[label]
+        print(f"[{card}] {label} (phase 19): compiled {run['seconds']['compiled']:.2f} s against "
+              f"eager {run['seconds']['eager']:.2f} s")
     print(f"[{card}] wall time by phase (s, cumulative from phase 2): "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     return kernels

@@ -42,6 +42,7 @@ samples/s, and the card's name and power limit as ``nvidia-smi`` gives them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -161,7 +162,8 @@ def measure(device="cuda", batch_size: int = 2048, layer_nodes_per_dim: int = 10
     states = {}
     for kind, trainer in trainers.items():
         t0 = time.perf_counter()
-        states[kind] = trainer.init_state(gens[kind], batch_size=batch_size)
+        with contextlib.redirect_stdout(sys.stderr):  # its "buffer fill: ..." line
+            states[kind] = trainer.init_state(gens[kind], batch_size=batch_size)
         sync(device)
         log(f"{kind} init_state: {time.perf_counter() - t0:.2f} s")
         for j in range(n_warmup):

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fab_tpu_torch import checkpoint, random
+from fab_tpu_torch import checkpoint, graph, random
 from fab_tpu_torch.buffer import PrioritisedReplayBuffer
 from fab_tpu_torch.convert import to_jax_params
 from fab_tpu_torch.experiments.make_aldp_model import make_aldp_model
@@ -137,23 +137,35 @@ def run_ml_training(cfg, model, target, z_train: torch.Tensor, z_test: np.ndarra
                     generator: torch.Generator):
     """Forward-KL (maximum-likelihood) training on target samples: minibatches drawn
     with replacement, a guarded update per iteration, a checkpoint and the final
-    evaluation. Returns the metrics."""
+    evaluation. Returns the metrics.
+
+    The step is one compiled program (``graph.Program``: ``fab_tpu``'s jitted
+    ``step``) where ``graph.supported`` admits the model, else eager; the choice and
+    its reason are printed."""
     t = cfg.training
     save_root = t.save_root
     flow = model.flow
     model.init(generator)
     params = [p for p in flow.parameters() if p.requires_grad]
     optimizer = _optimizer(t)
-    opt_state = optimizer.init(params)
     n_train = z_train.shape[0]
-    for i in range(t.max_iter):
-        idx = random.randint(generator, 0, n_train, (t.batch_size,), z_train.device)
-        loss = model.forward_kl_loss(z_train[idx], log_q_noise(flow, generator))
+
+    def ml_step(opt_state, key):
+        idx = random.randint(key, 0, n_train, (t.batch_size,), z_train.device)
+        loss = model.forward_kl_loss(z_train[idx], log_q_noise(flow, key))
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         opt_state, _, _ = guarded_update(optimizer, grads, opt_state, params, loss.detach())
+        return opt_state, {"loss": loss.detach()}
+
+    compiled, reason = graph.supported(model, z_train.device)
+    print(f"ml step: {'compiled' if compiled else 'eager'} ({reason})", flush=True)
+    step = graph.Program(ml_step, flow, z_train.device) if compiled else ml_step
+    opt_state = optimizer.init(params)
+    for i in range(t.max_iter):
+        opt_state, info = step(opt_state, generator)
         if i % t.get("log_every", 100) == 0:
-            print(f"ml iter {i}: loss {float(loss.detach()):.4f}")
+            print(f"ml iter {i}: loss {float(info['loss']):.4f}")
     checkpoint.save_checkpoint(
         os.path.join(save_root, "model_checkpoints", f"iter_{t.max_iter}", "state.pkl"),
         {"params": {"flow": to_jax_params(flow.state_dict(), len(flow.bijectors))}},

@@ -1,49 +1,57 @@
-"""The compiled train step: one whole iteration captured as a CUDA graph and replayed
-(``fab_tpu/train.py:226-245``: a ``jax.jit`` of the step, its state donated).
+"""Compiled programs: a function of a state and a key captured as a CUDA graph and
+replayed (``fab_tpu``'s ``jax.jit`` of its train step, ``fab_tpu/train.py:226-245``;
+of its buffer fill, ``:441-452`` and ``:603-620``; of the ALDP ML step,
+``experiments/run_aldp.py:148-167``).
 
-``StepProgram(trainer, batch_size)`` runs the trainer's own eager ``train_step`` on
-static tensors, so the graph replays exactly the kernels the eager step launches:
+``Program(fn, module, device)`` runs ``fn(state, key) -> (state, info)`` eagerly on
+static tensors, so the graph replays exactly the kernels the eager function
+launches. ``module`` holds the tensors ``fn`` moves in place (the flow's parameters
+and buffers). Three users go through it: ``StepProgram`` (``make_train_step`` and
+``make_scanned_train_step``), the buffer trainers' fill pass (``train.py``) and
+the ALDP ML step (``experiments/run_aldp.py``).
 
-- **State.** The state's tensors (transition state, Adam's count and moments, the
-  buffer) are copied once into static tensors; the flow's parameters are static
-  already (the step updates them in place). At the end of each step the new state
-  is copied back into the static one (the buffer's ``index_put`` is out of place),
-  so a step's input is the last one's output. The state a call returns holds those
-  static tensors: the next call overwrites them, as a donated buffer is gone after
-  a jitted call in ``fab_tpu``.
-- **Noise.** The step draws through a ``random.Tape`` (see ``random.py``): each
-  call first replays the tape on the caller's generator (the *noise pass*), then
-  runs the step, which reads its draws from the tape's static tensors. The draws
-  are the eager step's, bit for bit.
-- **Build.** The first call runs one eager step that records the tape (on the card
-  on a side stream, so cuBLAS and the allocator are set up before capture),
-  restores every parameter, buffer and state tensor it moved, and, on
-  the card, captures one step into a ``torch.cuda.CUDAGraph`` (with the kernels'
-  host caches emptied first, so the graph rebuilds K2's prepared weights where a
-  steady-state eager step does). On the CPU there is no graph: every call runs the
-  step through the same static tensors and tape.
-- **Counts.** The kernels' wrappers count launches on the host, which a replay
-  does not reach: ``captured_counts`` holds what one captured step counted and
-  ``replays`` the steps taken since (on the CPU, the eager runs of the step), so the
-  replays launched ``captured_counts`` times ``replays`` beside what the wrappers
-  counted themselves (warm-up and capture).
+- **State.** The state's tensors (a train state's transition state, Adam's count
+  and moments and buffer; a fill pass's transition state and buffer) are copied once
+  into static tensors; the module's tensors are static already (``fn`` updates them
+  in place). At the end of each call the new state is copied back into the static
+  one (the buffer's ``index_put`` is out of place), so a call's input is the last
+  one's output. The state a call returns holds those static tensors: the next call
+  overwrites them, as a donated buffer is gone after a jitted call in ``fab_tpu``.
+- **Noise.** ``fn`` draws through a ``random.Tape`` (see ``random.py``): each call
+  first replays the tape on the caller's generator (the *noise pass*), then runs
+  ``fn``, which reads its draws from the tape's static tensors. The draws are the
+  eager function's, bit for bit.
+- **Build.** The first call runs ``fn`` once eagerly, recording the tape (on the
+  card on a side stream, so cuBLAS, NCCL's communicator and the allocator are set up
+  before capture, and every cache a module builds on first use is built then),
+  restores every module and state tensor it moved, and, on the card, captures one
+  call into a ``torch.cuda.CUDAGraph`` (with the kernels' host caches emptied first,
+  so the graph rebuilds K2's prepared weights where a steady-state eager call does).
+  On the CPU there is no graph: every call runs ``fn`` through the same static
+  tensors and tape. A capture or replay that fails raises; nothing falls back to
+  the eager function.
+- **Counts.** The kernels' wrappers and the mesh's collectives (``mesh.COUNTS``)
+  count on the host, which a replay does not reach: ``captured_counts`` holds what
+  one captured call counted and ``replays`` the calls since (on the CPU, the eager
+  runs of ``fn``), so the replays launched ``captured_counts`` times ``replays``
+  beside what the counters saw themselves (warm-up and capture).
 
-``graph_supported(trainer)`` is the static test of which configurations take this
-path; the others keep the eager ``train_step``, for the reason it gives.
+``graph_supported(trainer)`` (``supported(model, device)``) is the static test of
+which configurations take this path, decided from the configuration before any
+capture; the others keep the eager functions, for the reason it gives.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch import nn
 from torch.utils import _pytree as pytree
 
 from fab_tpu_torch import random
-from fab_tpu_torch.flows.base import is_stochastic
 from fab_tpu_torch.flows.fused import FusedPass
-from fab_tpu_torch.flows.resampled import ResampledGaussianBase
-from fab_tpu_torch.flows.splines import PeriodicShift, SplineCoupling
 from fab_tpu_torch.ops import coupling_kernel, realnvp_kernel
 from fab_tpu_torch.parallel import mesh
 from fab_tpu_torch.targets.double_well import DoubleWellEnergy
@@ -51,48 +59,54 @@ from fab_tpu_torch.targets.many_well import ManyWellEnergy
 from fab_tpu_torch.wrappers.module import WrappedModuleFlow
 from fab_tpu_torch.wrappers.torch_dist import WrappedTorchDist
 
-# Why a configuration keeps the eager step (ROADMAP "Also open" orders them).
+# Why a configuration keeps the eager functions (ROADMAP "Also open" orders them).
 REFUSED = {
-    "mesh": "an active data or model mesh: its collectives are not captured (gloo "
-            "carries CUDA tensors through the host; NCCL at world size 1 is not yet "
-            "captured)",
     "host_cpp": "system.backend host_cpp: every target evaluation is a round trip to "
                 "the host C++ energy server, which no CUDA graph can hold",
-    "lars": "the resampled (LARS) base: not yet captured",
-    "snf": "a stochastic normalizing flow (SNF): not yet captured",
-    "splines": "a spline flow (ALDP): not yet captured",
     "wrappers": "a wrapped external module or torch distribution: its draws need not go "
                 "through fab_tpu_torch.random, so a tape cannot hold them",
     "rejection": "target_forward_kl on ManyWell: its exact draws are rejection sampling, "
                  "a loop that reads the device on the host",
+    "model_axis": "a mesh with a model axis (n_model > 1): one card cannot form an NCCL "
+                  "model group (NCCL refuses two ranks on one device), and the gloo grid "
+                  "that runs there cannot be captured",
+    "gloo_on_card": "a data mesh over gloo on the card: gloo carries the CUDA tensors "
+                    "through the host, which no CUDA graph can hold",
 }
 
 
-def graph_supported(trainer) -> Tuple[bool, str]:
-    """(whether ``trainer``'s ``run`` goes through ``make_train_step``, why): decided
-    from the configuration alone, before any capture."""
-    model = trainer.model
+def supported(model, device) -> Tuple[bool, str]:
+    """(whether ``model``'s functions on ``device`` run as compiled programs under
+    the active mesh, why): decided from the configuration alone, before any
+    capture."""
+    device = torch.device(device)
     flow, target = model.flow, model.target
-    modules = list(flow.modules()) if isinstance(flow, torch.nn.Module) else []
-    if mesh.active_mesh() is not None:
-        return False, REFUSED["mesh"]
+    active = mesh.active_mesh()
+    if active is not None and active.n_model > 1:
+        return False, REFUSED["model_axis"]
     if getattr(target, "backend", None) == "host_cpp":
         return False, REFUSED["host_cpp"]
     if isinstance(flow, WrappedModuleFlow) or isinstance(target, WrappedTorchDist):
         return False, REFUSED["wrappers"]
-    if is_stochastic(flow):
-        return False, REFUSED["snf"]
-    if any(isinstance(m, ResampledGaussianBase) for m in modules):
-        return False, REFUSED["lars"]
-    if any(isinstance(m, (SplineCoupling, PeriodicShift)) for m in modules):
-        return False, REFUSED["splines"]
     if model.loss_type == "target_forward_kl" and isinstance(
             target, (ManyWellEnergy, DoubleWellEnergy)):
         return False, REFUSED["rejection"]
-    if trainer.device.type == "cuda":
-        return True, f"one step captured as a CUDA graph on {trainer.device}, replayed"
-    return True, (f"no CUDA graph on {trainer.device}: each step runs eagerly through the "
-                  "same static tensors and noise tape")
+    collectives = ""
+    if active is not None:
+        backend = dist.get_backend(active.data_group)
+        if device.type == "cuda" and backend != "nccl":
+            return False, REFUSED["gloo_on_card"]
+        collectives = f", its {backend} collectives over {active.n_data} data ranks within"
+    if device.type == "cuda":
+        return True, f"captured as a CUDA graph on {device}{collectives}, replayed"
+    return True, (f"no CUDA graph on {device}: each call runs eagerly through the same "
+                  f"static tensors and noise tape{collectives}")
+
+
+def graph_supported(trainer) -> Tuple[bool, str]:
+    """(whether ``trainer``'s ``run`` and fill go through compiled programs, why):
+    ``supported`` of its model on its device."""
+    return supported(trainer.model, trainer.device)
 
 
 def counts() -> Dict[str, int]:
@@ -107,28 +121,57 @@ def counts() -> Dict[str, int]:
     }
 
 
-def _leaves(state) -> Tuple[List[torch.Tensor], Any]:
-    """The tensors of a train state (all fields but the last, ``step``) and their
-    structure."""
-    assert state._fields[-1] == "step", state._fields
-    return pytree.tree_flatten(tuple(state)[:-1])
+def _host_counts() -> Dict[str, int]:
+    """``counts()`` and the mesh's collectives, as ``"<axis> <kind>"``."""
+    return dict(counts(), **{f"{axis} {kind}": n for (axis, kind), n in mesh.COUNTS.items()})
 
 
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
 
-class StepProgram:
-    """One train step of ``trainer`` at ``batch_size`` on static tensors, captured as
-    a CUDA graph on the card (see the module docstring). ``__call__(state,
-    generator, n)`` takes n steps."""
+def _ordered(tree):
+    """``tree`` with every dict's keys sorted."""
+    if isinstance(tree, dict):
+        return {k: _ordered(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_ordered(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_ordered(v) for v in tree)
+    return tree
 
-    def __init__(self, trainer, batch_size: int):
-        supported, reason = graph_supported(trainer)
-        if not supported:
-            raise ValueError(f"this configuration has no compiled step: {reason}")
-        self.trainer, self.batch_size = trainer, batch_size
-        self.device = trainer.device
+
+def _flatten(tree):
+    """``pytree.tree_flatten`` of ``tree`` with every dict's keys sorted (as JAX
+    flattens a dict), so states whose dicts differ in key order alone share one
+    structure."""
+    return pytree.tree_flatten(_ordered(tree))
+
+
+def _like(tree, template):
+    """``tree`` with every dict's keys in ``template``'s order."""
+    if isinstance(tree, dict):
+        return {k: _like(tree[k], template[k]) for k in template}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_like(a, b) for a, b in zip(tree, template)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_like(a, b) for a, b in zip(tree, template))
+    return tree
+
+
+def _module_tensors(module: nn.Module) -> List[torch.Tensor]:
+    """Every parameter and buffer of ``module`` (persistent or not), once each."""
+    return [*module.parameters(), *module.buffers()]
+
+
+class Program:
+    """``fn(state, key) -> (state, info)`` on static tensors, captured as a CUDA graph
+    on the card (see the module docstring); ``module`` holds the tensors ``fn``
+    moves in place. ``__call__(state, generator, n)`` makes n calls."""
+
+    def __init__(self, fn: Callable, module: nn.Module, device):
+        self.fn, self.module = fn, module
+        self.device = torch.device(device)
         self.tape = random.Tape()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static: Optional[List[torch.Tensor]] = None
@@ -136,19 +179,18 @@ class StepProgram:
         self.captured_counts: Dict[str, int] = {}
         self.capture_s = self.instantiate_s = None
         self.pool_bytes = None
-        self._module_tensors = list(trainer.model.flow.state_dict(keep_vars=True).values())
+        self._module_tensors = _module_tensors(module)
 
-    # ------------------------------------------------------------------ the step
-
-    def _step(self) -> Dict[str, Any]:
-        """The eager step on the static state, its draws served by the tape, and its
-        new state copied into the static one. Returns its info."""
-        trainer = self.trainer
-        state = self._state_type(*pytree.tree_unflatten(self.static, self._spec), 0)
+    def _run(self) -> Dict[str, Any]:
+        """``fn`` on the static state, its draws served by the tape, and its new state
+        copied into the static one. Returns its info."""
+        state = _like(pytree.tree_unflatten(self.static, self._spec), self._in)
         with random.taped(self.tape) as key:
-            new_state, info = trainer.train_step(state, key, self.batch_size)
-        new, spec = _leaves(new_state)
-        assert spec == self._spec, "the step changed the state's structure"
+            new_state, info = self.fn(state, key)
+        new, spec = _flatten(new_state)
+        assert spec == self._spec, "the program changed its state's structure"
+        # The structure ``fn`` returns, dicts in its order, for the states handed out.
+        self._out = pytree.tree_map(lambda _: None, new_state)
         static_storage = {_storage(t) for t in self.static}
         # Info that aliases the state would read the new state after the copy back.
         info = pytree.tree_map(
@@ -164,8 +206,10 @@ class StepProgram:
         return info
 
     def _build(self, state) -> None:
-        leaves, self._spec = _leaves(state)
-        self._state_type = type(state)
+        leaves, self._spec = _flatten(state)
+        assert all(torch.is_tensor(t) for t in leaves), "a program's state holds tensors only"
+        # The first state's structure, dicts in the caller's order, as ``fn`` sees it.
+        self._in = pytree.tree_map(lambda _: None, state)
         self.static = [t.detach().clone() for t in leaves]
         saved = [t.detach().clone() for t in self._module_tensors]
         cuda = self.device.type == "cuda"
@@ -173,11 +217,11 @@ class StepProgram:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                self._step()
+                self._run()
             torch.cuda.current_stream(self.device).wait_stream(side)
         else:
-            self._step()
-        # The warm-up trained: put back everything it moved.
+            self._run()
+        # The warm-up moved the state and the module: put back everything it moved.
         with torch.no_grad():
             for s, t in zip(self.static, leaves):
                 s.copy_(t)
@@ -187,11 +231,11 @@ class StepProgram:
         if not cuda:
             return
         coupling_kernel.forget_prepared()
-        before = counts()
+        before = _host_counts()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph):
-            self._info = self._step()
+            self._info = self._run()
         self.capture_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.graph.instantiate()
@@ -199,8 +243,9 @@ class StepProgram:
         pool = tuple(self.graph.pool())
         self.pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                               if tuple(seg.get("segment_pool_id", ())) == pool)
-        after = counts()
-        self.captured_counts = {k: after[k] - before[k] for k in after}
+        after = _host_counts()
+        self.captured_counts = {k: v - before.get(k, 0) for k, v in after.items()
+                                if k in before or v}
         # The cache's entries now name the capture's planes under the weights'
         # versions at its end, which a replay does not move.
         coupling_kernel.forget_prepared()
@@ -208,13 +253,12 @@ class StepProgram:
     def _load(self, state) -> None:
         if self.static is None:
             self._build(state)
-        leaves, spec = _leaves(state)
+        leaves, spec = _flatten(state)
         if spec != self._spec:
-            raise ValueError("the state's structure differs from the captured step's")
-        if [id(t) for t in self._module_tensors] != [
-                id(t) for t in self.trainer.model.flow.state_dict(keep_vars=True).values()]:
-            raise RuntimeError("the flow's parameters were replaced since the step was "
-                               "captured: make a new step")
+            raise ValueError("the state's structure differs from the captured program's")
+        if [id(t) for t in self._module_tensors] != [id(t) for t in _module_tensors(self.module)]:
+            raise RuntimeError("the module's parameters were replaced since the program was "
+                               "captured: make a new one")
         with torch.no_grad():
             for s, t in zip(self.static, leaves):
                 if t is not s:
@@ -224,20 +268,46 @@ class StepProgram:
         random.noise_pass(self.tape, generator)
         self.replays += 1
         if self.graph is None:
-            return self._step()
+            return self._run()
         self.graph.replay()
         # A replay moves the weights but not their versions: K2's prepared copies
         # of them are stale for an eager pass.
         coupling_kernel.forget_prepared()
         return self._info
 
-    def __call__(self, state, generator, n_steps: int = 1):
-        """``n_steps`` steps from ``state``, each after its own noise pass, with no
+    def __call__(self, state, generator, n_calls: int = 1):
+        """``n_calls`` calls from ``state``, each after its own noise pass, with no
         host read between them; (the state after the last, its info). Both hold
         tensors the next call overwrites."""
         self._load(state)
-        for _ in range(n_steps):
+        for _ in range(n_calls):
             info = self._replay(generator)
-        new_state = self._state_type(*pytree.tree_unflatten(self.static, self._spec),
-                                     state.step + n_steps)
-        return new_state, pytree.tree_map(lambda v: v, info)  # the caller's containers
+        # The caller's containers, as ``fn`` returns them, around the static tensors.
+        return (_like(pytree.tree_unflatten(self.static, self._spec), self._out),
+                pytree.tree_map(lambda v: v, info))
+
+
+class StepProgram(Program):
+    """One train step of ``trainer`` at ``batch_size`` as a ``Program`` over the
+    train state's tensors (all fields but the last, ``step``, which the caller's
+    state carries on the host)."""
+
+    def __init__(self, trainer, batch_size: int):
+        ok, reason = graph_supported(trainer)
+        if not ok:
+            raise ValueError(f"this configuration has no compiled step: {reason}")
+        self.trainer, self.batch_size = trainer, batch_size
+        self._state_type = None
+        super().__init__(self._step, trainer.model.flow, trainer.device)
+
+    def _step(self, fields, key):
+        new_state, info = self.trainer.train_step(self._state_type(*fields, 0), key,
+                                                  self.batch_size)
+        return tuple(new_state)[:-1], info
+
+    def __call__(self, state, generator, n_steps: int = 1):
+        """``n_steps`` steps from ``state``: (the state after the last, its info)."""
+        assert state._fields[-1] == "step", state._fields
+        self._state_type = self._state_type or type(state)
+        fields, info = super().__call__(tuple(state)[:-1], generator, n_steps)
+        return self._state_type(*fields, state.step + n_steps), info

@@ -292,7 +292,10 @@ def build_tables() -> AldpForceFieldTables:
 
 def _device_tables(tables: AldpForceFieldTables, like: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The tables as tensors in ``like``'s dtype and on its device, built once per
-    (dtype, device): index arrays as int64, parameters as floats."""
+    (dtype, device): index arrays as int64 (and each column of one as a
+    ``gather_rows`` index, ``<name>_<column>``), parameters as floats."""
+    from fab_tpu_torch.targets.internal_coords import row_index
+
     cache = tables.__dict__.setdefault("_device_cache", {})
     key = (like.dtype, like.device)
     if key not in cache:
@@ -301,6 +304,9 @@ def _device_tables(tables: AldpForceFieldTables, like: torch.Tensor) -> Dict[str
             a = getattr(tables, field.name)
             if field.name.endswith("_idx"):
                 out[field.name] = torch.as_tensor(a, dtype=torch.long, device=like.device)
+                for j in range(np.asarray(a).shape[1]):
+                    out[f"{field.name}_{j}"] = row_index(np.asarray(a)[:, j],
+                                                         len(tables.charges), like.device)
             else:
                 out[field.name] = torch.as_tensor(np.asarray(a, np.float64), device=like.device).to(like.dtype)
         n = len(tables.charges)
@@ -309,37 +315,29 @@ def _device_tables(tables: AldpForceFieldTables, like: torch.Tensor) -> Dict[str
     return cache[key]
 
 
-def _gather(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """p[..., idx, :] through index_select."""
-    return p.index_select(-2, idx)
-
-
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((v * v).sum(-1))
 
 
 def energy_kcal(tables: AldpForceFieldTables, pos_angstrom: torch.Tensor) -> torch.Tensor:
     """Total vacuum potential energy [kcal/mol]; pos [..., 22, 3] in Angstrom."""
-    from fab_tpu_torch.targets.internal_coords import bond_angle, dihedral_angle
+    from fab_tpu_torch.targets.internal_coords import bond_angle, dihedral_angle, gather_rows
 
     t = _device_tables(tables, pos_angstrom)
     p = pos_angstrom
-    bi = t["bond_idx"]
-    r = _norm(_gather(p, bi[:, 0]) - _gather(p, bi[:, 1]))
+    atoms = lambda name, j: gather_rows(p, t[f"{name}_idx_{j}"])
+    r = _norm(atoms("bond", 0) - atoms("bond", 1))
     e_bond = (t["bond_k"] * (r - t["bond_r0"]) ** 2).sum(-1)
 
-    ai = t["angle_idx"]
-    theta = bond_angle(_gather(p, ai[:, 0]), _gather(p, ai[:, 1]), _gather(p, ai[:, 2]))
+    theta = bond_angle(atoms("angle", 0), atoms("angle", 1), atoms("angle", 2))
     e_angle = (t["angle_k"] * (theta - t["angle_t0"]) ** 2).sum(-1)
 
-    ti = t["torsion_idx"]
-    phi = dihedral_angle(*(_gather(p, ti[:, j]) for j in range(4)))
+    phi = dihedral_angle(*(atoms("torsion", j) for j in range(4)))
     e_torsion = (
         t["torsion_k"] * (1.0 + torch.cos(t["torsion_n"] * phi - t["torsion_phase"]))
     ).sum(-1)
 
-    pi = t["pair_idx"]
-    inv = 1.0 / _norm(_gather(p, pi[:, 0]) - _gather(p, pi[:, 1]))
+    inv = 1.0 / _norm(atoms("pair", 0) - atoms("pair", 1))
     e_coul = (t["pair_qq"] * inv).sum(-1)
     x6 = (t["pair_rmin"] * inv) ** 6
     e_lj = (t["pair_eps"] * (x6**2 - 2.0 * x6)).sum(-1)

@@ -11,6 +11,11 @@ and the log-det of d(cartesian)/d(internal) is log(b2) + sum(2 log(bond) +
 log(sin(angle))). Placement is NeRF, vectorised by topological level: every row
 whose references are placed moves in one gather and one scatter.
 
+Gathers of atoms that several rows take (``gather_rows``) keep the gradient the same
+on every call: ``index_select``'s backward adds a row's uses with atomics on the
+card, in a different order each call, so no two steps through the force field
+would repeat (and a captured step could not equal its eager twin).
+
 ``NormalizedInternalTransform`` standardises the non-circular coordinates with a
 per-dim mean/std; circular dihedrals stay on [-pi, pi].
 """
@@ -21,6 +26,44 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
+
+
+class _GatherRows(torch.autograd.Function):
+    """``p.index_select(-2, idx)`` whose backward sums each source row's uses in the
+    order of ``uses``, through a gather (no atomics)."""
+
+    @staticmethod
+    def forward(ctx, p, idx, uses):
+        ctx.save_for_backward(uses)
+        return p.index_select(-2, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (uses,) = ctx.saved_tensors
+        pad = grad.new_zeros(grad.shape[:-2] + (1, grad.shape[-1]))
+        taken = torch.cat([grad, pad], -2).index_select(-2, uses.reshape(-1))
+        return taken.reshape(grad.shape[:-2] + uses.shape + grad.shape[-1:]).sum(-2), None, None
+
+
+def row_index(idx, n_rows: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gather_rows``'s index on ``device``: (idx, uses), ``uses[i]`` the positions of
+    ``idx`` that take row i, in increasing order, padded with ``len(idx)`` (a zero
+    row)."""
+    idx = np.asarray(idx).reshape(-1)
+    positions = [np.flatnonzero(idx == i) for i in range(n_rows)]
+    uses = np.full((n_rows, max(1, max(map(len, positions)))), len(idx))
+    for i, taken in enumerate(positions):
+        uses[i, :len(taken)] = taken
+    return (torch.as_tensor(idx, dtype=torch.long, device=device),
+            torch.as_tensor(uses, dtype=torch.long, device=device))
+
+
+def gather_rows(p: torch.Tensor, index: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """p[..., idx, :] for ``index = row_index(idx, ...)``, its gradient summed in a
+    fixed order (the module docstring says why)."""
+    return _GatherRows.apply(p, *index)
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -75,15 +118,16 @@ class ZMatrixTransform:
         cache = self.__dict__.setdefault("_index_cache", {})
         if device not in cache:
             t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long, device=device)
+            rows = lambda a: row_index(a, self.n_atoms, device)
             refs = np.asarray([r for _, r in self.z_matrix])
             levels = []
             for ks in self._placement_levels():
                 level_refs = refs[list(ks)]
                 levels.append((t(ks), t([self.z_matrix[k][0] for k in ks]),
-                               t(level_refs[:, 0]), t(level_refs[:, 1]), t(level_refs[:, 2])))
+                               *(rows(level_refs[:, j]) for j in range(3))))
             cache[device] = {
                 "atoms": t([a for a, _ in self.z_matrix]),
-                "refs": (t(refs[:, 0]), t(refs[:, 1]), t(refs[:, 2])),
+                "refs": tuple(rows(refs[:, j]) for j in range(3)),
                 "seeds": t(self.cart_indices[1:]),
                 "levels": levels,
             }
@@ -99,7 +143,7 @@ class ZMatrixTransform:
         b2 = _norm(pos[..., s3, :] - pos[..., s1, :])
         a2 = bond_angle(pos[..., s2, :], pos[..., s1, :], pos[..., s3, :])
         p = pos.index_select(-2, index["atoms"])
-        q1, q2, q3 = (pos.index_select(-2, r) for r in index["refs"])
+        q1, q2, q3 = (gather_rows(pos, r) for r in index["refs"])
         bonds = _norm(p - q1)
         angles = bond_angle(p, q1, q2)
         dihs = dihedral_angle(p, q1, q2, q3)
@@ -131,9 +175,9 @@ class ZMatrixTransform:
             d = bonds.index_select(-1, ks)[..., None]
             theta = angles.index_select(-1, ks)[..., None]
             phi = dihs.index_select(-1, ks)[..., None]
-            a_pos = pos.index_select(-2, r0)
-            b_pos = pos.index_select(-2, r1)
-            c_pos = pos.index_select(-2, r2)
+            a_pos = gather_rows(pos, r0)
+            b_pos = gather_rows(pos, r1)
+            c_pos = gather_rows(pos, r2)
             bc = _normalize(a_pos - b_pos)
             n = _normalize(torch.linalg.cross(b_pos - c_pos, bc))
             m = torch.linalg.cross(n, bc)

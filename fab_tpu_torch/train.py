@@ -346,6 +346,7 @@ class Trainer:
         self.dtype = dtype
         self.model.flow.to(device=self.device, dtype=dtype)
         self._programs: Dict[int, graph.StepProgram] = {}  # compiled steps by batch size
+        self.fill_program: Optional[graph.Program] = None  # a buffer trainer's last fill
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
@@ -609,10 +610,13 @@ class Trainer:
         scheduled event, each chunk one call of ``make_train_step`` (one step) or
         ``make_scanned_train_step`` (more), as in ``fab_tpu``; the logger gets the
         last step of each chunk. A configuration ``graph.graph_supported`` refuses
-        takes the eager ``train_step`` instead; the choice and its reason are printed
-        once. Without ``state``, ``init_state`` makes one (a buffer trainer fills its
-        buffer with its default batch, eagerly, as ``fab_tpu``'s jitted fill does).
-        The state returned is the compiled step's (see ``make_train_step``).
+        (the host C++ server, the wrappers, ManyWell's rejection-sampled
+        ``target_forward_kl``, the model axis, gloo on the card) takes the eager
+        ``train_step`` instead; the choice and its reason are printed once. Without
+        ``state``, ``init_state`` makes one (a buffer trainer fills its buffer with its
+        default batch through its compiled fill pass where the step is compiled, as
+        ``fab_tpu``'s jitted fill does). The state returned is the compiled step's
+        (see ``make_train_step``).
         """
         if save and is_primary():
             pathlib.Path(self.plots_dir).mkdir(parents=True, exist_ok=True)
@@ -713,22 +717,38 @@ def _adam_state(tree) -> Dict[str, Any]:
 
 def _fill_buffer(trainer, generator: torch.Generator, batch_size: int, add) -> BufferTrainState:
     """A buffer trainer's initial state: the flow and transition state initialised,
-    the buffer filled to its minimum length with AIS samples (``add(buffer_state,
-    result)`` writes one pass), and the optimizer."""
+    the buffer filled to its minimum length with AIS samples, and the optimizer.
+
+    ``model.init``, ``buffer.init`` and ``optimizer.init`` run once, eagerly. Each
+    fill pass (an AIS pass, then ``add(buffer_state, result)``) is one call of a
+    compiled program where ``graph.graph_supported`` admits the configuration
+    (``fab_tpu``'s jitted ``fill_step``; ``trainer.fill_program``), else eager; the
+    choice and its reason are printed once. Between passes the loop reads the
+    buffer's ``n_added`` on the host, as ``fab_tpu``'s does."""
     model, buffer = trainer.model, trainer.buffer
     transition_state = model.init(generator)
     model_axis.shard_flow_params(model.flow)
     buffer_state = buffer.init(trainer.dtype, trainer.device)
-    while int(buffer_state.n_added) < buffer.min_sample_length:
-        result = model.ais.sample_and_log_weights(
-            transition_state, generator, batch_size, p_target=False, tune=True
-        )
-        transition_state = result.transition_state
-        buffer_state = add(buffer_state, result)
+
+    def fill_pass(state, key):
+        transition, buffer_state = state
+        result = model.ais.sample_and_log_weights(transition, key, batch_size,
+                                                  p_target=False, tune=True)
+        return (result.transition_state, add(buffer_state, result)), {}
+
+    compiled, reason = graph.graph_supported(trainer)
+    if is_primary():
+        print(f"buffer fill: {'compiled' if compiled else 'eager'} ({reason})", flush=True)
+    trainer.fill_program = (graph.Program(fill_pass, model.flow, trainer.device)
+                            if compiled else None)
+    take = trainer.fill_program or fill_pass
+    state = (transition_state, buffer_state)
+    while int(state[1].n_added) < buffer.min_sample_length:
+        state, _ = take(state, generator)
     return BufferTrainState(
-        transition_state=transition_state,
+        transition_state=state[0],
         opt_state=trainer.optimizer.init(trainer.params),
-        buffer_state=buffer_state,
+        buffer_state=state[1],
         step=0,
     )
 

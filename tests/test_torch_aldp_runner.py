@@ -3,8 +3,10 @@
 - One whole float64 ``PrioritisedBufferTrainer`` step on a tiny ALDP model (2 spline
   blocks, hidden 16, 4 bins; HMC; the chirality filter; cosine schedule with
   warm-up) on shared parameters and replayed noise: loss, flow parameters, Adam
-  state and buffer to 1e-8. The circular spline bound is set to fab_tpu's float32 pi
-  for this comparison (``fab_tpu_torch/flows/splines.py`` says why they differ).
+  state and buffer to 1e-8; eager, and compiled (``make_train_step`` against
+  ``fab_tpu``'s jitted step, ``make_scanned_train_step`` against its scan). The
+  circular spline bound is set to fab_tpu's float32 pi for this comparison
+  (``fab_tpu_torch/flows/splines.py`` says why they differ).
 - One ``generate_test_set`` HMC sweep on replayed noise: 1e-8; the port's whole
   ``generate_test_set`` keeps L-form rows only.
 - The LARS + SNF ALDP flow (``make_aldp_flow``, tiny) on replayed noise: 1e-8.
@@ -81,7 +83,11 @@ def _z_ref(target):
     return target.transform.cartesian_to_flow(ref)[0].numpy()
 
 
-def test_prioritised_trainer_step_on_aldp_matches(targets, monkeypatch):
+@pytest.mark.parametrize("compiled", [None, "step", "scanned"],
+                         ids=["eager", "step", "scanned"])
+def test_prioritised_trainer_step_on_aldp_matches(targets, monkeypatch, compiled):
+    """Eager, through ``make_train_step`` against ``fab_tpu``'s jitted step, or
+    through ``make_scanned_train_step`` against its ``lax.scan``."""
     target_j, target = targets
     monkeypatch.setattr(splines, "CIRCULAR_BOUND", F32_PI)  # fab_tpu's float32 pi
     circ = target.transform.circular_flow_dims
@@ -102,6 +108,7 @@ def test_prioritised_trainer_step_on_aldp_matches(targets, monkeypatch):
         monkeypatch, (jax_flow, params, flow), targets, 60, 64, 2, n_batches=2,
         hmc_kw=hmc_kw, filters=filters,
         optimizer_kw=dict(schedule="cosine", total_steps=10, warmup_steps=3),
+        compiled=compiled,
     )
     assert 0.0 < float(info["frac_filter_pass"]) < 1.0
     assert int(new.opt_state.count) == 2

@@ -1,5 +1,6 @@
-"""K1 and K2 against their plain versions on the card, and the host C++ energy server
-against the torch force field there. Skipped without a CUDA
+"""K1 and K2 against their plain versions on the card, the host C++ energy server
+against the torch force field there, and the compiled steps and fill pass (CUDA
+graph replays) against their eager twins, bitwise. Skipped without a CUDA
 card: the hand-written kernels have no CPU mode. This file imports no JAX, so it
 also runs on a machine that has only PyTorch (``--noconftest``: tests/conftest.py
 imports JAX):
@@ -379,3 +380,112 @@ def test_compiled_step_replays_a_cuda_graph_equal_to_eager(card, kind):
         ends.append([t.clone() for t in leaves(state)]
                     + [p.detach().clone() for p in compiled.model.flow.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*ends))
+
+
+def _path_trainer(case, device, tmp_path):
+    """A small trainer of a spline, LARS or SNF path, as its runner builds it (f32):
+    aldp.yaml (splines, implicit solvent, the chirality filter, prioritised buffer),
+    aldp_rbd.yaml (the LARS base), aldp_snf.yaml (MH layers on the vacuum force
+    field) and gmm.yaml with flow.use_snf=true; and its init_state kwargs."""
+    import pathlib
+
+    from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.experiments import run_aldp, run_gmm
+    from fab_tpu_torch.experiments.make_aldp_model import make_aldp_model
+    from fab_tpu_torch.experiments.setup_run import setup_trainer
+    from fab_tpu_torch.train import PrioritisedBufferTrainer
+    from fab_tpu_torch.utils.training import apply_overrides, load_config
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    configs = root / "experiments" / "configs"
+    if case == "gmm_snf":
+        cfg = apply_overrides(load_config(str(configs / "gmm.yaml")), [
+            "flow.use_snf=true", "flow.n_layers=3", "training.batch_size=64",
+            "target.true_expectation_n_samples=1000", "training.use_buffer=false"])
+        return setup_trainer(cfg, run_gmm.make_target(cfg, device), device=device), {}
+    frame = tmp_path / "aldp_angstrom.npy"
+    np.save(frame, np.load(root / "tests" / "data" / "aldp_openmm_min_energy_nm.npy")
+            .reshape(1, 66) * 10.0)
+    extra = ["flow.snf.every=1", "flow.snf.steps=2"] if case == "aldp_snf" else []
+    cfg = apply_overrides(load_config(str(configs / f"{case}.yaml")), [
+        "flow.blocks=2", "flow.hidden_units=32", "training.batch_size=64", "fab.n_int_dist=2",
+        "fab.n_inner=2", "training.replay_buffer.min_length=2",
+        "training.replay_buffer.max_length=8", "training.replay_buffer.n_updates=2",
+        "training.warmup_iter=2", f"data.transform={frame}", *extra])
+    model, target = make_aldp_model(cfg, torch.float32, device)
+    t, rb = cfg.training, cfg.training.replay_buffer
+    buffer = PrioritisedReplayBuffer(dim=target.dim, max_length=rb.max_length * 64,
+                                     min_sample_length=rb.min_length * 64)
+    return PrioritisedBufferTrainer(model, run_aldp._optimizer(t), buffer,
+                                    n_batches_buffer_sampling=rb.n_updates,
+                                    w_adjust_max_clip=rb.get("max_adjust_w_clip"),
+                                    device=device), {"batch_size": 64}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["aldp", "aldp_rbd", "aldp_snf", "gmm_snf"])
+def test_compiled_paths_replay_a_cuda_graph_equal_to_eager(card, case, tmp_path):
+    """The spline, LARS and SNF paths' compiled steps on the card: 2 graph replays
+    against 2 eager steps from one state and seed, parameters, buffers and every
+    state tensor bitwise."""
+    from torch.utils import _pytree as pytree
+
+    leaves = lambda s: pytree.tree_leaves(tuple(s)[:-1])
+    (eager, kw), (compiled, _) = (_path_trainer(case, card, tmp_path) for _ in range(2))
+    states = [t.init_state(torch.Generator(device=card).manual_seed(1), **kw)
+              for t in (eager, compiled)]
+    gens = [torch.Generator(device=card).manual_seed(2) for _ in range(2)]
+    step = compiled.make_train_step(64)
+    for _ in range(2):
+        states[0], _ = eager.train_step(states[0], gens[0], 64)
+        states[1], info = step(states[1], gens[1])
+    torch.cuda.synchronize()
+    assert torch.isfinite(info["loss"])
+    program = compiled._program(64)
+    assert program.graph is not None and program.replays == 2
+    named = lambda t: [*t.model.flow.parameters(), *t.model.flow.buffers()]
+    for a, b in zip(named(eager), named(compiled)):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(states[0]), leaves(states[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_compiled_fill_replays_a_cuda_graph_equal_to_eager(card, monkeypatch, tmp_path):
+    """aldp.yaml's fill (small): each pass a replay of the captured fill pass,
+    against the eager fill from one seed, buffer and transition state bitwise; then
+    the ManyWell fill through K1, whose launches are in its graph."""
+    from fab_tpu_torch import graph
+
+    (compiled, kw), (eager, _) = (_path_trainer("aldp", card, tmp_path) for _ in range(2))
+    state_c = compiled.init_state(torch.Generator(device=card).manual_seed(1), **kw)
+    assert compiled.fill_program.graph is not None and compiled.fill_program.replays == 2
+    with monkeypatch.context() as patch:
+        patch.setattr(graph, "graph_supported", lambda t: (False, "eager for the test"))
+        state_e = eager.init_state(torch.Generator(device=card).manual_seed(1), **kw)
+    assert eager.fill_program is None
+    for a, b in zip(state_c.buffer_state, state_e.buffer_state):
+        assert torch.equal(a, b)
+    for k, v in state_c.transition_state.items():
+        assert torch.equal(v, state_e.transition_state[k])
+    fused = _graph_trainer("prioritised_fused", card)
+    fused.init_state(torch.Generator(device=card).manual_seed(1), batch_size=128)
+    # A flow draw and a gradient pass, then 2 x 2 leapfrog gradient passes.
+    assert fused.fill_program.captured_counts["k1"] == 6
+    assert fused.fill_program.replays == 2
+
+
+@pytest.mark.gpu
+def test_aldp_log_prob_gradient_is_bitwise_repeatable(card, tmp_path):
+    """The ALDP target's x-gradient (implicit solvent, 1024 rows near the minimum):
+    two calls on one input give the same bits (the force field's and the z-matrix's
+    gathers sum their gradient in a fixed order)."""
+    trainer, _ = _path_trainer("aldp", card, tmp_path)
+    target = trainer.model.target
+    z0 = target.transform.cartesian_to_flow(torch.as_tensor(
+        target.ref_cartesian, dtype=torch.float32, device=card))[0]
+    gen = torch.Generator(device=card).manual_seed(0)
+    z = (z0 + 0.05 * torch.randn((1024, 60), generator=gen, device=card)).requires_grad_()
+    grads = [torch.autograd.grad(target.log_prob(z).sum(), z)[0] for _ in range(2)]
+    assert torch.isfinite(grads[0]).any()
+    assert torch.equal(*grads)

@@ -14,7 +14,9 @@ static tensors and noise tape as on the card, without a CUDA graph.
 (e) ``make_train_step`` and one call move the state by exactly one step: the warm-up
     leaks nothing into the flow, the state passed in or the next steps.
 (f) ``graph_supported`` gives its reason for each configuration outside the compiled
-    path, and ``run`` then takes the eager step.
+    path (the host C++ server, the wrappers, rejection-sampled ``target_forward_kl``,
+    the model axis, gloo on the card), admits the rest (the spline flows, the LARS
+    base, an SNF, a data mesh), and ``run`` of a refused one takes the eager step.
 (g) ``run(log_every=3)`` writes ``fab_tpu``'s log rows on shared noise.
 
 The same steps replayed as CUDA graphs against eager are card tests in
@@ -181,8 +183,9 @@ def test_make_train_step_then_one_call_takes_exactly_one_step(kind):
         assert torch.equal(a, b)
     program = compiled._program(BATCH)
     assert program.replays == 1 and program.tape.recorded
-    # The returned state is the program's: the next step starts from it, no copy.
-    assert all(a is b for a, b in zip(_leaves(new_c), program.static))
+    # The returned state is the program's: the next step starts from it, no copy (its
+    # dicts in the step's own key order, the program's tensors in sorted-key order).
+    assert sorted(map(id, _leaves(new_c))) == sorted(map(id, program.static))
     new_e, _ = eager.train_step(new_e, torch.Generator().manual_seed(6), BATCH)
     new_c, _ = step(new_c, torch.Generator().manual_seed(6))
     _assert_same(eager, new_e, compiled, new_c)
@@ -393,50 +396,82 @@ def test_consecutive_steps_keep_one_tape(kind):
 # ------------------------------------------------------------------------- (f)
 
 
-def _stub_trainer(flow=None, target=None, loss_type="fab_alpha_div"):
+def _stub_trainer(flow=None, target=None, loss_type="fab_alpha_div", device="cpu"):
     flow = flow if flow is not None else make_realnvp(DIM, 2, 2, device="cpu")
     model = types.SimpleNamespace(flow=flow, target=target if target is not None else _gmm(),
                                   loss_type=loss_type)
-    return types.SimpleNamespace(model=model, device=torch.device("cpu"))
+    return types.SimpleNamespace(model=model, device=torch.device(device))
 
 
 class _StochasticFlow(nn.Module):
     is_stochastic = True
 
 
-def _refused_cases():
-    spline_flow = nn.ModuleList([PeriodicShift(DIM, [0], 0.5, device="cpu")])
-    lars = nn.ModuleList([ResampledGaussianBase(DIM, hidden_units=8, T=4, n_z_points=8,
+def _spline_flow():
+    return nn.ModuleList([PeriodicShift(DIM, [0], 0.5, device="cpu")])
+
+
+def _lars_flow():
+    return nn.ModuleList([ResampledGaussianBase(DIM, hidden_units=8, T=4, n_z_points=8,
                                                 device="cpu")])
+
+
+def _on_mesh(monkeypatch, n_model, backend):
+    """An active (1 or 2) x ``n_model`` mesh whose process group runs ``backend``."""
+    monkeypatch.setattr(mesh, "active_mesh", lambda: mesh.Mesh(2 // n_model, 0, n_model))
+    monkeypatch.setattr(graph.dist, "get_backend", lambda group=None: backend)
+
+
+def _refused(reason, monkeypatch):
+    if reason == "model_axis":
+        _on_mesh(monkeypatch, 2, "gloo")
+        return _stub_trainer()
+    if reason == "gloo_on_card":
+        _on_mesh(monkeypatch, 1, "gloo")
+        return _stub_trainer(device="cuda")
     return {
-        "host_cpp": _stub_trainer(target=types.SimpleNamespace(backend="host_cpp")),
-        "wrappers": _stub_trainer(flow=WrappedModuleFlow(nn.Linear(DIM, DIM), DIM)),
-        "snf": _stub_trainer(flow=_StochasticFlow()),
-        "lars": _stub_trainer(flow=lars),
-        "splines": _stub_trainer(flow=spline_flow),
-        "rejection": _stub_trainer(target=ManyWellEnergy(4, device="cpu"),
-                                   loss_type="target_forward_kl"),
-    }
+        "host_cpp": lambda: _stub_trainer(target=types.SimpleNamespace(backend="host_cpp")),
+        "wrappers": lambda: _stub_trainer(flow=WrappedModuleFlow(nn.Linear(DIM, DIM), DIM)),
+        "rejection": lambda: _stub_trainer(target=ManyWellEnergy(4, device="cpu"),
+                                           loss_type="target_forward_kl"),
+    }[reason]()
 
 
-@pytest.mark.parametrize("reason", ["mesh", "host_cpp", "wrappers", "snf", "lars", "splines",
-                                    "rejection"])
+@pytest.mark.parametrize("reason", ["host_cpp", "wrappers", "rejection", "model_axis",
+                                    "gloo_on_card"])
 def test_graph_supported_gives_each_refusal_its_reason(reason, monkeypatch):
-    if reason == "mesh":
-        monkeypatch.setattr(mesh, "active_mesh", lambda: object())
-        trainer = _stub_trainer()
-    else:
-        trainer = _refused_cases()[reason]
+    trainer = _refused(reason, monkeypatch)
     assert graph.graph_supported(trainer) == (False, graph.REFUSED[reason])
     with pytest.raises(ValueError, match="no compiled step"):
         graph.StepProgram(trainer, BATCH)
 
 
-def test_graph_supported_admits_the_slices_paths():
-    for trainer in (_stub_trainer(), _stub_trainer(target=ManyWellEnergy(4, device="cpu")),
-                    _stub_trainer(loss_type="target_forward_kl")):
-        supported, reason = graph.graph_supported(trainer)
-        assert supported and "no CUDA graph on cpu" in reason
+@pytest.mark.parametrize("case", ["gmm", "many_well", "forward_kl", "splines", "lars", "snf",
+                                  "data_mesh_gloo_cpu", "data_mesh_nccl_card"])
+def test_graph_supported_admits_the_slices_paths(case, monkeypatch):
+    """The plain, ManyWell and forward-KL paths, the spline flows, the LARS base, an
+    SNF and a data mesh (n_model 1) under gloo on the CPU or NCCL on the card."""
+    if case.startswith("data_mesh"):
+        card = case.endswith("card")
+        _on_mesh(monkeypatch, 1, "nccl" if card else "gloo")
+        trainer = _stub_trainer(device="cuda" if card else "cpu")
+    else:
+        trainer = {
+            "gmm": lambda: _stub_trainer(),
+            "many_well": lambda: _stub_trainer(target=ManyWellEnergy(4, device="cpu")),
+            "forward_kl": lambda: _stub_trainer(loss_type="target_forward_kl"),
+            "splines": lambda: _stub_trainer(flow=_spline_flow()),
+            "lars": lambda: _stub_trainer(flow=_lars_flow()),
+            "snf": lambda: _stub_trainer(flow=_StochasticFlow()),
+        }[case]()
+    supported, reason = graph.graph_supported(trainer)
+    assert supported
+    if case == "data_mesh_nccl_card":
+        assert reason == ("captured as a CUDA graph on cuda, its nccl collectives over 2 "
+                          "data ranks within, replayed")
+    else:
+        assert "no CUDA graph on cpu" in reason
+        assert ("gloo collectives" in reason) == case.startswith("data_mesh")
 
 
 def test_run_of_a_refused_configuration_takes_the_eager_step(monkeypatch, capsys):

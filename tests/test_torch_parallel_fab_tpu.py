@@ -4,7 +4,9 @@ JAX; ``tests/test_torch_parallel.py`` holds the set-up helpers and the ranks aga
 one process).
 
 - A 4-rank port step against ``fab_tpu``'s step on a 4-device mesh (the virtual CPU
-  devices of ``tests/test_sharding.py``), on replayed noise, at f64 to 1e-8.
+  devices of ``tests/test_sharding.py``), on replayed noise, at f64 to 1e-8; the
+  compiled step on 2 ranks against eager steps (bitwise) and against ``fab_tpu``'s
+  step on a 2-device mesh (1e-8).
 - ``run_gmm`` / ``run_many_well`` with ``mesh.n_data=2`` under a launcher's
   variables for 2 iterations: only rank 0 writes, and its checkpoint resumes in one
   process to the 2-rank run's next step.
@@ -137,6 +139,30 @@ def test_four_rank_step_equals_fab_tpu_on_a_four_device_mesh(tmp_path):
                 buffer=to_np(buffer_j)._asdict())
     _check_against_fab_tpu(workers.run_ranks("replayed_step", 4, args, str(tmp_path)),
                            new_j, info_j, names)
+
+
+def test_two_rank_compiled_step_equals_fab_tpu_on_a_two_device_mesh(tmp_path):
+    """The compiled step under a 2-rank gloo data mesh (no CUDA graph on the CPU: the
+    program's static tensors and noise tape, its collectives run in each call). On
+    the ranks, 3 ``make_train_step`` calls and one ``make_scanned_train_step(b, 3)``
+    equal 3 eager steps from one seed bit for bit; one ``make_train_step`` call on
+    replayed noise equals ``fab_tpu``'s jitted step on a (2, 1) mesh to 1e-8."""
+    with jax.enable_x64():
+        trainer_j, state_j, key, noise, names = _fab_tpu_setup()
+        with jax_use_mesh(jax_make_mesh(2, 1, devices=jax.devices("cpu")[:2])):
+            new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(REPLAY["batch"]))(
+                state_j, key))
+    params, buffer_j = state_j.params, state_j.buffer_state
+    args = dict(REPLAY, noise=noise, transition=dict(params["transition"]),
+                flow={k: v.numpy() for k, v in from_jax_params(params["flow"]).items()},
+                buffer=to_np(buffer_j)._asdict())
+    results = workers.run_ranks("compiled_step", 2, args, str(tmp_path))
+    for result in results:
+        assert result["bitwise"] == {"step": True, "scanned": True}, result["bitwise"]
+        supported, reason = result["supported"]
+        assert supported and "gloo collectives over 2 data ranks" in reason, reason
+        assert result["replays"] == 1 and not result["has_graph"]
+    _check_against_fab_tpu(results, new_j, info_j, names)
 
 
 def test_fab_tpu_checkpoint_resumes_on_two_ranks(tmp_path):

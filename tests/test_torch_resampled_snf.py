@@ -17,7 +17,9 @@ fab_tpu (CPU), on shared parameters and replayed JAX noise.
 - ``convert`` round trips of a LARS flow and an SNF.
 - Whole f64 steps with the noise held per role: ``PrioritisedBufferTrainer``,
   ``BufferTrainer`` and ``Trainer`` with an SNF (1e-8; a log-q call that drew a key
-  of its own fails the keyed replay), and ``Trainer`` with a LARS base.
+  of its own fails the keyed replay), and ``Trainer`` with a LARS base; each eager,
+  through ``make_train_step`` (against fab_tpu's jitted step) and through
+  ``make_scanned_train_step`` (against its ``lax.scan``).
 
 Tolerances: f64 1e-10 per function, 1e-8 per whole step; f32 1e-5.
 """
@@ -408,20 +410,47 @@ def _many_well_snf():
     return (flow_j, params, flow), (target_j, target)
 
 
+# Each whole-step test runs eagerly and compiled: through ``make_train_step`` against
+# fab_tpu's jitted step, and through ``make_scanned_train_step`` against its scan.
+COMPILED = pytest.mark.parametrize("compiled", [None, "step", "scanned"],
+                                   ids=["eager", "step", "scanned"])
+
+
+@COMPILED
 @pytest.mark.parametrize("adjust_after", [False, True], ids=["on_the_fly", "adjust_after"])
-def test_prioritised_trainer_step_with_snf_matches_fab_tpu(adjust_after, monkeypatch):
+def test_prioritised_trainer_step_with_snf_matches_fab_tpu(adjust_after, monkeypatch,
+                                                            compiled):
     """ManyWell-4, 2 couplings and 2 MH layers of 2 steps, batch 8: one key per AIS
     pass and one per replay batch (probe, loss and adjustment) replayed; every buffer
     field, parameter and Adam moment to 1e-8."""
     flow_pair, targets = _many_well_snf()
     check_train_step(monkeypatch, flow_pair, targets, 4, 8, 2, n_batches=2,
-                     hmc_kw=STEP_HMC,
+                     hmc_kw=STEP_HMC, compiled=compiled,
                      trainer_kw=dict(w_adjust_in_buffer_after_update=adjust_after))
 
 
-def _trainer_step(monkeypatch, flow_pair, targets, dim, batch, keys_fn, tol=1e-8):
+def _jax_step(trainer_j, state_j, batch, key, compiled):
+    """fab_tpu's step from ``state_j`` on ``key``: jitted, or (``compiled`` "scanned")
+    its ``lax.scan`` of one step; (its new state and info, the step's own key)."""
+    if compiled == "scanned":
+        out = trainer_j.make_scanned_train_step(batch, 1)(state_j, key)
+        return to_np(out), jax.random.split(key, 1)[0]
+    return to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key)), key
+
+
+def _port_step(trainer, state, batch, compiled):
+    """The port's step on replayed noise: eager, or through the compiled step."""
+    if compiled == "step":
+        return trainer.make_train_step(batch)(state, None)
+    if compiled == "scanned":
+        return trainer.make_scanned_train_step(batch, 1)(state, None)
+    return trainer.train_step(state, None, batch)
+
+
+def _trainer_step(monkeypatch, flow_pair, targets, dim, batch, keys_fn, compiled, tol=1e-8):
     """One f64 ``Trainer`` step (fab_alpha_div, HMC AIS) against fab_tpu's on
-    replayed noise; ``keys_fn(key)`` gives the replayed log-q keys."""
+    replayed noise (``_jax_step``, ``_port_step``); ``keys_fn(key)`` gives the
+    replayed log-q keys."""
     flow_j, params, flow = flow_pair
     target_j, target = targets
     with jax.enable_x64():
@@ -430,8 +459,8 @@ def _trainer_step(monkeypatch, flow_pair, targets, dim, batch, keys_fn, tol=1e-8
         trans_j = to_np(model_j.ais.transition_operator.init_state(dim, jnp.float64))
         state_j = JaxTrainState({"flow": params, "transition": trans_j},
                                 trainer_j.optimizer.init(params), jnp.zeros((), jnp.int32))
-        key = jax.random.key(14)
-        new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key))
+        (new_j, info_j), key = _jax_step(trainer_j, state_j, batch, jax.random.key(14),
+                                         compiled)
         noise = ais_noise(key, 2, 1, batch, dim, jnp.float64, flow=flow_j)
         keys = keys_fn(key)
     model = FABModel.create(flow, target, HamiltonianMonteCarlo(**STEP_HMC), 2)
@@ -439,7 +468,7 @@ def _trainer_step(monkeypatch, flow_pair, targets, dim, batch, keys_fn, tol=1e-8
     state = TrainState(transition_state_from_jax(trans_j),
                        trainer.optimizer.init(trainer.params), 0)
     replay = NoiseReplay(monkeypatch, noise, keys)
-    new, info = trainer.train_step(state, None, batch)
+    new, info = _port_step(trainer, state, batch, compiled)
     replay.assert_consumed()
     expected = from_jax_params(new_j.params["flow"])
     for name, value in flow.state_dict().items():
@@ -457,17 +486,19 @@ def _trainer_step(monkeypatch, flow_pair, targets, dim, batch, keys_fn, tol=1e-8
     assert bool(info["update_applied"]) and float(info["loss"]) != 0.0
 
 
-def test_trainer_step_with_snf_matches_fab_tpu(monkeypatch):
+@COMPILED
+def test_trainer_step_with_snf_matches_fab_tpu(monkeypatch, compiled):
     """The AIS pass's key (fold_in 0x10C9) and the loss re-evaluation's (0x11A7)."""
     flow_pair, targets = _many_well_snf()
     flow_j = flow_pair[0]
     _trainer_step(monkeypatch, flow_pair, targets, 4, 8, lambda key: [
         snf_log_prob_noise(flow_j, jax.random.fold_in(key, 0x10C9), (8, 4), jnp.float64),
         snf_log_prob_noise(flow_j, jax.random.fold_in(key, 0x11A7), (8, 4), jnp.float64),
-    ])
+    ], compiled)
 
 
-def test_trainer_step_with_a_lars_base_matches_fab_tpu(monkeypatch):
+@COMPILED
+def test_trainer_step_with_a_lars_base_matches_fab_tpu(monkeypatch, compiled):
     """A RealNVP over the LARS base (acceptance net perturbed, T = 10): the base's
     rejection rounds in the flow draw, a(z) in every log q."""
     dim = 4
@@ -481,10 +512,11 @@ def test_trainer_step_with_a_lars_base_matches_fab_tpu(monkeypatch):
     flow.load_state_dict(from_jax_params(params))
     _trainer_step(monkeypatch, (flow_j, params, flow),
                   (target_j, ManyWellEnergy(dim, device="cpu")), dim, 16,
-                  lambda key: [])
+                  lambda key: [], compiled)
 
 
-def test_buffer_trainer_step_with_snf_matches_fab_tpu(monkeypatch):
+@COMPILED
+def test_buffer_trainer_step_with_snf_matches_fab_tpu(monkeypatch, compiled):
     """``BufferTrainer``: one key for the AIS pass, one for the AIS batch's update
     and one per replay batch (its probe and its loss)."""
     (flow_j, params, flow), (target_j, target) = _many_well_snf()
@@ -505,8 +537,8 @@ def test_buffer_trainer_step_with_snf_matches_fab_tpu(monkeypatch):
         state_j = JaxBufferTrainState({"flow": params, "transition": trans_j},
                                       trainer_j.optimizer.init(params), buffer_j,
                                       jnp.zeros((), jnp.int32))
-        key = jax.random.key(17)
-        new_j, info_j = to_np(jax.jit(trainer_j._train_step_fn(batch))(state_j, key))
+        (new_j, info_j), key = _jax_step(trainer_j, state_j, batch, jax.random.key(17),
+                                         compiled)
         key_ais, key_sample = jax.random.split(key)
         noise = ais_noise(key_ais, 2, 1, batch, dim, jnp.float64, flow=flow_j)
         replay_keys = jax.random.split(key_sample, n_batches)
@@ -523,7 +555,7 @@ def test_buffer_trainer_step_with_snf_matches_fab_tpu(monkeypatch):
         transition_state_from_jax(trans_j), trainer.optimizer.init(trainer.params),
         type(trainer.buffer.init(F64))(*[torch.tensor(np.asarray(v)) for v in buffer_np]), 0)
     replay = NoiseReplay(monkeypatch, noise, keys)
-    new, info = trainer.train_step(state, None, batch)
+    new, info = _port_step(trainer, state, batch, compiled)
     replay.assert_consumed()
     expected = from_jax_params(new_j.params["flow"])
     for name, value in flow.state_dict().items():

@@ -356,14 +356,11 @@ def task_units(args):
     return out
 
 
-def task_replayed_step(args):
-    """One PrioritisedBufferTrainer step on replayed noise from a shared state
-    (the buffer given in the one-process layout; the flow split over the mesh's
-    model axis, if it has one), as ``tests/torch_parity_utils.py``'s
-    ``check_train_step`` sets it up, or from ``args["checkpoint"]`` (``load_state``);
-    with ``args["save"]`` the state after the step is saved there as a pickle
-    checkpoint."""
-    from fab_tpu_torch import random as port_random
+def _replayed_trainer(args):
+    """The trainer and state of ``task_replayed_step``: set up as
+    ``tests/torch_parity_utils.py``'s ``check_train_step`` sets it up (the buffer
+    given in the one-process layout; the flow split over the mesh's model axis, if it
+    has one), or from ``args["checkpoint"]`` (``load_state``)."""
     from fab_tpu_torch.buffer import PrioritisedBufferState, PrioritisedReplayBuffer
     from fab_tpu_torch.flows import make_realnvp
     from fab_tpu_torch.model import FABModel
@@ -396,7 +393,15 @@ def task_replayed_step(args):
             transition_state={k: torch.as_tensor(v) for k, v in args["transition"].items()},
             opt_state=trainer.optimizer.init(trainer.params),
             buffer_state=buffer.scatter(full), step=0)
-    queues = {kind: list(values) for kind, values in args["noise"].items()}
+    return trainer, state
+
+
+def _replay_noise(noise):
+    """The port's draws replaced by ``noise``'s arrays, in call order (at the global
+    shape: every rank draws them all); returns the queues, to check they are used."""
+    from fab_tpu_torch import random as port_random
+
+    queues = {kind: list(values) for kind, values in noise.items()}
 
     def replay(kind):
         def draw(generator, shape, dtype, device):
@@ -407,12 +412,61 @@ def task_replayed_step(args):
 
     for kind in queues:
         setattr(port_random, kind, replay(kind))
-    state, info = trainer.train_step(state, None, batch)
+    return queues
+
+
+def task_replayed_step(args):
+    """One PrioritisedBufferTrainer step (``_replayed_trainer``) on replayed noise;
+    with ``args["save"]`` the state after the step is saved there as a pickle
+    checkpoint."""
+    trainer, state = _replayed_trainer(args)
+    queues = _replay_noise(args["noise"])
+    state, info = trainer.train_step(state, None, args["batch"])
     assert not any(queues.values()), {k: len(v) for k, v in queues.items()}
     if "save" in args:
         trainer.checkpoints_dir = args["save"]
         trainer.save_checkpoint(state, state.step)
     return summary(trainer, state, info)
+
+
+def _same(a, b) -> bool:
+    """Two summaries equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(a, b, equal_nan=np.asarray(a).dtype.kind == "f")
+
+
+def task_compiled_step(args):
+    """The compiled step on the mesh, from ``_replayed_trainer``'s state: 3 eager
+    ``train_step`` calls, 3 ``make_train_step`` calls and one
+    ``make_scanned_train_step(b, 3)`` from one seed (whether the three summaries are
+    equal bit for bit), then one ``make_train_step`` call of a fresh trainer on the
+    replayed noise (its summary, against ``fab_tpu``'s step)."""
+    from fab_tpu_torch import graph
+
+    batch = args["batch"]
+    runs = {}
+    for mode in ("eager", "step", "scanned"):
+        trainer, state = _replayed_trainer(args)
+        gen = torch.Generator().manual_seed(7)
+        if mode == "scanned":
+            state, info = trainer.make_scanned_train_step(batch, 3)(state, gen)
+        else:
+            step = (trainer.make_train_step(batch) if mode == "step"
+                    else lambda s, g: trainer.train_step(s, g, batch))
+            for _ in range(3):
+                state, info = step(state, gen)
+        runs[mode] = summary(trainer, state, info)
+    trainer, state = _replayed_trainer(args)
+    queues = _replay_noise(args["noise"])
+    state, info = trainer.make_train_step(batch)(state, None)
+    assert not any(queues.values()), {k: len(v) for k, v in queues.items()}
+    program = trainer._program(batch)
+    return dict(summary(trainer, state, info), supported=graph.graph_supported(trainer),
+                replays=program.replays, has_graph=program.graph is not None,
+                bitwise={mode: _same(runs["eager"], runs[mode]) for mode in ("step", "scanned")})
 
 
 class _WriteLog:
