@@ -59,7 +59,8 @@ Phases:
      bins, HMC 8 x 4 leapfrog steps of 0.1, batch 1024, buffer 512 / 8 batches, 8
      replay updates, the chirality filter, cosine schedule with 1000 warm-up
      updates), f32, cut in length only (ALDP_CUTS, printed): the model built
-     directly (minimisation, test set, init_state and ALDP_STEPS (2) steps timed, the LR of
+     directly (minimisation, cut to MINIMISE_STEPS (2000 of 4000), test set,
+     init_state and ALDP_STEPS (2) steps timed, the LR of
      every update printed, a profiled step), then the runner for 3 iterations with
      one eval and the final evaluation, and its resume for one iteration.
  12. The resampled (LARS) base and stochastic normalizing flows, f32/f64 as each
@@ -68,14 +69,14 @@ Phases:
      1024 points; 12 spline blocks of width 256, 8 bins; HMC 8 x 4; batch 1024;
      prioritised buffer; the chirality filter) and aldp_snf.yaml (the same flow over
      the gauss-uni base with 3 MH layers of the vacuum force field, their steps cut
-     10 -> SNF_MH_STEPS (5), so 15 target evaluations inside every log q) through
+     10 -> SNF_MH_STEPS (1), so 3 target evaluations inside every log q) through
      run_aldp: init_state (their buffers start empty) and 2 compiled steps, each
      call of the compiled step timed (the first with its build), one eval (the SNF
      1 step and none: SNF_CUTS), the final evaluation, a profiled eager step (not the
      SNF's, cut: phase 19 profiles a replay of its captured step), and the LARS
      acceptance (Z and the mean a(z)); aldp_ml.yaml
      (vacuum, ML) for 2 iterations between them. The three share phase 11's
-     minimised reference frame (no second 4000-step minimisation) and rbd's vacuum
+     minimised reference frame (no second minimisation) and rbd's vacuum
      test set. Then GMM-40 through run_gmm on gmm.yaml with
      flow.resampled_base=true and with flow.use_snf=true (5 MH layers of one step
      of 5.0): 5 iterations, one eval, 5 timed steps, one more with CUDA's sync
@@ -84,10 +85,17 @@ Phases:
  13. (a) The host C++ energy server (system.backend: host_cpp) against the torch
      force field on the card (1024 test-set positions of phase 11, implicit
      solvent, f64), then aldp.yaml (phase 11's cuts and reference frame) on the jax
-     (on-device) backend and on host_cpp: init_state, 3 timed steps each, taken in
-     turns (HOST_ORDER: 1 each), and a profiled one: median step, device busy, device ops
-     and server calls per step. (b) profile_aldp at batch 1024 on both backends, its repeats
-     cut to 2 (printed). (c) evaluate.py on phase 9's GMM-40 checkpoint and phase
+     (on-device) backend and on host_cpp: init_state, eager steps taken in turns
+     (HOST_ORDER: 1 each), and a profiled eager host_cpp step (the jax one cut: phase
+     11 profiles it): median step, device busy, device ops and server calls per step.
+     Then the compiled host_cpp step (a CUDA graph with one host node and three copies
+     per server call) against its eager twin, bitwise (graph_turns, HOST_GRAPH_TURNS:
+     1 each, cut from 2, printed), and the compiled jax and host_cpp steps in turns
+     (HOST_COMPILED_ORDER):
+     median step, busy share, server calls and host nodes per step.
+     (b) profile_aldp at batch 1024 on both backends, its repeats cut to
+     PROFILE_REPEATS (1) and its warm-up calls to PROFILE_WARMUP (1; printed).
+     (c) evaluate.py on phase 9's GMM-40 checkpoint and phase
      12's as rsb_* and snf_*, and on the LGCP-1600 flow of phases 6-7 with
      flow.fused_coupling=true (K2 launches counted, > 0 asserted);
      evaluate_expectation.py on the GMM-40 checkpoint (20 repeats of 100);
@@ -115,7 +123,8 @@ Phases:
  15. (a) The mesh's model axis on the card: two processes of this script
      (--model-axis-rank, a gloo group on tcp://127.0.0.1:<free port>: gloo carries
      the CUDA tensors through the host) form a (1, 2) grid. Each runs ManyWell-32 at
-     phase 3's widths, f64 (MA_DTYPE), init_state (one batch) and MA_STEPS (2) steps,
+     phase 3's widths, f64 (MA_DTYPE), init_state (one batch) and MA_STEPS (1; 2
+     before the cut, printed) steps,
      with the plain flow
      Megatron-split (H = 320 -> 160 per rank) and with the fused flow, whose K1
      takes the gathered weights, while this process runs both from the same seeds
@@ -154,8 +163,9 @@ Phases:
  17. The experiments/*.sh studies as the port's modules (fab_tpu_torch/experiments/
      <stem>.py; PHASE17_BUDGET_S 150 s, the phase prints its wall time): (a) each
      one's --dry-run lists its script's cell count; (b) one cell of each training
-     study runs through its runner's subprocess on the card, cut in length only
-     (STUDY_CUTS, printed: 2 iterations, one eval, one checkpoint): exit 0, its
+     study runs through its runner's subprocess on the card, the six at once, cut
+     in length only (STUDY_CUTS, printed: 2 iterations, one eval, one checkpoint):
+     exit 0, its
      checkpoint written, its CSV finite (MAY_BE_INFINITE aside); (c)
      eval_gmm_study on the two gmm_study runs (samples cut to GMM_STUDY_EVAL_N) and
      the unchanged experiments/latex_table.py's table; (d) eval_lgcp_trajectory on
@@ -195,17 +205,23 @@ Phases:
      one profiled replay's busy share; the state within
      relative 1e-5 (f32) / 1e-12 (f64), bitwise equality printed. Then the compiled
      fill against the eager fill from one seed, buffers and transition states
-     compared, each fill's seconds: aldp.yaml (its buffer's minimum cut 64 -> 4
-     batches, FILL_BATCHES, printed) and ManyWell-32 (4 passes, 22 K1 launches
-     captured per pass).
+     compared, each fill's seconds: aldp.yaml (its buffer's minimum cut 64 -> 1
+     batch, FILL_BATCHES, printed) and ManyWell-32 (4 passes, 22 K1 launches
+     captured per pass). Then the paths that draw on the host (random.host_draw, in
+     the noise pass before each replay), each against its eager twin in turns (3
+     each), bitwise: ManyWell-32 target_forward_kl (many_well.yaml's fused flow, no
+     AIS, its 16 wells' rejection sampling one host draw; K1's one launch and one
+     recompute per captured step, its kernel node in the graph), a RealNVP over a
+     WrappedTorchDist target and a WrappedModuleFlow over GMM-40 (f64, batch 128).
+     PHASE19_TURNS cut aldp.yaml's and aldp_rbd's turns 2 -> 1 (printed).
   Every buffer trainer's init_state fills through a captured fill pass (phases 3 and
   6 assert its counts: 22 K1 / 336 K2 launches per replayed pass, the wrappers
   counting the warm-up pass and the capture). The runs of phases 7, 9-12, 14's
   launcher, 16(a) and 17(b) go through the compiled step (run prints "train step:
   compiled (...)", run_ml_training "ml step: compiled (...)"); phases 11-12 time the
-  compiled step's calls, and their profiled steps are eager. Phase 13's host_cpp
-  trainer and phase 15 keep the eager step, for the reason graph_supported prints
-  (host_cpp, the model axis, the wrappers). The runner, ALDP, LARS and SNF paths
+  compiled step's calls, and their profiled steps are eager. Phase 15(a) keeps the
+  eager step, for the reason graph_supported prints (the model axis); phase 15(b)
+  and 13(a)'s first turns call train_step eagerly. The runner, ALDP, LARS and SNF paths
   launch no kernel (fab_tpu's runners build no fused flow; K2 is reached through
   flow.fused_coupling=true on lgcp.yaml, phases 6-7; the ALDP flow is a spline
   chain; the LARS and SNF flows are unfused): their counts are zeroed before and
@@ -220,6 +236,7 @@ import collections
 import concurrent.futures
 import contextlib
 import csv
+import io
 import json
 import math
 import os
@@ -861,6 +878,11 @@ def many_well_runner(card, tmp):
 # (priority -inf, masked out of the loss), which cost the same flow passes as
 # written ones.
 ALDP_STEPS = 2  # phase 11's timed steps of the model built directly
+# The reference frame's gradient descent (AldpBoltzmann's 4000 steps), cut in length:
+# each step is a few hundred launches on the card; the later phases only need a
+# relaxed frame, not the deepest one.
+MINIMISE_STEPS_BEFORE = 4000
+MINIMISE_STEPS = 2000
 ALDP_GROUPS = {"GEMMs": ["gemm", "cutlass", "sm90_xmma"], "reductions": ["reduce"],
                "gather / scatter": ["index", "gather", "scatter"]}
 ALDP_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=0",
@@ -894,12 +916,17 @@ def aldp_path(device, gen, card, tmp):
     cosine schedule with warm-up), f32: the model built directly for timing, counting
     and profiling; then the runner, its resume and the ML variant. No kernel runs on
     this path (asserted)."""
+    import functools
+    from unittest import mock
+
     import numpy as np
     import torch
 
     from fab_tpu_torch.buffer import PrioritisedReplayBuffer
+    from fab_tpu_torch.experiments import make_aldp_model as aldp_model_module
     from fab_tpu_torch.experiments import run_aldp
     from fab_tpu_torch.experiments.make_aldp_model import make_aldp_model
+    from fab_tpu_torch.targets.aldp import AldpBoltzmann
     from fab_tpu_torch.experiments.setup_run import setup_precision
     from fab_tpu_torch.train import PrioritisedBufferTrainer
     from fab_tpu_torch.utils.training import apply_overrides, load_config
@@ -915,12 +942,16 @@ def aldp_path(device, gen, card, tmp):
     _zero_counts()
     torch.cuda.reset_peak_memory_stats()
 
-    # The model, its reference configuration by 4000 steps of gradient descent, the
-    # test set by HMC, then init_state and 5 steps, each timed.
+    # The model, its reference configuration by MINIMISE_STEPS steps of gradient
+    # descent, the test set by HMC, then init_state and ALDP_STEPS steps, each timed.
     setup_precision(cfg)
+    print(f"[{card}] aldp.yaml cut (length only): the reference frame's minimisation "
+          f"{MINIMISE_STEPS_BEFORE} -> {MINIMISE_STEPS} steps of gradient descent")
     torch.cuda.synchronize()
     t0 = time.time()
-    model, target = make_aldp_model(cfg, torch.float32, device)
+    with mock.patch.object(aldp_model_module, "AldpBoltzmann",
+                           functools.partial(AldpBoltzmann, minimise_steps=MINIMISE_STEPS)):
+        model, target = make_aldp_model(cfg, torch.float32, device)
     torch.cuda.synchronize()
     minimise_s = time.time() - t0
     ref_path = os.path.join(tmp, "aldp_reference.npy")
@@ -931,7 +962,8 @@ def aldp_path(device, gen, card, tmp):
     test_set_s = time.time() - t0
     assert z_test.shape == (int(t.n_test_samples), 60) and np.isfinite(z_test).all()
     np.save(os.path.join(root, "test_set.npy"), z_test)
-    print(f"[{card}] ALDP set-up: target with its 4000-step minimisation {minimise_s:.2f} s; "
+    print(f"[{card}] ALDP set-up: target with its {MINIMISE_STEPS}-step minimisation "
+          f"{minimise_s:.2f} s; "
           f"test set ({len(z_test)} rows, {t.test_mcmc_steps} HMC sweeps of 10 leapfrog "
           f"steps) {test_set_s:.2f} s")
 
@@ -1044,10 +1076,12 @@ LARS_SNF_CUTS = ["training.max_iter=2", "training.replay_buffer.min_length=0",
 # The SNF's step takes ~30 s eager and its build ~130 s (capture and instantiation of
 # ~1.5M kernel nodes at aldp_snf.yaml's 10 MH steps a layer), so it runs 1 iteration,
 # its MH layers take SNF_MH_STEPS steps each (depth: the 3 layers, their places and
-# proposal scale stay), and it leaves out the trainer's eval: two more AIS passes
-# whose only output on ALDP is two ESS values (the target has no eval metrics of its
-# own; the final evaluation runs). GMM-40 with flow.use_snf=true runs an eval.
-SNF_MH_STEPS = 5
+# proposal scale stay; 5 until the host-drawn paths of phases 13 and 19 came, then 3
+# until the smoke took 1430 s on a slow host), and it
+# leaves out the trainer's eval: two more AIS passes whose only output on ALDP is two
+# ESS values (the target has no eval metrics of its own; the final evaluation runs).
+# GMM-40 with flow.use_snf=true runs an eval.
+SNF_MH_STEPS = 1
 SNF_CUTS = (["training.max_iter=1", f"flow.snf.steps={SNF_MH_STEPS}"] + LARS_SNF_CUTS[1:5]
             + ["training.n_eval=0"] + LARS_SNF_CUTS[6:])
 
@@ -1292,8 +1326,10 @@ def lars_snf_path(device, gen, card, tmp):
 # ------------------------------------- host C++ server, profiler, evaluation, sampling
 
 # aldp.yaml's phase-13 steps and profile: cut in length only, as phase 11 (ALDP_CUTS);
-# the profiler's repeats cut from 20 (10 for the train step) to PROFILE_REPEATS.
+# the profiler's repeats cut from 20 (10 for the train step) to PROFILE_REPEATS, its
+# warm-up calls from 3 to PROFILE_WARMUP.
 PROFILE_REPEATS = 1
+PROFILE_WARMUP = 1
 # aldp.yaml's steps on the two backends, one each.
 HOST_ORDER = ("jax", "host_cpp")
 ALDP_BATCH = 1024  # aldp.yaml's
@@ -1403,44 +1439,113 @@ def host_cpp_path(device, gen, card, tmp) -> dict:
         run["steps_ms"].append((time.time() - t0) * 1e3)
         run["calls"].append(AldpEnergyServer.calls - before)
         assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0, backend
+    print(f"[{card}] 13(a) cut: no profiled eager step on the jax backend (phase 11 "
+          "profiles the same aldp.yaml eager step)")
     for backend, run in runs.items():
         label = f"ALDP-{backend}"
         steady = statistics.median(run["steps_ms"])
-        before = AldpEnergyServer.calls
-        _, busy, _, n_ops = _profile_step(run["trainer"], run["state"], gen, run["batch"],
-                                          steady, card, label, ALDP_GROUPS)
-        run["calls"].append(AldpEnergyServer.calls - before)
+        busy = n_ops = None
+        if backend == "host_cpp":
+            before = AldpEnergyServer.calls
+            _, busy, _, n_ops = _profile_step(run["trainer"], run["state"], gen, run["batch"],
+                                              steady, card, label, ALDP_GROUPS)
+            run["calls"].append(AldpEnergyServer.calls - before)
         print(f"[{card}] {label} (aldp.yaml, system.backend={backend}): init_state "
-              f"{run['init_s']:.2f} s; train step median {steady:.1f} ms over "
+              f"{run['init_s']:.2f} s; eager train step median {steady:.1f} ms over "
               f"{len(run['steps_ms'])} steps taken in turns with the other backend (all: "
               f"{', '.join(f'{v:.1f}' for v in run['steps_ms'])}), "
-              f"{run['batch'] / steady * 1e3:.1f} AIS samples/s; device busy {busy:.1%} of "
-              f"the median step, {n_ops} device ops per step; server calls per step "
-              f"{run['calls']}")
+              f"{run['batch'] / steady * 1e3:.1f} AIS samples/s"
+              + (f"; device busy {busy:.1%} of the median step, {n_ops} device ops per step"
+                 if busy is not None else "")
+              + f"; server calls per step {run['calls']}")
         out[backend] = {"steady_ms": steady, "steps_ms": run["steps_ms"], "busy": busy,
                         "device_ops": n_ops, "server_calls_per_step": run["calls"][-1],
                         "init_s": run["init_s"]}
+    out["compiled"] = compiled_host_turns(runs, card)
+    return out
+
+
+# 13(a)'s compiled host_cpp step against its eager twin, each (2 before the cut).
+HOST_GRAPH_TURNS = 1
+HOST_GRAPH_TURNS_BEFORE = 2
+HOST_COMPILED_ORDER = ("jax", "host_cpp", "host_cpp", "jax")
+
+
+def compiled_host_turns(runs, card) -> dict:
+    """13(a), compiled: aldp.yaml's host_cpp step as a CUDA graph with one host node
+    per server call against its eager twin, bitwise (graph_turns); then the compiled
+    jax and host_cpp steps in turns (HOST_COMPILED_ORDER): median step, server calls
+    and host nodes per step, each one profiled replay's busy share."""
+    import torch
+
+    from fab_tpu_torch.native import AldpEnergyServer
+
+    host, jax_run = runs["host_cpp"], runs["jax"]
+    batch = host["batch"]
+    print(f"[{card}] 13(a) cut: the compiled host_cpp step's turns against its eager twin "
+          f"{HOST_GRAPH_TURNS_BEFORE} -> {HOST_GRAPH_TURNS}")
+    out = {"host_cpp_vs_eager": graph_turns(
+        "ALDP-host_cpp", host["trainer"], host["state"], batch, 0.0, card, phase=13,
+        turns=HOST_GRAPH_TURNS, scanned=False, bitwise=True)}
+    steps = {b: runs[b]["trainer"].make_train_step(batch) for b in runs}
+    states = {b: _clone_state(runs[b]["state"]) for b in runs}
+    gens = {b: torch.Generator(device=runs[b]["trainer"].device).manual_seed(13) for b in runs}
+    t0 = time.time()
+    states["jax"], _ = steps["jax"](states["jax"], gens["jax"])  # its build
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    ms = {b: [] for b in runs}
+    for backend in HOST_COMPILED_ORDER:
+        calls = AldpEnergyServer.calls
+        torch.cuda.synchronize()
+        t0 = time.time()
+        states[backend], info = steps[backend](states[backend], gens[backend])
+        torch.cuda.synchronize()
+        ms[backend].append((time.time() - t0) * 1e3)
+        assert math.isfinite(float(info["loss"])) and int(info["n_valid"]) > 0, backend
+        assert AldpEnergyServer.calls == calls  # a replay reaches no host counter
+    medians = {b: statistics.median(v) for b, v in ms.items()}
+    busy = {"host_cpp": out["host_cpp_vs_eager"]["busy"]}
+    wall, by_name, _, _ = _device_events(lambda: steps["jax"](states["jax"], gens["jax"]))
+    busy["jax"] = sum(v[0] for v in by_name.values()) / medians["jax"]
+    programs = {b: runs[b]["trainer"]._program(batch) for b in runs}
+    per_step = {b: programs[b].captured_counts.get("server calls", 0) for b in runs}
+    nodes = {b: _graph_kernels(programs[b].graph)["host nodes"] for b in runs}
+    assert per_step["jax"] == nodes["jax"] == 0 and nodes["host_cpp"] == per_step["host_cpp"] > 0
+    print(f"[{card}] 13(a) compiled steps in turns {'/'.join(HOST_COMPILED_ORDER)} (aldp.yaml, "
+          f"batch {batch}; the jax program built in {build_s:.2f} s): host_cpp "
+          f"{', '.join(f'{v:.1f}' for v in ms['host_cpp'])} ms, jax "
+          f"{', '.join(f'{v:.1f}' for v in ms['jax'])} ms; median {medians['host_cpp']:.1f} / "
+          f"{medians['jax']:.1f} ms; device busy {busy['host_cpp']:.1%} / {busy['jax']:.1%} of "
+          f"the median; server calls per step {per_step['host_cpp']} / {per_step['jax']}, "
+          f"host nodes in the graph {nodes['host_cpp']} / {nodes['jax']}")
+    out.update(ms=ms, medians=medians, busy=busy, server_calls_per_step=per_step,
+               host_nodes=nodes, jax_build_s=build_s)
     return out
 
 
 def profile_aldp_path(device, card, tmp) -> dict:
     """13(b): profile_aldp on aldp.yaml at batch 1024 for both backends, its repeats
     cut (printed) and its buffer at one batch."""
+    from unittest import mock
+
     from fab_tpu_torch.experiments import profile_aldp
 
     print(f"[{card}] profile_aldp cut: --repeats {PROFILE_REPEATS} (the script's default "
-          f"20, 10 for the train step; its 3 warm-up calls kept) and "
-          f"training.replay_buffer.min_length=0 (aldp.yaml: 64); a full-length run is "
+          f"20, 10 for the train step), {PROFILE_WARMUP} warm-up call "
+          f"({profile_aldp.WARMUP}) and training.replay_buffer.min_length=0 (aldp.yaml: 64); "
+          "a full-length run is "
           "python3 -m fab_tpu_torch.experiments.profile_aldp [system.backend=host_cpp]")
     out = {}
     for backend in ("jax", "host_cpp"):
         t0 = time.time()
-        rows = profile_aldp.main([
+        with mock.patch.object(profile_aldp, "WARMUP", PROFILE_WARMUP):
+            rows = profile_aldp.main([
             "--config", os.path.join(CONFIGS, "aldp.yaml"), "--device", str(device),
             "--batch", str(ALDP_BATCH),
-            "--repeats", str(PROFILE_REPEATS), "training.replay_buffer.min_length=0",
-            f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}",
-            f"system.backend={backend}"])
+                "--repeats", str(PROFILE_REPEATS), "training.replay_buffer.min_length=0",
+                f"data.transform={os.path.join(tmp, 'aldp_reference.npy')}",
+                f"system.backend={backend}"])
         assert len(rows) == 9 and all(math.isfinite(s) and s > 0 for _, s, _ in rows), rows
         out[backend] = {name: s * 1e3 for name, s, _ in rows}
         print(f"[{card}] profile_aldp system.backend={backend}: {time.time() - t0:.1f} s")
@@ -1822,6 +1927,7 @@ def lgcp_run_entry(trainer, state, gen, card, log_dir):
     program = trainer._programs[LG_BATCH]
     assert program.replays == 2 and program.captured_counts == {
         "k1": 0, "k1_recomputes": 0, "k2": 400, "k2_recomputes": 360, "k2_rebuilds": 96,
+        "server calls": 0,
     }, (program.replays, program.captured_counts)
     with open(path) as f:
         rows = list(csv.DictReader(f))
@@ -1991,8 +2097,9 @@ def _summary_diff(a: dict, b: dict) -> dict:
     rel = lambda x, y: float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
     same = (all(torch.equal(a["flow"][k], v) for k, v in b["flow"].items())
             and all(torch.equal(a["transition"][k], v) for k, v in b["transition"].items()))
-    out = {"params": max(rel(a["flow"][k], v) for k, v in b["flow"].items()),
-           "step_sizes": max(rel(a["transition"][k], v) for k, v in b["transition"].items())}
+    out = {"params": max(rel(a["flow"][k], v) for k, v in b["flow"].items())}
+    if b["transition"]:  # a loss without AIS has no step sizes
+        out["step_sizes"] = max(rel(a["transition"][k], v) for k, v in b["transition"].items())
     if "log_w" in b:
         finite = torch.isfinite(b["log_w"])
         assert torch.equal(finite, torch.isfinite(a["log_w"])), "buffer finite patterns differ"
@@ -2228,7 +2335,8 @@ def _launcher_run(device, card, tmp) -> float:
 # the fused flow, whose K1 takes the gathered weights, then one LGCP-1600 step
 # through K2 on gathered weights. The LGCP buffer starts at one batch (lgcp.yaml's
 # 4096 rows cut to 512: the fill is not what this phase measures).
-MA_STEPS = 2
+MA_STEPS = 1
+MA_STEPS_BEFORE = 2
 MA_LG_BUFFER_MIN = LG_BATCH
 # Both flows run in many_well.yaml's float64 (K1 still computes in f32 inside and
 # casts back). In f32 the grid ends off one process after 3 steps on the card: the
@@ -2376,6 +2484,8 @@ def model_axis_path(device, card, tmp) -> dict:
     import torch
 
     t_phase = time.time()
+    print(f"[{card}] phase 15(a) cut: ManyWell-32 steps on the grid and alone "
+          f"{MA_STEPS_BEFORE} -> {MA_STEPS}")
     port, procs = _free_port(), []
     shapes = {k: globals()[k] for k in ("MW_DIM", "MW_LAYERS", "MW_NODES", "MW_BATCH",
                                          "LG_GRID", "LG_LAYERS", "LG_NODES", "LG_BATCH",
@@ -2911,9 +3021,6 @@ MAY_BE_INFINITE = ("w_adjust_min", "w_adjust_max", "_MSE_Z_estimate_min_var_targ
 
 def _quiet(fn, argv):
     """fn(argv) with its standard output captured: (result, the output)."""
-    import contextlib
-    import io
-
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         result = fn(argv)
@@ -2954,12 +3061,23 @@ def study_path(device, card, tmp) -> dict:
           + ", ".join(f"{m} {c}" for m, _, c, _ in STUDIES) + " cells")
     print(f"[{card}] phase 17(b) one cell per training study, cut (length only): "
           f"{' '.join(STUDY_CUTS)} (scripts: their budgets, evals and checkpoints); the "
-          "matmul cell's buffer fill also training.min_buffer_length=8192 (65536)")
+          "matmul cell's buffer fill also training.min_buffer_length=8192 (65536); the "
+          f"{len(STUDIES)} cells run at once, each its own process on the card")
     seconds = {}
-    for module, _, _, select in STUDIES:
+
+    def one(study):
+        module, _, _, select = study
         t0 = time.time()
-        results, out = _quiet(studies[module].main, [*dev, *select, *STUDY_CUTS])
+        results = studies[module].main([*dev, *select, *STUDY_CUTS])
         seconds[module] = time.time() - t0
+        return results
+
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            concurrent.futures.ThreadPoolExecutor(len(STUDIES)) as pool:
+        all_results = list(pool.map(one, STUDIES))
+    seconds["all"] = time.time() - t0
+    for (module, *_), results in zip(STUDIES, all_results):
         ((cell, rc),) = results
         if rc != 0:
             with open(os.path.join(root, "logs", f"{cell.log}.log")) as f:
@@ -2969,6 +3087,7 @@ def study_path(device, card, tmp) -> dict:
         ess = last.get("eval_ess_flow_p_target") or last["eval_ess_flow"]
         print(f"[{card}] phase 17(b) {module} {cell.name}: rc 0, {seconds[module]:.1f} s, "
               f"{len(rows)} CSV rows, eval ESS of the flow {float(ess):.4g}")
+    print(f"[{card}] phase 17(b) the {len(STUDIES)} cells at once: {seconds['all']:.1f} s")
 
     from fab_tpu_torch.experiments import eval_gmm_study
 
@@ -3158,7 +3277,8 @@ GRAPH_KERNELS = ("k1_tf32x3_chain", "k2_split_rows", "k2_tf32x3_dense", "k2_tf32
 def _graph_kernels(cuda_graph) -> dict:
     """The kernel nodes of a captured graph (kept: ``keep_graph=True``) by name, read
     through libcuda (cuGraphGetNodes, cuGraphKernelNodeGetParams_v2,
-    cuFuncGetName): {name: nodes} for GRAPH_KERNELS, and "kernel nodes" for all."""
+    cuFuncGetName): {name: nodes} for GRAPH_KERNELS, "kernel nodes" for all, and
+    "host nodes" and "memcpy nodes" (the C++ energy server's calls)."""
     import ctypes
 
     cu = ctypes.CDLL("libcuda.so.1")
@@ -3174,9 +3294,10 @@ def _graph_kernels(cuda_graph) -> dict:
     params = (ctypes.c_byte * 512)()  # CUDA_KERNEL_NODE_PARAMS_v2; func comes first
     func = ctypes.c_void_p.from_buffer(params)
     # Kernel nodes by function (aldp_snf's graph holds 1.48M nodes of ~300 functions).
-    by_func = collections.Counter()
+    by_func, by_type = collections.Counter(), collections.Counter()
     for node in nodes:
         assert node_type(node, ctypes.byref(kind)) == 0
+        by_type[kind.value] += 1
         if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         assert get_params(node, params) == 0
@@ -3188,6 +3309,7 @@ def _graph_kernels(cuda_graph) -> dict:
         names[name.value.decode()] += count
     out = {word: sum(c for name, c in names.items() if word in name) for word in GRAPH_KERNELS}
     out["kernel nodes"] = sum(names.values())
+    out["memcpy nodes"], out["host nodes"] = by_type[1], by_type[3]  # CU_GRAPH_NODE_TYPE_*
     return out
 
 
@@ -3198,16 +3320,19 @@ def _kernel_count(by_name, word) -> int:
 
 
 def graph_turns(label, trainer, state, batch, tol, card, eval_check=False, phase=18,
-                turns=None, warm=True, scanned=True) -> dict:
-    """Phase 18 (or 19) on one path: the compiled step of ``trainer`` against its
+                turns=None, warm=True, scanned=True, bitwise=False) -> dict:
+    """Phase 18 (or 13, 19) on one path: the compiled step of ``trainer`` against its
     eager twin from ``state`` and one seed, ``turns`` each in turns (after a warm-up
-    step each, unless ``warm`` is False); agreement after the turns; the kernels'
-    and the mesh's counts per captured step against the twin's; a profiled replay
-    (device busy, K1's and K2's kernels per step); optionally perform_eval after
-    both; make_scanned_train_step against single replays (``scanned``)."""
+    step each, unless ``warm`` is False); agreement after the turns (``bitwise``:
+    asserted bit for bit); the kernels', the mesh's and the energy server's counts
+    per captured step against the twin's; a profiled replay (device busy, K1's and
+    K2's kernels per step; host nodes, one per server call); optionally perform_eval
+    after both; make_scanned_train_step against single replays (``scanned``)."""
     import torch
     from torch.utils import _pytree as pytree
 
+    from fab_tpu_torch import graph
+    from fab_tpu_torch.native import AldpEnergyServer
     from fab_tpu_torch.parallel import mesh
     from fab_tpu_torch.utils.logging import ListLogger
 
@@ -3252,10 +3377,11 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False, phase
     ms = {"graph": [], "eager": []}
     _zero_counts()
     mesh.COUNTS.clear()
-    replays = program.replays
+    replays, server_calls = program.replays, AldpEnergyServer.calls
     for kind in order:
         ms[kind].append(timed(kind))
-    wrapper_counts = dict(_counts(), **{f"{a} {k}": v for (a, k), v in mesh.COUNTS.items()})
+    wrapper_counts = dict(_counts(), **{f"{a} {k}": v for (a, k), v in mesh.COUNTS.items()},
+                          **{"server calls": AldpEnergyServer.calls - server_calls})
     per_step = program.captured_counts
     assert program.replays - replays == n
     medians = {k: statistics.median(v) for k, v in ms.items()}
@@ -3267,10 +3393,11 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False, phase
     # a replay's are the captured step's.
     for k, v in per_step.items():
         assert wrapper_counts.get(k, 0) == n * v, (label, k, wrapper_counts.get(k), v)
-    print(f"[{card}] phase {phase} {label}: kernel and collective counts per captured step "
-          f"{per_step} (the eager twin's per step equal), times {n} replays")
+    print(f"[{card}] phase {phase} {label}: kernel, collective and server-call counts per "
+          f"captured step {per_step} (the eager twin's per step equal), times {n} replays")
     diff = _state_diff(trainer, states["graph"], eager, states["eager"])
     assert max(v for k, v in diff.items() if k != "bitwise") <= tol, (label, diff)
+    assert diff["bitwise"] or not bitwise, (label, "not bitwise equal", diff)
     print(f"[{card}] phase {phase} {label} after {n + int(warm)} steps each: max relative "
           "difference "
           + ", ".join(f"{k} {v:.3e}" for k, v in diff.items() if k != "bitwise")
@@ -3311,6 +3438,9 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False, phase
             "k2_split_rows": per_step["k2"], "k2_tf32x3_dense": 2 * per_step["k2"],
             "k2_row_sum": per_step["k2"], "k2_prepare_weight": per_step["k2_rebuilds"]}
     assert {k: nodes[k] for k in want} == want, (nodes, want)
+    # The energy server's calls: one host node and three copies each.
+    calls = per_step.get("server calls", 0)
+    assert nodes["host nodes"] == calls and nodes["memcpy nodes"] >= 3 * calls, (nodes, calls)
     # The replay ran the path's kernels. The profiler's records of a graph's kernels
     # are not exact (a replay of LGCP-1600's 75k nodes lost 1 of 400 coupling records;
     # one of GMM-40's named 42 records K1, which that graph does not hold), so the
@@ -3318,7 +3448,9 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False, phase
     assert all(launches[k] > 0 for k, v in want.items() if v), (launches, want)
     print(f"[{card}] phase {phase} {label}: the graph holds {nodes['kernel nodes']} kernel nodes "
           f"(read through libcuda), of them " + ", ".join(
-              f"{k} {nodes[k]}" for k in want) + ": the captured counts")
+              f"{k} {nodes[k]}" for k in want) + f", and {nodes['host nodes']} host nodes "
+          f"and {nodes['memcpy nodes']} memcpy nodes ({calls} server calls captured): the "
+          "captured counts")
     print(f"[{card}] phase {phase} {label} profiled replay: wall {wall:.1f} ms (profiler on), "
           f"device busy {busy:.1f} ms ({busy / medians['graph']:.1%} of the graphed median "
           f"step), {sum(v[1] for v in by_name.values())} device ops "
@@ -3336,7 +3468,7 @@ def graph_turns(label, trainer, state, batch, tol, card, eval_check=False, phase
     # as the graph runs it: captured alone and replayed.
     copies = [t.clone() for t in program.static]
     copy_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(copy_graph):
+    with graph.collector_paused(), torch.cuda.graph(copy_graph):
         for c, s in zip(copies, program.static):
             c.copy_(s)
     copy_ms = _time_ms(copy_graph.replay, n=10)
@@ -3416,9 +3548,14 @@ def phase18_path(card, mw, lgcp, gmm) -> dict:
 # turns with an eager twin from one state and seed.
 PHASE19_BUDGET_S = 300
 PHASE19_TURNS = {"ManyWell-32 data-parallel": 3, "GMM-40-rbd": 5, "GMM-40-snf": 5,
-                 "aldp.yaml": 2, "aldp_rbd": 2, "aldp_snf": 1}
-# aldp.yaml's fill cut in length only: 64 batches of 1024 rows to FILL_BATCHES.
-FILL_BATCHES = 4
+                 "aldp.yaml": 1, "aldp_rbd": 1, "aldp_snf": 1,
+                 "ManyWell-32 target_forward_kl": 3, "GMM-40 WrappedTorchDist target": 3,
+                 "GMM-40 WrappedModuleFlow": 3}
+# aldp.yaml's and aldp_rbd's turns before their cut for the host-drawn paths' room.
+PHASE19_TURNS_BEFORE = {"aldp.yaml": 2, "aldp_rbd": 2}
+# aldp.yaml's fill cut in length only: 64 batches of 1024 rows to FILL_BATCHES (4
+# until the smoke took 1430 s on a slow host).
+FILL_BATCHES = 1
 
 
 def _rss_gib() -> float:
@@ -3518,7 +3655,7 @@ def data_mesh_turns(trainer, state, card) -> dict:
                               phase=19, turns=PHASE19_TURNS["ManyWell-32 data-parallel"])
     finally:
         distributed.shutdown()
-    captured = {k: v for k, v in run["per_step"].items() if " " in k}
+    captured = {k: v for k, v in run["per_step"].items() if " " in k and k != "server calls"}
     expect = expected_collectives(4, 1, 8)
     assert sum(captured.values()) == expect["total"], (captured, expect)
     assert run["graph_nodes"]["k1_tf32x3_chain"] == 38, run["graph_nodes"]
@@ -3529,10 +3666,73 @@ def data_mesh_turns(trainer, state, card) -> dict:
     return run
 
 
+def _forward_kl_trainer(device):
+    """ManyWell-32 target_forward_kl (many_well.yaml's flow with flow.fused=true, K1;
+    fab.loss_type=target_forward_kl: no AIS, the exact draws by rejection sampling),
+    the plain Trainer, f32, and its initial state."""
+    import torch
+
+    from fab_tpu_torch.flows import make_realnvp
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.targets import ManyWellEnergy
+    from fab_tpu_torch.train import Trainer, make_optimizer
+
+    flow = make_realnvp(MW_DIM, MW_LAYERS, MW_NODES, fused=True, device=device,
+                        generator=torch.Generator(device=device).manual_seed(15))
+    model = FABModel.create(flow, ManyWellEnergy(MW_DIM, device=device),
+                            loss_type="target_forward_kl", use_ais=False)
+    trainer = Trainer(model, make_optimizer(3e-4, 100.0), device=device)
+    return trainer, trainer.init_state(torch.Generator(device=device).manual_seed(15))
+
+
+def _wrapped_trainers(device) -> dict:
+    """Phase 19's wrapped paths at GMM-40's shape (f64, batch 128, gmm.yaml's Metropolis
+    AIS as phase 15(b)): a RealNVP (gmm.yaml's 15 layers of width 80) over a
+    WrappedTorchDist target (GMM-40's 40 components as a MixtureSameFamily,
+    validate_args off), and a WrappedModuleFlow (_smoke_module, its draws through
+    fab_tpu_torch.random) over the GMM-40 target; each with its initial state."""
+    import torch
+
+    from fab_tpu_torch.flows import make_realnvp
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import Metropolis
+    from fab_tpu_torch.targets import GMM
+    from fab_tpu_torch.train import Trainer, make_optimizer
+    from fab_tpu_torch.wrappers import WrappedModuleFlow, WrappedTorchDist
+
+    f64, dists = torch.float64, torch.distributions
+    gmm = GMM(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0,
+              true_expectation_estimation_n_samples=1000, dtype=f64, device=device)
+    mixture = dists.MixtureSameFamily(
+        dists.Categorical(logits=torch.zeros(40, dtype=f64, device=device),
+                          validate_args=False),
+        dists.Independent(dists.Normal(gmm.locs, gmm.scales, validate_args=False), 1,
+                          validate_args=False), validate_args=False)
+    flows = {
+        "GMM-40 WrappedTorchDist target": (
+            make_realnvp(2, 15, 40, generator=torch.Generator(device=device).manual_seed(16),
+                         dtype=f64, device=device), WrappedTorchDist.wrap(mixture)),
+        "GMM-40 WrappedModuleFlow": (WrappedModuleFlow(_smoke_module(2, device), 2), gmm),
+    }
+    out = {}
+    for label, (flow, target) in flows.items():
+        model = FABModel.create(
+            flow, target, transition_operator=Metropolis(
+                n_ais_intermediate_distributions=1, n_updates=1, max_step_size=5.0,
+                min_step_size=5.0, adjust_step_size=False, target_p_accept=0.65),
+            n_intermediate_distributions=1, alpha=2.0, loss_type="fab_alpha_div")
+        trainer = Trainer(model, make_optimizer(1e-4, 100.0), dtype=f64, device=device)
+        out[label] = (trainer, trainer.init_state(
+            torch.Generator(device=device).manual_seed(17)))
+    return out
+
+
 def phase19_path(card, mw, dp, gmm, aldp, rbd, snf) -> dict:
     """Phase 19: each ``(trainer, state)``'s compiled step against its eager twin
     (``graph_turns``), and the compiled fill against the eager one on aldp.yaml (cut
-    to FILL_BATCHES batches) and ManyWell-32 (its 4 passes)."""
+    to FILL_BATCHES batch) and ManyWell-32 (its 4 passes); then the paths that
+    draw on the host: ManyWell-32 target_forward_kl (K1 in the graph, the rejection
+    draws in the noise pass) and the two wrapped paths."""
     from fab_tpu_torch.ops import coupling_kernel as ck
 
     t0 = time.time()
@@ -3542,6 +3742,8 @@ def phase19_path(card, mw, dp, gmm, aldp, rbd, snf) -> dict:
                                  turns=PHASE19_TURNS[label], scanned=False)
     # The ALDP steps were captured by phases 11-12's runs, their kernels ran there:
     # no warm-up step.
+    print(f"[{card}] phase 19 cut: turns " + ", ".join(
+        f"{k} {v} -> {PHASE19_TURNS[k]}" for k, v in PHASE19_TURNS_BEFORE.items()))
     for label, (trainer, state) in (("aldp.yaml", aldp), ("aldp_rbd", rbd), ("aldp_snf", snf)):
         out[label] = graph_turns(label, trainer, state, 1024, 1e-5, card, phase=19,
                                  turns=PHASE19_TURNS[label], warm=False, scanned=False)
@@ -3553,7 +3755,8 @@ def phase19_path(card, mw, dp, gmm, aldp, rbd, snf) -> dict:
         out[label]["rss_gib"] = program.rss_gib
         if label == "aldp.yaml":
             print(f"[{card}] aldp.yaml fill cut (length only): "
-                  f"training.replay_buffer.min_length = {FILL_BATCHES} (aldp.yaml: 64)")
+                  f"training.replay_buffer.min_length = {FILL_BATCHES} (aldp.yaml: 64; "
+                  "4 before the last cut)")
             out["fill aldp.yaml"] = fill_turns("aldp.yaml", trainer, FILL_BATCHES, 1024, card,
                                                1e-5)
     _zero_counts()
@@ -3562,8 +3765,36 @@ def phase19_path(card, mw, dp, gmm, aldp, rbd, snf) -> dict:
     assert _counts()["k1"] == 2 * 22 + 4 * 22  # the compiled twin's warm-up and
     # capture, and the eager twin's 4 passes
     assert ck.fused_coupling_apply.launches == 0
+    out.update(host_drawn_turns(mw[0].device, card))
     out["phase_s"] = time.time() - t0
     print(f"[{card}] phase 19: {out['phase_s']:.1f} s (budget {PHASE19_BUDGET_S} s)")
+    return out
+
+
+def host_drawn_turns(device, card) -> dict:
+    """Phase 19's paths that draw on the host (``random.host_draw`` in the noise
+    pass): ManyWell-32 target_forward_kl (K1 in the graph) and the two wrapped paths,
+    each compiled against its eager twin, bitwise."""
+    t_host, out = time.time(), {}
+    trainer, state = _forward_kl_trainer(device)
+    run = graph_turns("ManyWell-32 target_forward_kl", trainer, state, MW_BATCH, 1e-5, card,
+                      phase=19, turns=PHASE19_TURNS["ManyWell-32 target_forward_kl"],
+                      scanned=False, bitwise=True)
+    # K1 per step: the exact draws' inverse pass and its backward recompute.
+    assert run["per_step"]["k1"] == 1 and run["per_step"]["k1_recomputes"] == 1, run["per_step"]
+    assert run["graph_nodes"]["k1_tf32x3_chain"] == 1
+    ops = trainer._program(MW_BATCH).tape.ops
+    assert [op[0] for op in ops] == ["host"], ops
+    print(f"[{card}] phase 19 ManyWell-32 target_forward_kl: the tape holds one host draw "
+          f"{ops[0][2]} ({MW_DIM // 2} wells' rejection sampling, in the noise pass); K1 "
+          f"{run['per_step']['k1']} launch and {run['per_step']['k1_recomputes']} recompute per "
+          "captured step")
+    out["ManyWell-32 target_forward_kl"] = run
+    for label, (trainer, state) in _wrapped_trainers(device).items():
+        out[label] = graph_turns(label, trainer, state, 128, 1e-12, card, phase=19,
+                                 turns=PHASE19_TURNS[label], scanned=False, bitwise=True)
+        assert not any(v for k, v in out[label]["per_step"].items()), out[label]["per_step"]
+    print(f"[{card}] phase 19 host-drawn paths: {time.time() - t_host:.1f} s")
     return out
 
 
@@ -3697,11 +3928,12 @@ def drive(device, gen, name, card) -> list:
                           median_eager_plain_step_ms=p16["bench"]["eager_plain_ms"],
                           bench_scaling=p16["bench"]["scaling"]),
             "in_graph": _graph_record(p18["ManyWell-32"], "k1"),
+            "in_forward_kl_graph": _graph_record(p19["ManyWell-32 target_forward_kl"], "k1"),
             "in_graph_data_parallel": dict(
                 _graph_record(p19["ManyWell-32 data-parallel"], "k1"), backend="nccl",
                 world_size=1, collectives_per_captured_step=sum(
                     v for k, v in p19["ManyWell-32 data-parallel"]["per_step"].items()
-                    if " " in k)),
+                    if " " in k and k != "server calls")),
             "in_fill_graph": dict(mw["fill"],
                                   launches_per_captured_pass=mw["fill"]["captured"]["k1"],
                                   launches_in_replays=mw["fill"]["captured"]["k1"]
@@ -3773,12 +4005,17 @@ def drive(device, gen, name, card) -> list:
     run = lars_snf["rbd"]
     print(f"[{card}] ALDP-rbd path (no kernel): a profiled eager step, device busy "
           f"{run['busy_profiled']:.1%} of its wall, {run['device_ops']} device ops")
+    compiled = tools["host_cpp"]["compiled"]
     for backend in ("jax", "host_cpp"):
         run = tools["host_cpp"][backend]
-        print(f"[{card}] ALDP aldp.yaml with system.backend={backend} (phase 13): median step "
-              f"{run['steady_ms']:.1f} ms, {1024 / run['steady_ms'] * 1e3:.1f} AIS samples/s, "
-              f"device busy {run['busy']:.1%}, {run['device_ops']} device ops and "
-              f"{run['server_calls_per_step']} server calls per step")
+        print(f"[{card}] ALDP aldp.yaml with system.backend={backend} (phase 13): eager median "
+              f"step {run['steady_ms']:.1f} ms, {1024 / run['steady_ms'] * 1e3:.1f} AIS "
+              f"samples/s"
+              + (f", device busy {run['busy']:.1%}, {run['device_ops']} device ops"
+                 if run["busy"] is not None else "")
+              + f", {run['server_calls_per_step']} server calls per step; compiled median "
+              f"{compiled['medians'][backend]:.1f} ms, device busy "
+              f"{compiled['busy'][backend]:.1%}, {compiled['host_nodes'][backend]} host nodes")
     print(f"[{card}] data-parallel ManyWell-32 (NCCL, world size 1): median step "
           f"{statistics.median(dp['dp_ms']):.1f} ms against the plain trainer's "
           f"{statistics.median(dp['plain_ms']):.1f} ms in turns, device busy {dp['busy']:.1%}, "

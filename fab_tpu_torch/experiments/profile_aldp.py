@@ -7,8 +7,8 @@
         [system.backend=host_cpp] [overrides ...]
 
 Each row times one component at the batch size: the median of ``--repeats`` calls
-(10 for the whole train step) after 3 warm-up calls, each call ending in a device
-synchronisation, on the host's clock. The components are the flow's sample and log
+(10 for the whole train step) after ``WARMUP`` (3) warm-up calls, each call ending in
+a device synchronisation, on the host's clock. The components are the flow's sample and log
 q, the x-gradients of log q and log p (HMC takes n_dists x (n_leapfrog + 1) of each
 per iteration), the target's log p and its internal -> Cartesian transform, the flow
 parameters' gradient (one per replay update), a whole AIS pass and a whole
@@ -38,7 +38,11 @@ from fab_tpu_torch.utils.profiling import trace
 from fab_tpu_torch.utils.training import apply_overrides, load_config, maybe_enable_x64
 
 
-def bench(fn, device, n=20, warmup=3):
+# Warm-up calls before each component's timed ones.
+WARMUP = 3
+
+
+def bench(fn, device, n=20, warmup=WARMUP):
     """Median wall time of ``fn()``, each call ended by a device synchronisation."""
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     for _ in range(warmup):
@@ -85,8 +89,8 @@ def main(argv=None):
 
     def report(name, fn, count_per_iter, n=n_rep):
         calls = AldpEnergyServer.calls
-        seconds = bench(fn, device, n=n)
-        server = (AldpEnergyServer.calls - calls) / (n + 3)
+        seconds = bench(fn, device, n=n, warmup=WARMUP)
+        server = (AldpEnergyServer.calls - calls) / (n + WARMUP)
         rows.append((name, seconds, count_per_iter))
         print(f"{name:42s} {seconds * 1e3:9.2f} ms/call  x{count_per_iter:5.1f}/iter"
               f"  = {seconds * count_per_iter * 1e3:9.2f} ms/iter"

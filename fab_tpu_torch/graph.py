@@ -27,14 +27,29 @@ the ALDP ML step (``experiments/run_aldp.py``).
   restores every module and state tensor it moved, and, on the card, captures one
   call into a ``torch.cuda.CUDAGraph`` (with the kernels' host caches emptied first,
   so the graph rebuilds K2's prepared weights where a steady-state eager call does).
-  On the CPU there is no graph: every call runs ``fn`` through the same static
-  tensors and tape. A capture or replay that fails raises; nothing falls back to
-  the eager function.
-- **Counts.** The kernels' wrappers and the mesh's collectives (``mesh.COUNTS``)
-  count on the host, which a replay does not reach: ``captured_counts`` holds what
-  one captured call counted and ``replays`` the calls since (on the CPU, the eager
-  runs of ``fn``), so the replays launched ``captured_counts`` times ``replays``
-  beside what the counters saw themselves (warm-up and capture).
+  Python's cyclic collector is off during the capture (``collector_paused``): a
+  collection then could free an earlier program's graph or a process group, whose
+  CUDA calls invalidate the capture. On the CPU there is no graph: every call runs
+  ``fn`` through the same static tensors and tape. A capture or replay that fails
+  raises; nothing falls back to the eager function.
+- **Host draws.** A draw whose count depends on the data (ManyWell's and
+  DoubleWell's rejection sampling) or that draws outside ``random`` (a wrapped
+  torch distribution) is one ``random.host_draw`` op of the tape: it runs in the
+  noise pass, on the host, before each call, so the graph holds none of it.
+- **Host calls.** The C++ energy server (``system.backend: host_cpp``) is called
+  through ``native.HostCalls``: pinned copies and a C host function on the stream,
+  recorded as memcpy and host nodes (``fab_tpu``'s ``pure_callback``). Each call
+  first installs the program's server's tables.
+- **Global generators.** ``fn`` must draw through ``random`` only. A module that
+  draws from torch's default CPU or CUDA generator would replay the capture's noise;
+  the build compares their states across the warm-up and raises ``ValueError``,
+  naming the module, before any capture.
+- **Counts.** The kernels' wrappers, the mesh's collectives (``mesh.COUNTS``) and the
+  energy server (``AldpEnergyServer.calls``, as "server calls") count on the host,
+  which a replay does not reach: ``captured_counts`` holds what one captured call
+  counted and ``replays`` the calls since (on the CPU, the eager runs of ``fn``), so
+  the replays launched ``captured_counts`` times ``replays`` beside what the
+  counters saw themselves (warm-up and capture).
 
 ``graph_supported(trainer)`` (``supported(model, device)``) is the static test of
 which configurations take this path, decided from the configuration before any
@@ -42,6 +57,8 @@ capture; the others keep the eager functions, for the reason it gives.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -50,29 +67,35 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils import _pytree as pytree
 
-from fab_tpu_torch import random
+from fab_tpu_torch import native, random
 from fab_tpu_torch.flows.fused import FusedPass
 from fab_tpu_torch.ops import coupling_kernel, realnvp_kernel
 from fab_tpu_torch.parallel import mesh
-from fab_tpu_torch.targets.double_well import DoubleWellEnergy
-from fab_tpu_torch.targets.many_well import ManyWellEnergy
 from fab_tpu_torch.wrappers.module import WrappedModuleFlow
 from fab_tpu_torch.wrappers.torch_dist import WrappedTorchDist
 
-# Why a configuration keeps the eager functions (ROADMAP "Also open" orders them).
+# Why a configuration keeps the eager functions (ROADMAP "Also open").
 REFUSED = {
-    "host_cpp": "system.backend host_cpp: every target evaluation is a round trip to "
-                "the host C++ energy server, which no CUDA graph can hold",
-    "wrappers": "a wrapped external module or torch distribution: its draws need not go "
-                "through fab_tpu_torch.random, so a tape cannot hold them",
-    "rejection": "target_forward_kl on ManyWell: its exact draws are rejection sampling, "
-                 "a loop that reads the device on the host",
     "model_axis": "a mesh with a model axis (n_model > 1): one card cannot form an NCCL "
                   "model group (NCCL refuses two ranks on one device), and the gloo grid "
                   "that runs there cannot be captured",
     "gloo_on_card": "a data mesh over gloo on the card: gloo carries the CUDA tensors "
                     "through the host, which no CUDA graph can hold",
 }
+# A wrapped distribution that validates its arguments reads a device boolean on the
+# host in every log_prob; the check is kept, so on the card the configuration stays
+# eager (on the CPU the program runs eagerly and the check with it).
+VALIDATING = ("a wrapped torch distribution that validates its arguments (validate_args): "
+              "the check reads the device on the host, which no CUDA graph can hold; "
+              "build it with validate_args=False to compile")
+
+
+def _validates(dist) -> bool:
+    """Whether ``dist`` or a distribution inside it (a mixture's components, an
+    ``Independent``'s base) validates its arguments."""
+    if not isinstance(dist, torch.distributions.Distribution):
+        return False
+    return bool(dist._validate_args) or any(_validates(v) for v in vars(dist).values())
 
 
 def supported(model, device) -> Tuple[bool, str]:
@@ -80,17 +103,12 @@ def supported(model, device) -> Tuple[bool, str]:
     the active mesh, why): decided from the configuration alone, before any
     capture."""
     device = torch.device(device)
-    flow, target = model.flow, model.target
     active = mesh.active_mesh()
     if active is not None and active.n_model > 1:
         return False, REFUSED["model_axis"]
-    if getattr(target, "backend", None) == "host_cpp":
-        return False, REFUSED["host_cpp"]
-    if isinstance(flow, WrappedModuleFlow) or isinstance(target, WrappedTorchDist):
-        return False, REFUSED["wrappers"]
-    if model.loss_type == "target_forward_kl" and isinstance(
-            target, (ManyWellEnergy, DoubleWellEnergy)):
-        return False, REFUSED["rejection"]
+    if device.type == "cuda" and any(isinstance(part, WrappedTorchDist) and _validates(part.dist)
+                                     for part in (model.flow, model.target)):
+        return False, VALIDATING
     collectives = ""
     if active is not None:
         backend = dist.get_backend(active.data_group)
@@ -122,8 +140,25 @@ def counts() -> Dict[str, int]:
 
 
 def _host_counts() -> Dict[str, int]:
-    """``counts()`` and the mesh's collectives, as ``"<axis> <kind>"``."""
-    return dict(counts(), **{f"{axis} {kind}": n for (axis, kind), n in mesh.COUNTS.items()})
+    """``counts()``, the mesh's collectives as ``"<axis> <kind>"`` and the energy
+    server's calls."""
+    return dict(counts(), **{f"{axis} {kind}": n for (axis, kind), n in mesh.COUNTS.items()},
+                **{"server calls": native.AldpEnergyServer.calls})
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cyclic garbage collector off within, as it was after. A collection
+    inside a capture runs the finalizers of whatever dead cycles it finds (an earlier
+    program's ``CUDAGraph``, a process group); their CUDA calls are not allowed while
+    a stream captures, and the capture ends invalidated."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -172,7 +207,8 @@ class Program:
     def __init__(self, fn: Callable, module: nn.Module, device):
         self.fn, self.module = fn, module
         self.device = torch.device(device)
-        self.tape = random.Tape()
+        self.tape = random.Tape(self.device)
+        self.host_calls = native.HostCalls(self.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static: Optional[List[torch.Tensor]] = None
         self.replays = 0
@@ -185,7 +221,7 @@ class Program:
         """``fn`` on the static state, its draws served by the tape, and its new state
         copied into the static one. Returns its info."""
         state = _like(pytree.tree_unflatten(self.static, self._spec), self._in)
-        with random.taped(self.tape) as key:
+        with random.taped(self.tape) as key, native.host_calls(self.host_calls):
             new_state, info = self.fn(state, key)
         new, spec = _flatten(new_state)
         assert spec == self._spec, "the program changed its state's structure"
@@ -213,6 +249,10 @@ class Program:
         self.static = [t.detach().clone() for t in leaves]
         saved = [t.detach().clone() for t in self._module_tensors]
         cuda = self.device.type == "cuda"
+        generators = [torch.default_generator] + (
+            [torch.cuda.default_generators[self.device.index if self.device.index is not None
+                                           else torch.cuda.current_device()]] if cuda else [])
+        generator_states = [g.get_state() for g in generators]
         if cuda:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -228,13 +268,24 @@ class Program:
             for m, t in zip(self._module_tensors, saved):
                 m.copy_(t)
         del saved
+        if any(not torch.equal(g.get_state(), st) for g, st in zip(generators, generator_states)):
+            for g, st in zip(generators, generator_states):
+                g.set_state(st)
+            module = self.module
+            if isinstance(module, WrappedModuleFlow):
+                module = module.module
+            raise ValueError(
+                f"{type(module).__name__} drew from torch's global generator during the "
+                "program's warm-up: a compiled program would replay that noise. Draw through "
+                "fab_tpu_torch.random with the generator it is given")
         if not cuda:
             return
+        self.host_calls.activate()
         coupling_kernel.forget_prepared()
         before = _host_counts()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with collector_paused(), torch.cuda.graph(self.graph):
             self._info = self._run()
         self.capture_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -252,7 +303,13 @@ class Program:
 
     def _load(self, state) -> None:
         if self.static is None:
-            self._build(state)
+            try:
+                self._build(state)
+            except BaseException:
+                # Nothing half-built is kept: the next call builds again (and fails again).
+                self.static = self.graph = None
+                self.tape, self.host_calls = random.Tape(self.device), native.HostCalls(self.device)
+                raise
         leaves, spec = _flatten(state)
         if spec != self._spec:
             raise ValueError("the state's structure differs from the captured program's")
@@ -269,6 +326,7 @@ class Program:
         self.replays += 1
         if self.graph is None:
             return self._run()
+        self.host_calls.activate()
         self.graph.replay()
         # A replay moves the weights but not their versions: K2's prepared copies
         # of them are stale for an eager pass.

@@ -17,6 +17,8 @@ from fab_tpu_torch.flows.base import Flow, flow_log_prob, is_stochastic, log_q_n
 from fab_tpu_torch.parallel import mesh
 from fab_tpu_torch.sampling.ais import AnnealedImportanceSampler
 from fab_tpu_torch.targets.base import TargetDistribution
+from fab_tpu_torch.targets.double_well import DoubleWellEnergy
+from fab_tpu_torch.targets.many_well import ManyWellEnergy
 from fab_tpu_torch.utils.numerical import effective_sample_size
 
 
@@ -108,7 +110,7 @@ class FABModel:
                 )
             return loss, result.transition_state, dict(result.info)
         if self.loss_type == "target_forward_kl":
-            x_p = mesh.constrain_batch(self.target.sample(generator, batch_size))
+            x_p = mesh.constrain_batch(self._target_sample(generator, batch_size))
             return (self.forward_kl_loss(x_p, log_q_noise(self.flow, generator)),
                     transition_state, {})
         if self.loss_type not in ("flow_reverse_kl", "flow_alpha_2_div",
@@ -121,6 +123,16 @@ class FABModel:
             mask = self.sample_filter(x, torch.isfinite(log_q) & torch.isfinite(log_p))
             return loss_fn(log_q, log_p, mask=mask), transition_state, {}
         return loss_fn(log_q, log_p), transition_state, {}
+
+    def _target_sample(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """n exact target draws. ManyWell's and DoubleWell's come in the flow's dtype:
+        ``fab_tpu`` draws them in the default float type, which its flow shares (f64
+        under x64)."""
+        if not isinstance(self.target, (ManyWellEnergy, DoubleWellEnergy)):
+            return self.target.sample(generator, n)
+        param = next(iter(self.flow.parameters()), None)
+        return self.target.sample(generator, n,
+                                  dtype=torch.float32 if param is None else param.dtype)
 
     def forward_kl_loss(
         self, x_p: torch.Tensor, generator: torch.Generator = None

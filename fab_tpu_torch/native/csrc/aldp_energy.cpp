@@ -424,4 +424,21 @@ void aldp_energy_batch(const double* pos, int batch, double* energy_out,
   for (auto& th : workers) th.join();
 }
 
+// A CUDA host function (cuLaunchHostFunc's CUhostFn): one batch through
+// aldp_energy_batch, its buffers named by an AldpHostArgs. A compiled program
+// enqueues it between a device -> pinned copy of the positions and pinned -> device
+// copies of the energy and force (fab_tpu_torch/native/__init__.py, HostCalls); it
+// makes no CUDA call, as a host node must not.
+struct AldpHostArgs {
+  const double* pos;  // [batch, n_atoms*3]
+  double* energy;     // [batch]
+  double* force;      // [batch, n_atoms*3] or nullptr
+  int batch;
+};
+
+void aldp_energy_host_fn(void* args) {
+  const AldpHostArgs* a = static_cast<const AldpHostArgs*>(args);
+  aldp_energy_batch(a->pos, a->batch, a->energy, a->force);
+}
+
 }  // extern "C"

@@ -22,13 +22,24 @@ tensors back. Before each run ``noise_pass(tape, generator)`` makes those calls 
 the caller's generator, with this module's functions as they stand (a test may have
 replaced them), and writes the draws into the static tensors. The step then draws
 exactly what the eager step draws from that generator.
+
+**Host draws.** A draw whose number of primitive calls depends on the data
+(rejection sampling loops until its buffer is full) or that draws outside this
+module (a ``torch.distributions`` object under ``fork_rng``) cannot be taped call by
+call. ``host_draw(generator, fn, *args)`` makes it one op: eagerly it is
+``fn(generator, *args)``; on a tape the recording run calls ``fn`` on a scratch
+generator (on the tape's device) with this module's own functions, and each noise
+pass calls that recorded ``fn`` on the caller's generator at the op's place, with
+this module's functions as they stand, and copies its result into the op's static
+tensor (held to the recorded shape, dtype and device). Such a draw must depend on
+the generator alone, not on the step's tensors, since it runs before the step.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import hashlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -92,34 +103,49 @@ def categorical(generator: torch.Generator, logits: torch.Tensor, n: int) -> tor
     return torch.argmax(g + logits, dim=-1)
 
 
+def host_draw(generator: torch.Generator, fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+    """``fn(generator, *args)``: a draw of any number of calls, one op on a tape (see
+    the module docstring)."""
+    return fn(generator, *args)
+
+
 # ---------------------------------------------------------------- the noise tape
 
 KINDS = ("normal", "exponential", "gumbel", "uniform", "randint")
-# The module's own draws, for the recording run (the step is not given the caller's
-# generator then, and a test's replacements must not be consumed by it).
-_OWN = {kind: globals()[kind] for kind in KINDS}
+_SERVED = KINDS + ("split", "restart", "host_draw")
+# The module's own functions, for the recording run (the step is not given the
+# caller's generator then, and a test's replacements must not be consumed by it).
+_OWN = {name: globals()[name] for name in _SERVED}
 _OWN["gumbel"] = lambda generator, *args: -torch.log(_OWN["exponential"](generator, *args))
 
 
 class TapeKey:
     """A generator's place in a tape: 0 is the generator the step is given, and
-    each split or restart makes the next."""
+    each split or restart makes the next. ``device`` is the tape's."""
 
     __slots__ = ("tape", "index")
 
     def __init__(self, tape: "Tape", index: int):
         self.tape, self.index = tape, index
 
+    @property
+    def device(self) -> torch.device:
+        return self.tape.device
+
 
 class Tape:
     """The draws of one step in call order: ``ops`` holds ("split", parent),
-    ("restart", parent) or (kind, parent, args), ``noise`` one static tensor per
-    draw. Recorded by the first run inside ``taped``; each later run is held to it
-    and raises at the first call that differs."""
+    ("restart", parent), (kind, parent, args) or ("host", parent, (shape, dtype,
+    device)), ``noise`` one static tensor per draw, ``host_fns`` each host op's
+    recorded (fn, args) by its place in ``ops``. Recorded by the first run inside
+    ``taped``; each later run is held to it and raises at the first call that
+    differs. ``device``: where a host draw's recording run draws."""
 
-    def __init__(self):
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
         self.ops: List[Tuple] = []
         self.noise: List[torch.Tensor] = []
+        self.host_fns: Dict[int, Tuple[Callable, Tuple]] = {}
         self.recorded = False
         self._scratch: Dict[Tuple[int, torch.device], torch.Generator] = {}
 
@@ -151,16 +177,42 @@ class Tape:
         self._cursor += 1
         return key.index
 
+    def _scratch_generator(self, index: int, device) -> torch.Generator:
+        """Real noise for the recording run, which computes on it."""
+        device = torch.device(device if device is not None else "cpu")
+        scratch = self._scratch.get((index, device))
+        if scratch is None:
+            scratch = torch.Generator(device=device).manual_seed(index)
+            self._scratch[(index, device)] = scratch
+        return scratch
+
     def _draw(self, kind: str, key, *args) -> torch.Tensor:
         index = self._op(kind, key, args)
         if not self.recorded:
-            # Real noise from a scratch generator: the recording run computes on it.
-            device = torch.device(args[-1] if args[-1] is not None else "cpu")
-            scratch = self._scratch.get((index, device))
-            if scratch is None:
-                scratch = torch.Generator(device=device).manual_seed(index)
-                self._scratch[(index, device)] = scratch
-            self.noise.append(_OWN[kind](scratch, *args))
+            self.noise.append(_OWN[kind](self._scratch_generator(index, args[-1]), *args))
+        self._n_draws += 1
+        return self.noise[self._n_draws - 1]
+
+    def _host(self, key, fn: Callable, *args) -> torch.Tensor:
+        if self.recorded:
+            # Held to the op's kind and generator here, to its result's shape, dtype
+            # and device by each noise pass (the closure is rebuilt every step).
+            have = self.ops[self._cursor] if self._cursor < len(self.ops) else None
+            if not (isinstance(key, TapeKey) and key.tape is self and have is not None
+                    and have[:2] == ("host", key.index)):
+                self._op("host", key)  # raises, naming both
+            self._cursor += 1
+        else:
+            index = self._op("host", key)
+            served = {name: globals()[name] for name in _SERVED}
+            globals().update(_OWN)
+            try:
+                out = fn(self._scratch_generator(index, self.device), *args)
+            finally:
+                globals().update(served)
+            self.ops[-1] = ("host", index, _signature(out))
+            self.host_fns[len(self.ops) - 1] = (fn, args)
+            self.noise.append(out.detach().clone(memory_format=torch.contiguous_format))
         self._n_draws += 1
         return self.noise[self._n_draws - 1]
 
@@ -170,7 +222,8 @@ class Tape:
         return TapeKey(self, self._n_keys - 1)
 
 
-_SERVED = KINDS + ("split", "restart")
+def _signature(t: torch.Tensor) -> Tuple:
+    return tuple(t.shape), t.dtype, t.device
 
 
 @contextlib.contextmanager
@@ -180,7 +233,8 @@ def taped(tape: Tape):
     saved = {name: globals()[name] for name in _SERVED}
     globals().update({kind: functools.partial(tape._draw, kind) for kind in KINDS})
     globals().update(split=functools.partial(tape._new_key, "split"),
-                     restart=functools.partial(tape._new_key, "restart"))
+                     restart=functools.partial(tape._new_key, "restart"),
+                     host_draw=tape._host)
     tape._begin()
     try:
         yield tape.root()
@@ -194,9 +248,15 @@ def noise_pass(tape: Tape, generator) -> None:
     functions as they stand, and write each draw into its static tensor."""
     keys = [generator]
     draws = iter(tape.noise)
-    for op in tape.ops:
-        fn = globals()[op[0]]
-        if op[0] in KINDS:
-            next(draws).copy_(fn(keys[op[1]], *op[2]))
+    for i, op in enumerate(tape.ops):
+        if op[0] == "host":
+            fn, args = tape.host_fns[i]
+            out = fn(keys[op[1]], *args)
+            if _signature(out) != op[2]:
+                raise RuntimeError(f"the step's draws changed: host draw {i} gave "
+                                   f"{_signature(out)}, its tape has {op[2]}")
+            next(draws).copy_(out)
+        elif op[0] in KINDS:
+            next(draws).copy_(globals()[op[0]](keys[op[1]], *op[2]))
         else:
-            keys.append(fn(keys[op[1]]))
+            keys.append(globals()[op[0]](keys[op[1]]))

@@ -2,7 +2,9 @@
 
 Fixed-size batches of proposals fill an output buffer with the accepted draws, in
 draw order, until it is full; the surplus of the last batch is dropped. The loop
-reads the filled count on the host once per batch.
+reads the filled count on the host once per batch, so its number of draws depends on
+the data: the whole loop is one ``random.host_draw``, which a compiled step takes in
+its noise pass, before the step (``fab_tpu``'s ``lax.while_loop`` inside the jit).
 """
 from __future__ import annotations
 
@@ -26,6 +28,12 @@ def rejection_sampling(
     """n_samples draws from the (unnormalised) target under the envelope
     k * proposal. ``proposal_sample(generator, n)`` returns [n] or [n, D] draws; a
     draw z is accepted when log u < log target(z) - log proposal(z) - log k."""
+    return random.host_draw(generator, _fill, n_samples, proposal_sample, proposal_log_prob,
+                            target_log_prob_fn, k, batch_multiplier)
+
+
+def _fill(generator, n_samples, proposal_sample, proposal_log_prob, target_log_prob_fn, k,
+          batch_multiplier):
     log_k = math.log(k)
     batch = n_samples * batch_multiplier
     out, n_filled = None, 0

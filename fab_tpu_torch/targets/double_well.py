@@ -58,7 +58,8 @@ class DoubleWellEnergy(TargetDistribution):
     def _proposal_sample(self, generator: torch.Generator, n: int, dtype=torch.float32,
                          device=None) -> torch.Tensor:
         comp = random.bernoulli(generator, 0.8, (n,), dtype, device)  # True: mean +1.7
-        mean = torch.where(comp, 1.7, -1.7).to(dtype)
+        centre = torch.full((), 1.7, dtype=dtype, device=comp.device)  # 1.7 in dtype
+        mean = torch.where(comp, centre, -centre)
         return mean + 0.5 * random.normal(generator, (n,), dtype, device)
 
     def sample_first_dimension(self, generator: torch.Generator, n: int,

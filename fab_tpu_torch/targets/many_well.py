@@ -68,7 +68,11 @@ class ManyWellEnergy(TargetDistribution):
         return self.double_well.log_prob(x)
 
     def sample(self, generator: torch.Generator, n: int, dtype=torch.float32) -> torch.Tensor:
-        """n exact draws [n, D]: each well's exact sample, well after well."""
+        """n exact draws [n, D]: each well's exact sample, well after well; one
+        ``random.host_draw`` (the wells' rejection loops read the device)."""
+        return random.host_draw(generator, self._sample_wells, n, dtype)
+
+    def _sample_wells(self, generator: torch.Generator, n: int, dtype) -> torch.Tensor:
         wells = [self.double_well.sample(generator, n, dtype, self.device)
                  for _ in range(self.n_wells)]
         return torch.cat(wells, -1)

@@ -10,6 +10,13 @@ through it). ``sample`` draws one integer seed from the caller's generator (a
 samples under ``torch.random.fork_rng`` seeded with it, as ``fab_tpu`` seeds torch
 from its key; the global generators are left as they were. No trainable
 parameters: it serves as a target, an AIS base or a fixed flow.
+
+Inside a compiled program (``graph.py``) a draw is one ``random.host_draw``: the
+sample function runs in the noise pass, before each call, on the caller's generator
+(``fab_tpu``'s sample is a host callback inside its jit). ``log_prob`` runs on the
+device and is captured; a distribution that validates its arguments reads the device
+on the host there, so ``graph.supported`` keeps such a configuration eager on the
+card (build it with ``validate_args=False`` to compile it).
 """
 from __future__ import annotations
 
@@ -67,7 +74,7 @@ class WrappedTorchDist:
 
     def sample(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """This rank's rows of ``n`` draws (the global batch under a data mesh)."""
-        return constrain_batch(self.sample_fn(generator, n))
+        return constrain_batch(random.host_draw(generator, self.sample_fn, n))
 
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return self.log_prob_fn(x)

@@ -1,6 +1,8 @@
 """K1 and K2 against their plain versions on the card, the host C++ energy server
 against the torch force field there, and the compiled steps and fill pass (CUDA
-graph replays) against their eager twins, bitwise. Skipped without a CUDA
+graph replays) against their eager twins, bitwise: among them the configurations
+that draw or call on the host (the C++ server as host nodes, ManyWell's
+rejection-sampled target_forward_kl, the wrappers). Skipped without a CUDA
 card: the hand-written kernels have no CPU mode. This file imports no JAX, so it
 also runs on a machine that has only PyTorch (``--noconftest``: tests/conftest.py
 imports JAX):
@@ -382,11 +384,12 @@ def test_compiled_step_replays_a_cuda_graph_equal_to_eager(card, kind):
     assert all(torch.equal(a, b) for a, b in zip(*ends))
 
 
-def _path_trainer(case, device, tmp_path):
+def _path_trainer(case, device, tmp_path, extra=()):
     """A small trainer of a spline, LARS or SNF path, as its runner builds it (f32):
     aldp.yaml (splines, implicit solvent, the chirality filter, prioritised buffer),
     aldp_rbd.yaml (the LARS base), aldp_snf.yaml (MH layers on the vacuum force
-    field) and gmm.yaml with flow.use_snf=true; and its init_state kwargs."""
+    field) and gmm.yaml with flow.use_snf=true; ``extra`` overrides; and its
+    init_state kwargs."""
     import pathlib
 
     from fab_tpu_torch.buffer import PrioritisedReplayBuffer
@@ -406,7 +409,8 @@ def _path_trainer(case, device, tmp_path):
     frame = tmp_path / "aldp_angstrom.npy"
     np.save(frame, np.load(root / "tests" / "data" / "aldp_openmm_min_energy_nm.npy")
             .reshape(1, 66) * 10.0)
-    extra = ["flow.snf.every=1", "flow.snf.steps=2"] if case == "aldp_snf" else []
+    extra = list(extra) + (["flow.snf.every=1", "flow.snf.steps=2"] if case == "aldp_snf"
+                           else [])
     cfg = apply_overrides(load_config(str(configs / f"{case}.yaml")), [
         "flow.blocks=2", "flow.hidden_units=32", "training.batch_size=64", "fab.n_int_dist=2",
         "fab.n_inner=2", "training.replay_buffer.min_length=2",
@@ -489,3 +493,197 @@ def test_aldp_log_prob_gradient_is_bitwise_repeatable(card, tmp_path):
     grads = [torch.autograd.grad(target.log_prob(z).sum(), z)[0] for _ in range(2)]
     assert torch.isfinite(grads[0]).any()
     assert torch.equal(*grads)
+
+
+def _graph_node_types(cuda_graph) -> dict:
+    """{node type: count} of a captured graph (``keep_graph=True``), read through
+    libcuda: 0 kernel, 1 memcpy, 3 host."""
+    import collections
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(cuda_graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    kind, types = ctypes.c_int(), collections.Counter()
+    for node in nodes:
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        types[kind.value] += 1
+    return types
+
+
+def _replays_equal(eager, compiled, kw, card, batch, n=2):
+    """Both trainers' init_state from one seed, then ``n`` eager steps against ``n``
+    replays of the compiled step from one seed: parameters, buffers and every state
+    tensor bitwise. Returns the program."""
+    from torch.utils import _pytree as pytree
+
+    leaves = lambda s: pytree.tree_leaves(tuple(s)[:-1])
+    states = [t.init_state(torch.Generator(device=card).manual_seed(1), **kw)
+              for t in (eager, compiled)]
+    gens = [torch.Generator(device=card).manual_seed(2) for _ in range(2)]
+    step = compiled.make_train_step(batch)
+    for _ in range(n):
+        states[0], _ = eager.train_step(states[0], gens[0], batch)
+        states[1], info = step(states[1], gens[1])
+    torch.cuda.synchronize()
+    assert torch.isfinite(info["loss"])
+    program = compiled._program(batch)
+    assert program.graph is not None and program.replays == n
+    named = lambda t: [*t.model.flow.parameters(), *t.model.flow.buffers()]
+    for a, b in zip(named(eager), named(compiled)):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(states[0]), leaves(states[1])):
+        assert torch.equal(a, b)
+    return program
+
+
+@pytest.mark.gpu
+def test_host_cpp_step_replays_host_nodes_equal_to_eager(card, tmp_path):
+    """aldp.yaml on the host C++ server (small): 2 replays against 2 eager steps,
+    bitwise; the graph holds one host node per server call, beside at least three
+    copies each (the positions out, the energy and force back), and a replay reaches
+    no host counter."""
+    from fab_tpu_torch.native import AldpEnergyServer
+
+    extra = ["system.backend=host_cpp", "system.n_threads=4"]
+    (eager, kw), (compiled, _) = (_path_trainer("aldp", card, tmp_path, extra)
+                                  for _ in range(2))
+    assert compiled.model.target.backend == "host_cpp"
+    program = _replays_equal(eager, compiled, kw, card, 64)
+    calls = program.captured_counts["server calls"]
+    assert calls == len(program.host_calls.sites) == 1 + 2 * 2  # start + 2 x 2 leapfrog
+    types = _graph_node_types(program.graph)
+    assert types[3] == calls and types[1] >= 3 * calls, types
+    before = AldpEnergyServer.calls
+    state = compiled.init_state(torch.Generator(device=card).manual_seed(1), batch_size=64)
+    assert compiled.fill_program.graph is not None
+    assert _graph_node_types(compiled.fill_program.graph)[3] == calls
+    compiled.make_train_step(64)(state, torch.Generator(device=card).manual_seed(3))
+    torch.cuda.synchronize()
+    # The new fill's build (warm-up and capture) counted, its replays and the step's not.
+    assert AldpEnergyServer.calls - before == 2 * calls
+
+
+@pytest.mark.gpu
+def test_forward_kl_many_well_step_replays_equal_to_eager(card):
+    """ManyWell-8 target_forward_kl with the fused flow (K1): the exact draws by
+    rejection sampling in the noise pass, 3 replays against 3 eager steps bitwise;
+    K1's launches per captured step equal an eager step's, and its kernel nodes are
+    in the graph."""
+    from fab_tpu_torch import graph
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.targets import ManyWellEnergy
+    from fab_tpu_torch.train import Trainer, make_optimizer
+
+    def make():
+        flow = make_realnvp(8, 4, 8, fused=True, device=card,
+                            generator=torch.Generator(device=card).manual_seed(0))
+        model = FABModel.create(flow, ManyWellEnergy(8, device=card),
+                                loss_type="target_forward_kl", use_ais=False)
+        return Trainer(model, make_optimizer(1e-3, 100.0), device=card)
+
+    eager, compiled = make(), make()
+    before = graph.counts()["k1"]
+    eager.train_step(eager.init_state(torch.Generator(device=card).manual_seed(9)),
+                     torch.Generator(device=card).manual_seed(9), 256)
+    per_step = graph.counts()["k1"] - before
+    program = _replays_equal(eager, compiled, {}, card, 256, n=3)
+    assert per_step > 0 and program.captured_counts["k1"] == per_step
+    assert [op[0] for op in program.tape.ops] == ["host"]
+    assert _graph_node_types(program.graph)[0] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dist_target", "module_flow"])
+def test_wrapped_paths_replay_a_cuda_graph_equal_to_eager(card, case):
+    """A WrappedTorchDist target (a 40-component mixture in 2-D, validate_args off)
+    under a RealNVP, and a WrappedModuleFlow whose module draws through
+    fab_tpu_torch.random over GMM-40's target: 2 replays against 2 eager steps,
+    bitwise (f64, Metropolis AIS)."""
+    from torch import nn
+
+    from fab_tpu_torch import random
+    from fab_tpu_torch.model import FABModel
+    from fab_tpu_torch.sampling import Metropolis
+    from fab_tpu_torch.targets import GMM
+    from fab_tpu_torch.train import Trainer, make_optimizer
+    from fab_tpu_torch.wrappers import WrappedModuleFlow, WrappedTorchDist
+
+    f64 = torch.float64
+
+    class Gaussian(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.loc = nn.Parameter(torch.zeros(2, dtype=f64, device=card))
+            self.log_scale = nn.Parameter(torch.full((2,), 2.0, dtype=f64, device=card))
+
+        def sample_and_log_prob(self, generator, n):
+            eps = random.normal(generator, (n, 2), f64, card)
+            x = self.loc + torch.exp(self.log_scale) * eps
+            return x, self.log_prob(x)
+
+        def log_prob(self, x):
+            z = (x - self.loc) * torch.exp(-self.log_scale)
+            return (-0.5 * z**2 - 0.9189385332046727 - self.log_scale).sum(-1)
+
+    def make():
+        gmm = GMM(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0, dtype=f64,
+                  device=card, true_expectation_estimation_n_samples=1000)
+        if case == "module_flow":
+            flow, target = WrappedModuleFlow(Gaussian(), 2), gmm
+        else:
+            dists = torch.distributions
+            flow = make_realnvp(2, 3, 8, generator=torch.Generator(device=card).manual_seed(0),
+                                dtype=f64, device=card)
+            target = WrappedTorchDist.wrap(dists.MixtureSameFamily(
+                dists.Categorical(logits=torch.zeros(40, dtype=f64, device=card),
+                                  validate_args=False),
+                dists.Independent(dists.Normal(gmm.locs, gmm.scales, validate_args=False), 1,
+                                  validate_args=False), validate_args=False))
+        mh = Metropolis(n_ais_intermediate_distributions=1, n_updates=1, max_step_size=5.0,
+                        min_step_size=5.0, adjust_step_size=False, target_p_accept=0.65)
+        model = FABModel.create(flow, target, mh, 1, loss_type="fab_alpha_div")
+        return Trainer(model, make_optimizer(1e-4, 100.0), dtype=f64, device=card)
+
+    _replays_equal(make(), make(), {}, card, 128)
+
+
+@pytest.mark.gpu
+def test_no_collection_runs_during_a_capture(card):
+    """Python's cyclic collector stays off while a program captures: a collection
+    there can free an earlier program's CUDA graph, whose destruction is a CUDA call
+    that invalidates the capture. The collector is set to run at almost every
+    allocation, and a callback records each pass made while the stream captures."""
+    import gc
+
+    from fab_tpu_torch import graph
+
+    module = torch.nn.Linear(4, 4, device=card)
+
+    def fn(state, key):
+        with torch.no_grad():
+            return {"x": torch.tanh(module(state["x"]))}, {}
+
+    during = []
+
+    def seen(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            during.append(info["generation"])
+
+    x = torch.randn(8, 4, device=card)
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(seen)
+    gc.set_threshold(1, 1, 1)
+    try:
+        program = graph.Program(fn, module, card)
+        out, _ = program({"x": x.clone()}, torch.Generator(device=card).manual_seed(0))
+    finally:
+        gc.callbacks.remove(seen)
+        gc.set_threshold(*thresholds)
+    assert program.graph is not None and during == []
+    with torch.no_grad():
+        assert torch.equal(out["x"], torch.tanh(module(x)))

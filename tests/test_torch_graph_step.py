@@ -14,14 +14,18 @@ static tensors and noise tape as on the card, without a CUDA graph.
 (e) ``make_train_step`` and one call move the state by exactly one step: the warm-up
     leaks nothing into the flow, the state passed in or the next steps.
 (f) ``graph_supported`` gives its reason for each configuration outside the compiled
-    path (the host C++ server, the wrappers, rejection-sampled ``target_forward_kl``,
-    the model axis, gloo on the card), admits the rest (the spline flows, the LARS
-    base, an SNF, a data mesh), and ``run`` of a refused one takes the eager step.
+    path (the model axis, gloo on the card), admits the rest (the spline flows, the
+    LARS base, an SNF, a data mesh, the host C++ server, the wrappers,
+    rejection-sampled ``target_forward_kl``), and ``run`` of a refused one takes the
+    eager step.
 (g) ``run(log_every=3)`` writes ``fab_tpu``'s log rows on shared noise.
+(h) ``collector_paused``, which holds Python's cyclic collector off during a capture,
+    restores the collector as it found it, also when the capture raises.
 
 The same steps replayed as CUDA graphs against eager are card tests in
 ``test_torch_gpu.py`` (that file imports no JAX, so it runs on the card).
 """
+import gc
 import types
 
 import jax
@@ -426,19 +430,11 @@ def _refused(reason, monkeypatch):
     if reason == "model_axis":
         _on_mesh(monkeypatch, 2, "gloo")
         return _stub_trainer()
-    if reason == "gloo_on_card":
-        _on_mesh(monkeypatch, 1, "gloo")
-        return _stub_trainer(device="cuda")
-    return {
-        "host_cpp": lambda: _stub_trainer(target=types.SimpleNamespace(backend="host_cpp")),
-        "wrappers": lambda: _stub_trainer(flow=WrappedModuleFlow(nn.Linear(DIM, DIM), DIM)),
-        "rejection": lambda: _stub_trainer(target=ManyWellEnergy(4, device="cpu"),
-                                           loss_type="target_forward_kl"),
-    }[reason]()
+    _on_mesh(monkeypatch, 1, "gloo")
+    return _stub_trainer(device="cuda")
 
 
-@pytest.mark.parametrize("reason", ["host_cpp", "wrappers", "rejection", "model_axis",
-                                    "gloo_on_card"])
+@pytest.mark.parametrize("reason", ["model_axis", "gloo_on_card"])
 def test_graph_supported_gives_each_refusal_its_reason(reason, monkeypatch):
     trainer = _refused(reason, monkeypatch)
     assert graph.graph_supported(trainer) == (False, graph.REFUSED[reason])
@@ -447,10 +443,13 @@ def test_graph_supported_gives_each_refusal_its_reason(reason, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["gmm", "many_well", "forward_kl", "splines", "lars", "snf",
-                                  "data_mesh_gloo_cpu", "data_mesh_nccl_card"])
+                                  "data_mesh_gloo_cpu", "data_mesh_nccl_card", "host_cpp",
+                                  "wrappers", "rejection"])
 def test_graph_supported_admits_the_slices_paths(case, monkeypatch):
     """The plain, ManyWell and forward-KL paths, the spline flows, the LARS base, an
-    SNF and a data mesh (n_model 1) under gloo on the CPU or NCCL on the card."""
+    SNF, a data mesh (n_model 1) under gloo on the CPU or NCCL on the card, the host
+    C++ server, a wrapped module flow and rejection-sampled ``target_forward_kl`` on
+    ManyWell."""
     if case.startswith("data_mesh"):
         card = case.endswith("card")
         _on_mesh(monkeypatch, 1, "nccl" if card else "gloo")
@@ -463,6 +462,10 @@ def test_graph_supported_admits_the_slices_paths(case, monkeypatch):
             "splines": lambda: _stub_trainer(flow=_spline_flow()),
             "lars": lambda: _stub_trainer(flow=_lars_flow()),
             "snf": lambda: _stub_trainer(flow=_StochasticFlow()),
+            "host_cpp": lambda: _stub_trainer(target=types.SimpleNamespace(backend="host_cpp")),
+            "wrappers": lambda: _stub_trainer(flow=WrappedModuleFlow(nn.Linear(DIM, DIM), DIM)),
+            "rejection": lambda: _stub_trainer(target=ManyWellEnergy(4, device="cpu"),
+                                               loss_type="target_forward_kl"),
         }[case]()
     supported, reason = graph.graph_supported(trainer)
     assert supported
@@ -510,3 +513,20 @@ def test_run_log_rows_match_fab_tpu(monkeypatch, capsys):
     for name, values in rows.items():
         assert_close(np.asarray(values, dtype=np.float64),
                      np.asarray(rows_j[name], dtype=np.float64), 1e-8, name)
+
+
+@pytest.mark.parametrize("enabled", [True, False], ids=["collector_on", "collector_off"])
+def test_collector_paused_restores_the_collector(enabled):
+    """(h)"""
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with graph.collector_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError, match="a capture that fails"):
+            with graph.collector_paused():
+                raise RuntimeError("a capture that fails")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
