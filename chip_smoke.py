@@ -59,7 +59,7 @@ Phases:
      bins, HMC 8 x 4 leapfrog steps of 0.1, batch 1024, buffer 512 / 8 batches, 8
      replay updates, the chirality filter, cosine schedule with 1000 warm-up
      updates), f32, cut in length only (ALDP_CUTS, printed): the model built
-     directly (minimisation, cut to MINIMISE_STEPS (2000 of 4000), test set,
+     directly (minimisation, cut to MINIMISE_STEPS (1000 of 4000), test set,
      init_state and ALDP_STEPS (2) steps timed, the LR of
      every update printed, a profiled step), then the runner for 3 iterations with
      one eval and the final evaluation, and its resume for one iteration.
@@ -94,7 +94,7 @@ Phases:
      (HOST_COMPILED_ORDER):
      median step, busy share, server calls and host nodes per step.
      (b) profile_aldp at batch 1024 on both backends, its repeats cut to
-     PROFILE_REPEATS (1) and its warm-up calls to PROFILE_WARMUP (1; printed).
+     PROFILE_REPEATS (1) and its warm-up calls to PROFILE_WARMUP (0; printed).
      (c) evaluate.py on phase 9's GMM-40 checkpoint and phase
      12's as rsb_* and snf_*, and on the LGCP-1600 flow of phases 6-7 with
      flow.fused_coupling=true (K2 launches counted, > 0 asserted);
@@ -117,9 +117,9 @@ Phases:
      load ms, bytes), whose resumed step equals the uninterrupted one. Then
      python3 -m torch.distributed.run --standalone --nproc_per_node=1 -m
      fab_tpu_torch.experiments.run_many_well on many_well.yaml with mesh.n_data=1
-     (DP_LAUNCHER_CUTS): exit 0, every CSV value finite, and rank 0's checkpoint
-     loaded in this process. More than one card is not measured: NCCL refuses two
-     ranks on one device.
+     (DP_LAUNCHER_CUTS; started before phase 11, see below): exit 0, every CSV value
+     finite, and rank 0's checkpoint loaded in this process. More than one card is
+     not measured: NCCL refuses two ranks on one device.
  15. (a) The mesh's model axis on the card: two processes of this script
      (--model-axis-rank, a gloo group on tcp://127.0.0.1:<free port>: gloo carries
      the CUDA tensors through the host) form a (1, 2) grid. Each runs ManyWell-32 at
@@ -127,9 +127,9 @@ Phases:
      before the cut, printed) steps,
      with the plain flow
      Megatron-split (H = 320 -> 160 per rank) and with the fused flow, whose K1
-     takes the gathered weights, while this process runs both from the same seeds
-     alone. Parameters, step sizes and buffer priorities agree (relative 1e-5),
-     the two ranks bitwise; K1's launches per step per rank are the plain path's
+     takes the gathered weights (the two started before phase 11, see below), and
+     this process runs both from the same seeds alone. Parameters, step sizes and
+     buffer priorities agree (relative 1e-5), the two ranks bitwise; K1's launches per step per rank are the plain path's
      (38 + 29); the collectives per step by axis equal the counts reckoned from the
      code (expected_model_collectives, expected_collectives). Then one LGCP-1600
      step on the grid through K2 on gathered weights (the buffer starts at one
@@ -147,7 +147,8 @@ Phases:
      with bench.py's keys, value and vs_baseline (the compiled steps') finite and > 0,
      mfu in (0, 1], K1 38 + 29 per eager fused step and in its graph, from its
      stderr. (b) python3 -m fab_tpu_torch.bench_scaling --mesh-sizes 1 under
-     NCCL (batch 2048 per device, 1 warm-up and 2 steps): efficiency_vs_1 1.0. (c)
+     NCCL (batch 2048 per device, 1 warm-up and 2 steps; started before phase 11, see
+     below): efficiency_vs_1 1.0. (c)
      bench_lgcp_kernel at its defaults: K2 within 1e-3 of the plain layer, both
      layer times, the whole LGCP-1600 flow's sample_and_log_prob and log_prob fused
      and plain in turns. (d) evaluate.py on the phase 6-7 flow through K2 with the
@@ -168,7 +169,7 @@ Phases:
      exit 0, its
      checkpoint written, its CSV finite (MAY_BE_INFINITE aside); (c)
      eval_gmm_study on the two gmm_study runs (samples cut to GMM_STUDY_EVAL_N) and
-     the unchanged experiments/latex_table.py's table; (d) eval_lgcp_trajectory on
+     the table of the port's latex_table; (d) eval_lgcp_trajectory on
      the LGCP-1600 flow after phase 6's steps and after phase 7's run, with
      flow.fused_coupling=true, in this process: K2's counts zeroed just before and
      read just after (> 0 asserted), every column finite; (e) the options the port
@@ -226,6 +227,11 @@ Phases:
   flow.fused_coupling=true on lgcp.yaml, phases 6-7; the ALDP flow is a spline
   chain; the LARS and SNF flows are unfused): their counts are zeroed before and
   asserted 0 after.
+  Three commands that need nothing of this process start as processes of their own
+  just before phase 11 and run beside phases 11-13 (_Started): phase 14's launcher
+  run, 16(b)'s bench_scaling and 15(a)'s two model-axis ranks. Each is read, and
+  checked, in its own phase; every process the script starts is stopped before it
+  exits.
 
 Prints the kernel JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero on any failure, and without a card.
@@ -242,10 +248,12 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # Peak rates for the bounds: f32 on the CUDA cores, dense TF32 on the tensor cores
@@ -882,7 +890,7 @@ ALDP_STEPS = 2  # phase 11's timed steps of the model built directly
 # each step is a few hundred launches on the card; the later phases only need a
 # relaxed frame, not the deepest one.
 MINIMISE_STEPS_BEFORE = 4000
-MINIMISE_STEPS = 2000
+MINIMISE_STEPS = 1000
 ALDP_GROUPS = {"GEMMs": ["gemm", "cutlass", "sm90_xmma"], "reductions": ["reduce"],
                "gather / scatter": ["index", "gather", "scatter"]}
 ALDP_CUTS = ["training.max_iter=3", "training.replay_buffer.min_length=0",
@@ -1329,7 +1337,7 @@ def lars_snf_path(device, gen, card, tmp):
 # the profiler's repeats cut from 20 (10 for the train step) to PROFILE_REPEATS, its
 # warm-up calls from 3 to PROFILE_WARMUP.
 PROFILE_REPEATS = 1
-PROFILE_WARMUP = 1
+PROFILE_WARMUP = 0
 # aldp.yaml's steps on the two backends, one each.
 HOST_ORDER = ("jax", "host_cpp")
 ALDP_BATCH = 1024  # aldp.yaml's
@@ -1532,7 +1540,7 @@ def profile_aldp_path(device, card, tmp) -> dict:
     from fab_tpu_torch.experiments import profile_aldp
 
     print(f"[{card}] profile_aldp cut: --repeats {PROFILE_REPEATS} (the script's default "
-          f"20, 10 for the train step), {PROFILE_WARMUP} warm-up call "
+          f"20, 10 for the train step), {PROFILE_WARMUP} warm-up calls "
           f"({profile_aldp.WARMUP}) and training.replay_buffer.min_length=0 (aldp.yaml: 64); "
           "a full-length run is "
           "python3 -m fab_tpu_torch.experiments.profile_aldp [system.backend=host_cpp]")
@@ -2007,6 +2015,54 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+# Commands that hold nothing of this process start as their own processes before
+# phase 11 and run beside phases 11-13, whose ALDP steps leave the card mostly idle
+# (8-14 % busy, eager): the launcher run (phase 14), bench_scaling (16(b)) and the two
+# model-axis ranks (15(a)). Each phase reads its command's result where it used to run
+# it. Their times, and those of phases 11-13, were taken beside one another.
+_STARTED = []
+
+
+class _Started:
+    """A command started ahead of the phase that reads it, in a session of its own
+    (its children are stopped with it); its output in temporary files, the time it
+    ended taken by a thread that waits for it."""
+
+    def __init__(self, cmd, env=None):
+        self.cmd = cmd
+        self.out, self.err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        self.t0, self.t_end = time.time(), None
+        self.proc = subprocess.Popen(cmd, stdout=self.out, stderr=self.err, text=True,
+                                     cwd=os.path.dirname(os.path.abspath(__file__)),
+                                     env=env, start_new_session=True)
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+        _STARTED.append(self)
+
+    def _wait(self):
+        self.proc.wait()
+        self.t_end = time.time()
+
+    def stop(self):
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.waiter.join()
+
+    def result(self, timeout):
+        """(exit code, stdout, stderr, seconds from its start to its end); a command
+        still running ``timeout`` seconds after its start is stopped."""
+        self.waiter.join(max(0.0, self.t0 + timeout - time.time()))
+        self.stop()
+        self.out.seek(0)
+        self.err.seek(0)
+        return self.proc.returncode, self.out.read(), self.err.read(), self.t_end - self.t0
+
+
+def _stop_started() -> None:
+    for started in _STARTED:
+        started.stop()
+
+
 def expected_collectives(n_dists: int, n_outer: int, n_replay: int) -> dict:
     """Collectives of one PrioritisedBufferTrainer step under a data mesh, reckoned
     from the code: the AIS pass (ESS of the flow draw: a max and a sum; per
@@ -2115,9 +2171,10 @@ def _dir_bytes(path) -> int:
                for f in files)
 
 
-def data_parallel_path(device, card, tmp) -> dict:
+def data_parallel_path(device, card, tmp, launcher) -> dict:
     """Phase 14: ManyWell-32 through the data-parallel trainer under NCCL at world
-    size 1 against the plain trainer, a DCP round trip, and the launcher path."""
+    size 1 against the plain trainer, a DCP round trip, and the launcher path (the
+    run ``launcher``, started before phase 11)."""
     import torch
 
     from fab_tpu_torch.parallel import distributed, mesh
@@ -2279,12 +2336,27 @@ def data_parallel_path(device, card, tmp) -> dict:
                    trainer=(dp, states["dp"]))
     finally:
         distributed.shutdown()
-    out["launcher_s"] = _launcher_run(device, card, tmp)
+    out["launcher_s"] = _launcher_run(device, card, tmp, launcher)
     out["phase_s"] = time.time() - t_phase
     return out
 
 
-def _launcher_run(device, card, tmp) -> float:
+def _launcher_overrides(tmp) -> list:
+    return ["mesh.n_data=1", *DP_LAUNCHER_CUTS,
+            f"evaluation.save_path={os.path.join(tmp, 'many_well_launcher')}"]
+
+
+def launcher_start(device, tmp) -> _Started:
+    """Phase 14's launcher run, started ahead of the phase."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return _Started([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node=1", "-m", "fab_tpu_torch.experiments.run_many_well",
+                     "--config", os.path.join(CONFIGS, "many_well.yaml"), "--device",
+                     device.type, *_launcher_overrides(tmp)],
+                    env=dict(os.environ, PYTHONPATH=root))
+
+
+def _launcher_run(device, card, tmp, started) -> float:
     """run_many_well under python3 -m torch.distributed.run with one process:
     mesh.n_data=1, 2 iterations, one eval and one checkpoint; exit 0, every CSV
     value finite, and rank 0's checkpoint loaded in this process."""
@@ -2294,22 +2366,15 @@ def _launcher_run(device, card, tmp) -> float:
     from fab_tpu_torch.targets import ManyWellEnergy
     from fab_tpu_torch.utils.training import apply_overrides, load_config
 
-    root = os.path.dirname(os.path.abspath(__file__))
     config = os.path.join(CONFIGS, "many_well.yaml")
     save = os.path.join(tmp, "many_well_launcher")
-    overrides = ["mesh.n_data=1", *DP_LAUNCHER_CUTS, f"evaluation.save_path={save}"]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node=1", "-m", "fab_tpu_torch.experiments.run_many_well",
-           "--config", config, "--device", device.type, *overrides]
-    print(f"[{card}] launcher path: {' '.join(cmd[1:])} (cuts of many_well.yaml: "
-          f"min_buffer_length 65536 -> 24576)")
-    t0 = time.time()
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300,
-                          env=dict(os.environ, PYTHONPATH=root))
-    took = time.time() - t0
-    print(proc.stdout[-3000:])
-    assert proc.returncode == 0, proc.stderr[-6000:]
-    assert "data mesh over 1 processes" in proc.stdout, proc.stdout[-2000:]
+    overrides = _launcher_overrides(tmp)
+    print(f"[{card}] launcher path: {' '.join(started.cmd[1:])} (cuts of many_well.yaml: "
+          f"min_buffer_length 65536 -> 24576; started before phase 11)")
+    rc, stdout, stderr, took = started.result(300)
+    print(stdout[-3000:])
+    assert rc == 0, stderr[-6000:]
+    assert "data mesh over 1 processes" in stdout, stdout[-2000:]
     (run_dir,) = [os.path.join(save, d) for d in os.listdir(save)]
     with open(os.path.join(run_dir, "logging_hist.csv")) as f:
         rows = list(csv.DictReader(f))
@@ -2323,8 +2388,8 @@ def _launcher_run(device, card, tmp) -> float:
     filled = -(-cfg.training.min_buffer_length // batch) * batch
     assert step == 2 and int(state.buffer_state.n_added) == filled + 2 * batch
     assert all(torch.isfinite(p).all() for p in trainer.model.flow.parameters())
-    print(f"[{card}] launcher run: exit 0 in {took:.1f} s, {len(rows)} CSV rows, "
-          f"{len(values)} values all finite; rank 0's checkpoint (step {step}) loaded here")
+    print(f"[{card}] launcher run: exit 0 in {took:.1f} s (beside phase 11), {len(rows)} CSV "
+          f"rows, {len(values)} values all finite; rank 0's checkpoint (step {step}) loaded here")
     return took
 
 
@@ -2478,42 +2543,34 @@ def model_axis_worker(argv) -> int:
     return 0
 
 
-def model_axis_path(device, card, tmp) -> dict:
-    """Phase 15(a): two ranks of a (1, 2) grid over gloo on the card against one
-    process from the same seeds; K1 and K2 on gathered weights."""
-    import torch
-
-    t_phase = time.time()
-    print(f"[{card}] phase 15(a) cut: ManyWell-32 steps on the grid and alone "
-          f"{MA_STEPS_BEFORE} -> {MA_STEPS}")
-    port, procs = _free_port(), []
+def model_axis_start(device, tmp) -> list:
+    """Phase 15(a)'s two ranks, started ahead of the phase."""
+    port = _free_port()
     shapes = {k: globals()[k] for k in ("MW_DIM", "MW_LAYERS", "MW_NODES", "MW_BATCH",
                                          "LG_GRID", "LG_LAYERS", "LG_NODES", "LG_BATCH",
                                          "MA_LG_BUFFER_MIN")}
     cfg = json.dumps({"device": str(device), "shapes": shapes})
     root = os.path.dirname(os.path.abspath(__file__))
-    for rank in range(2):
-        log = open(os.path.join(tmp, f"model_axis_rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--model-axis-rank", str(rank),
-             str(port), os.path.join(tmp, f"model_axis_rank{rank}.pt"), cfg],
-            cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=log,
-            stderr=subprocess.STDOUT), log))
-    try:
-        reference = {kind: _model_axis_run(device, kind == "fused")
-                     for kind in ("plain", "fused")}
-        for proc, _ in procs:
-            proc.wait(timeout=600)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for rank, (proc, log) in enumerate(procs):
-        with open(log.name) as f:
-            text = f.read()
-        assert proc.returncode == 0, f"model-axis rank {rank} failed:\n{text[-6000:]}"
+    return [_Started([sys.executable, os.path.abspath(__file__), "--model-axis-rank", str(rank),
+                      str(port), os.path.join(tmp, f"model_axis_rank{rank}.pt"), cfg],
+                     env=dict(os.environ, PYTHONPATH=root)) for rank in range(2)]
+
+
+def model_axis_path(device, card, tmp, started) -> dict:
+    """Phase 15(a): two ranks of a (1, 2) grid over gloo on the card (``started``
+    before phase 11) against one process from the same seeds; K1 and K2 on
+    gathered weights."""
+    import torch
+
+    t_phase = time.time()
+    print(f"[{card}] phase 15(a) cut: ManyWell-32 steps on the grid and alone "
+          f"{MA_STEPS_BEFORE} -> {MA_STEPS}")
+    reference = {kind: _model_axis_run(device, kind == "fused") for kind in ("plain", "fused")}
+    for rank, run in enumerate(started):
+        rc, stdout, stderr, seconds = run.result(600)
+        assert rc == 0, f"model-axis rank {rank} failed:\n{(stdout + stderr)[-6000:]}"
+        print(f"[{card}] phase 15(a) rank {rank}: exit 0 {seconds:.1f} s after its start "
+              "before phase 11")
     ranks = [torch.load(os.path.join(tmp, f"model_axis_rank{r}.pt"), weights_only=False)
              for r in range(2)]
     out = {"phase_s": None}
@@ -2689,8 +2746,8 @@ BENCH_CUTS = ["--steps", "3"]
 # check can fail.
 IN_GRAPH_L_GAP = 1e-5
 IN_GRAPH_RTOL = 1e-5
-ANCHOR_CUTS = ["--quick", "--n-samples", "512", "--n-steps", "20", "--n-chains", "64",
-               "--n-sweeps", "30"]
+ANCHOR_CUTS = ["--quick", "--n-samples", "256", "--n-steps", "10", "--n-chains", "32",
+               "--n-sweeps", "16"]
 
 
 def _module_run(module, args, label, timeout):
@@ -2725,9 +2782,16 @@ def _finite_json(tree, label, path=""):
         assert math.isfinite(tree), f"{label}: not finite at {path}"
 
 
-def bench_path(card) -> dict:
+def scaling_start() -> _Started:
+    """16(b)'s bench_scaling, started ahead of the phase."""
+    return _Started([sys.executable, "-m", "fab_tpu_torch.bench_scaling", "--mesh-sizes", "1",
+                     *SCALING_CUTS])
+
+
+def bench_path(card, scaling_run) -> dict:
     """16(a) the port's bench at bench.py's settings, its timed steps cut (BENCH_CUTS);
-    16(b) bench_scaling at one rank under NCCL, cut in length only."""
+    16(b) bench_scaling at one rank under NCCL, cut in length only (the run
+    ``scaling_run``, started before phase 11)."""
     print(f"[{card}] phase 16(a) bench cut (length only): {' '.join(BENCH_CUTS)} (default 10)")
     out, err, seconds = _module_run("fab_tpu_torch.bench", BENCH_CUTS, "fab_tpu_torch.bench",
                                     900)
@@ -2758,14 +2822,17 @@ def bench_path(card) -> dict:
               "eager_plain_ms": float(eager.group(2))}
 
     print(f"[{card}] phase 16(b) bench_scaling cut (length only): "
-          f"{' '.join(SCALING_CUTS)} (defaults: 2048, 10, 2)")
-    out, err, seconds = _module_run("fab_tpu_torch.bench_scaling",
-                                    ["--mesh-sizes", "1", *SCALING_CUTS],
-                                    "fab_tpu_torch.bench_scaling", 600)
+          f"{' '.join(SCALING_CUTS)} (defaults: 2048, 10, 2); started before phase 11")
+    rc, out, err, seconds = scaling_run.result(600)
+    if rc != 0:
+        print(out[-6000:])
+        print(err[-6000:], file=sys.stderr)
+        raise AssertionError(f"fab_tpu_torch.bench_scaling exited {rc}")
     (scaling,) = [d for d in _json_lines(out) if "n_devices" in d]
     assert scaling["n_devices"] == 1 and scaling["efficiency_vs_1"] == 1.0, scaling
     assert math.isfinite(scaling["samples_per_s"]) and scaling["samples_per_s"] > 0
-    print(f"[{card}] phase 16(b) bench_scaling --mesh-sizes 1 under NCCL ({seconds:.1f} s): "
+    print(f"[{card}] phase 16(b) bench_scaling --mesh-sizes 1 under NCCL ({seconds:.1f} s, "
+          "beside phase 11): "
           + json.dumps(scaling))
     result.update(scaling=scaling, scaling_s=seconds)
     return result
@@ -2923,8 +2990,8 @@ def scripts_path(device, card, tmp) -> dict:
         ("aldp_external_anchor", aldp_external_anchor.main,
          [*ANCHOR_CUTS, "--test-set", os.path.join(run, "test_set.npy"), "--data-path", ref,
           "--out", os.path.join(tmp, "anchor.json")],
-         "--quick, then 512 samples of 20 sweeps per fresh set (2000 of 200), 64 chains x "
-         "30 sweeps for R-hat (64 x 60)"),
+         "--quick, then 256 samples of 10 sweeps per fresh set (2000 of 200), 32 chains x "
+         "16 sweeps for R-hat (64 x 60)"),
         ("many_well_demo", many_well_demo.main, ["--iters", "3"], "3 iterations (500)"),
         ("gmm_demo", gmm_demo.main, ["--iters", "3", "--out", os.path.join(tmp, "gmm_demo.png")],
          "3 iterations (2000)"),
@@ -2975,14 +3042,14 @@ def scripts_path(device, card, tmp) -> dict:
     return {"seconds": seconds}
 
 
-def phase16_path(device, card, tmp) -> dict:
+def phase16_path(device, card, tmp, scaling_run) -> dict:
     """Phase 16: the port's bench, bench_scaling and bench_lgcp_kernel, LGCP's
     in-graph factor through evaluate.py, and the analysis, ALDP-physics and demo
     scripts. Without matplotlib no PNG is written."""
     from fab_tpu_torch.utils.plotting import PLOTS_OFF, plots_available
 
     t0 = time.time()
-    out = {"bench": bench_path(card)}
+    out = {"bench": bench_path(card, scaling_run)}
     out["lgcp_kernel"] = lgcp_kernel_bench_path(card)
     out["in_graph"] = in_graph_eval_path(device, card, tmp)
     out["scripts"] = scripts_path(device, card, tmp)
@@ -3100,7 +3167,7 @@ def study_path(device, card, tmp) -> dict:
         table = f.read()
     assert "flow\\_reverse\\_kl" in table and "target\\_kld" in table, table
     print(f"[{card}] phase 17(c) eval_gmm_study {GMM_STUDY_EVAL_N} samples (50000), "
-          f"{seconds['eval_gmm_study']:.1f} s: {len(found)} runs, latex_table.py wrote "
+          f"{seconds['eval_gmm_study']:.1f} s: {len(found)} runs, latex_table wrote "
           f"{len(table.splitlines())} lines")
     return {"seconds": seconds}
 
@@ -3837,6 +3904,13 @@ def drive(device, gen, name, card) -> list:
         many_well_runner(card, tmp)
         phase_s["9-10 runners"] = time.time() - t0
 
+        # Phases 14-16's commands that need nothing of this process, started here to run
+        # beside phases 11-13 (see _Started).
+        started = {"launcher": launcher_start(device, tmp), "scaling": scaling_start(),
+                   "model_axis": model_axis_start(device, tmp)}
+        print(f"[{card}] started before phase 11, to run beside it: phase 14's launcher run, "
+              "16(b)'s bench_scaling and 15(a)'s two model-axis ranks")
+
         # ------------------------------------------------ 11. ALDP
         aldp = aldp_path(device, gen, card, tmp)
         phase_s["11 ALDP"] = time.time() - t0
@@ -3850,18 +3924,18 @@ def drive(device, gen, name, card) -> list:
         phase_s["13 host C++, profile, evaluation"] = time.time() - t0
 
         # ------------------------------------------------ 14. data parallel, DCP
-        dp = data_parallel_path(device, card, tmp)
+        dp = data_parallel_path(device, card, tmp, started["launcher"])
         phase_s["14 data parallel"] = time.time() - t0
 
         # ------------------------------------------------ 15. model axis, wrappers
         t15 = time.time()
-        ma = model_axis_path(device, card, tmp)
+        ma = model_axis_path(device, card, tmp, started["model_axis"])
         wrappers_path(device, card)
         phase_s["15 model axis, wrappers"] = time.time() - t0
         print(f"[{card}] phase 15: {time.time() - t15:.1f} s")
 
         # ------------------------------------------------ 16. bench, scripts
-        p16 = phase16_path(device, card, tmp)
+        p16 = phase16_path(device, card, tmp, started["scaling"])
         phase_s["16 bench, scripts"] = time.time() - t0
 
         # ------------------------------------------------ 17. studies, options
@@ -4076,7 +4150,10 @@ def main() -> int:
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
-    kernels = drive(device, gen, name, card)
+    try:
+        kernels = drive(device, gen, name, card)
+    finally:
+        _stop_started()
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Evaluate the GMM-40 method study's runs (``experiments/eval_gmm_study.sh``):
 50,000 flow and AIS samples per run by default (the first argument), inner batch
-500, the AIS target p, then ``experiments/latex_table.py`` on the CSV.
+500, the AIS target p, then the LaTeX table of the CSV (``latex_table``).
 
     python3 -m fab_tpu_torch.experiments.eval_gmm_study [--device cpu] [--dry-run]
         [N_SAMPLES] [key=value ...]
@@ -11,19 +11,18 @@ The runs are the newest run directory (by modification time) of each
 gmm_buffer_f64 runs are the fab_buffer rows, so a gmm_study/fab_buffer directory is
 skipped when they exist. All are evaluated in this process by ``evaluate.main``
 (gmm.yaml, ``fab.loss_type=fab_alpha_div``, then the trailing overrides) into
-``results/torch/reports/gmm_study_results.csv``; ``experiments/latex_table.py``
-runs unchanged as a subprocess (it imports no JAX) and its table is written to
-``results/torch/reports/gmm_study_table.tex`` and printed. Nothing is written to
+``results/torch/reports/gmm_study_results.csv``; the port's ``latex_table`` (the
+repository script's output, byte for byte) writes its table to
+``results/torch/reports/gmm_study_table.tex`` and prints it. Nothing is written to
 the repository's ``reports/``. ``--dry-run`` prints the runs and evaluates nothing.
 """
 from __future__ import annotations
 
+import csv
 import glob
 import os
-import subprocess
-import sys
 
-from fab_tpu_torch.experiments import evaluate, study
+from fab_tpu_torch.experiments import evaluate, latex_table, study
 
 N_SAMPLES = 50_000
 
@@ -68,10 +67,8 @@ def main(argv=None):
                    *[a for name, path in found for a in ("--run", f"{name}={path}")],
                    "--num-samples", str(n), "--inner-batch", "500", "--out", csv_path,
                    "--device", args.device, "fab.loss_type=fab_alpha_div", *args.trailing])
-    table = subprocess.run(
-        [sys.executable, os.path.join("experiments", "latex_table.py"), "--csv", csv_path,
-         "--problem", "gmm"], cwd=study.REPO, capture_output=True, text=True, check=True,
-    ).stdout
+    with open(csv_path) as f:
+        table = latex_table.table(list(csv.DictReader(f)), "gmm")
     with open(os.path.join(reports, "gmm_study_table.tex"), "w") as f:
         f.write(table)
     print(table, end="")

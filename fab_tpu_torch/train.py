@@ -648,6 +648,7 @@ class Trainer:
         # carries one-off costs (the kernels' first build, library handles).
         warm_ks: set = set()
         last_progress = 0.0
+        chunk_ms: List[float] = []  # per-iteration ms of each warm full-length chunk
 
         i = start_iter
         while i < n_iterations:
@@ -667,6 +668,8 @@ class Trainer:
             self.logger.write(host_info)
             if k in warm_ks:
                 max_it_time = max(max_it_time, (time() - it_start) / k)
+                if k == log_every:
+                    chunk_ms.append(1e3 * (time() - it_start) / k)
             warm_ks.add(k)
             now = time()
             if now - last_progress > 60.0 and is_primary():  # one line a minute at most
@@ -692,10 +695,23 @@ class Trainer:
                     if n_eval and i not in eval_iter:
                         self.perform_eval(state, generator, i, eval_batch_size, batch_size)
                     self.logger.close()
+                    self._print_timing(start_iter, i, time() - start_time, chunk_ms)
                     print(f"Ending training at iteration {i}: tlimit reached.")
                     return state
         self.logger.close()
+        self._print_timing(start_iter, i, time() - start_time, chunk_ms)
         return state
+
+    @staticmethod
+    def _print_timing(start: int, end: int, wall_s: float, chunk_ms: List[float]) -> None:
+        """One line: the loop's wall time (evals and checkpoints included) and the
+        median per-iteration time of its last 10 warm full-length chunks (the host
+        clock around a chunk and its logging, which reads the chunk's results)."""
+        if not is_primary():
+            return
+        median = f"{float(np.median(chunk_ms[-10:])):.2f} ms" if chunk_ms else "not measured"
+        print(f"run timing: iterations {start}-{end} in {wall_s:.1f} s; median step over "
+              f"the last 10 chunks {median}", flush=True)
 
 
 def _adam_state(tree) -> Dict[str, Any]:

@@ -51,8 +51,11 @@ from torch_parity_utils import (
     ais_noise,
     assert_close,
     flow_sample_noise,
+    metropolis_ais_noise,
     perturbed_jax_flow_params,
+    shared_noise_run,
     to_np,
+    trained_state_steps,
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -149,6 +152,51 @@ def _csv(path):
         return list(csv.DictReader(f))
 
 
+def test_port_gmm_checkpoint_evaluates_in_fab_tpu_to_the_ports_numbers(tmp_path, monkeypatch):
+    """The other direction of the checkpoint test above: a float64 GMM-40 run of the
+    port's runner with the prioritised buffer (2 iterations), its checkpoint scored by
+    fab_tpu's ``evaluate_checkpoint`` and by the port's on replayed noise: every key to
+    1e-8. fab_tpu's scores of the port's trained flows rest on this."""
+    overrides = GMM_TINY[:-1] + [
+        "training.use_64_bit=true", "training.use_buffer=true",
+        "training.prioritised_buffer=true", "training.min_buffer_length=64",
+        "training.maximum_buffer_length=256", "training.n_batches_buffer_sampling=2"]
+    run_gmm.main(["--config", str(CONFIGS / "gmm.yaml"), "--device", "cpu", *overrides,
+                  "training.n_iterations=2", "evaluation.n_eval=0",
+                  "evaluation.n_checkpoints=1", "evaluation.n_plots=0",
+                  f"evaluation.save_path={tmp_path}/"])
+    (run_dir,) = [d for d in tmp_path.iterdir() if d.is_dir()]
+    cfg = apply_overrides(load_config(str(CONFIGS / "gmm.yaml")),
+                          overrides + ["fab.loss_type=fab_alpha_div"])
+    kw = dict(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0,
+              true_expectation_estimation_n_samples=1000)
+    outer, inner = 64, 32
+    with jax.enable_x64():
+        target_j = JaxGMM(**kw, dtype=jnp.float64)
+        info_j = jax_evaluate.evaluate_checkpoint(cfg, target_j, str(run_dir), outer, inner)
+        # get_eval_info(key): chunk i of the data on fold_in(key_data, i), one Metropolis
+        # step of one distribution; the flow's test set on key_metrics.
+        key_data, key_metrics = jax.random.split(jax.random.key(0))
+        noise = {"normal": [], "uniform": []}
+        for i in range(outer // inner):
+            chunk = metropolis_ais_noise(jax.random.fold_in(key_data, i), 1, 1, inner, 2,
+                                         jnp.float64)
+            for k in noise:
+                noise[k] += chunk[k]
+        k_comp, k_eps = jax.random.split(key_metrics)
+        noise["randint"] = [np.asarray(jax.random.randint(k_comp, (1000,), 0, 40))]
+        noise["normal"].append(np.asarray(jax.random.normal(k_eps, (1000, 2), jnp.float64)))
+    target = GMM(**kw, dtype=DT, device="cpu")
+    target.true_expectation = torch.tensor(float(target_j.true_expectation), dtype=DT)
+    replay = NoiseReplay(monkeypatch, noise)
+    info = evaluate.evaluate_checkpoint(cfg, target, str(run_dir), outer, inner, dtype=DT,
+                                        device="cpu")
+    replay.assert_consumed()
+    assert set(info) == set(info_j) and info["eval_ess_flow"] > 0
+    for k in info:
+        assert_close(info[k], info_j[k], 1e-8, k)
+
+
 def test_evaluate_main_matches_fab_tpu_columns(gmm_run, tmp_path, capsys):
     args = ["--config", str(CONFIGS / "gmm.yaml"), "--run", f"fab_seed0={gmm_run}",
             "--run", f"fab_seed1={gmm_run}", "--num-samples", "128", "--inner-batch", "64"]
@@ -160,6 +208,44 @@ def test_evaluate_main_matches_fab_tpu_columns(gmm_run, tmp_path, capsys):
     assert list(port[0]) == list(fab[0]) and len(port) == len(fab) == len(rows) == 2
     assert [r["model_name"] for r in port] == ["fab_seed0", "fab_seed1"]
     assert all(np.isfinite(float(v)) for r in port for k, v in r.items() if k != "model_name")
+
+
+def test_steps_from_a_port_checkpoint_match_fab_tpus(tmp_path):
+    """``trained_state_steps`` (run by hand on the GMM-40 cells' trained flows) on a
+    float64 checkpoint of the port's runner: both packages' steps from its flow agree
+    to 1e-8 on shared noise, ``n_valid`` equal."""
+    overrides = GMM_TINY[:-1] + ["training.use_64_bit=true"]
+    run_gmm.main(["--config", str(CONFIGS / "gmm.yaml"), "--device", "cpu", *overrides,
+                  "training.n_iterations=3", "evaluation.n_eval=0",
+                  "evaluation.n_checkpoints=1", "evaluation.n_plots=0",
+                  f"evaluation.save_path={tmp_path}/"])
+    (ckpt,) = tmp_path.glob("*/model_checkpoints/iter_3/state.pkl")
+    out = trained_state_steps(str(ckpt), n_steps=3, batch=32, overrides=overrides)
+    assert len(out["param_rel_diff"]) == 3 and max(out["param_rel_diff"]) < 1e-8, out
+    assert all(a == b > 0 for a, b in out["n_valid"]), out
+    for a, b in out["loss"]:
+        assert_close(a, b, 1e-8, "loss")
+
+
+def test_shared_noise_run_keeps_both_packages_together_early(tmp_path):
+    """``shared_noise_run`` (run by hand for the GMM-40 gap in ROADMAP Queue 3): from
+    one initial float64 flow on shared noise, both packages' steps agree to 1e-8 over
+    the first 30 steps, ``n_valid`` and the loss equal, and the two final states,
+    written as checkpoints, give ``gmm_fab_cells --tails`` the same rows."""
+    from fab_tpu_torch.experiments import gmm_fab_cells
+
+    overrides = GMM_TINY[:-1] + ["training.use_64_bit=true"]
+    out = shared_noise_run(30, str(tmp_path), every=10, batch=32, overrides=overrides)
+    assert [r["step"] for r in out["records"]] == [10, 20, 30]
+    for r in out["records"]:
+        assert r["param_rel_diff"] < 1e-8 and r["n_valid"] == r["n_valid_j"] > 0, r
+        assert_close(r["loss"], r["loss_j"], 1e-8, "loss")
+    rows = [gmm_fab_cells.tails(
+        [(name, str(tmp_path / name / "model_checkpoints" / "iter_30" / "state.pkl"))],
+        torch.device("cpu"), 500, overrides).splitlines()[-1].split("|")[2:7]
+        for name in ("port", "fab_tpu")]
+    for a, b in zip(*rows):
+        assert_close(float(a), float(b), 1e-6, "tails")
 
 
 def test_bias_pair_matches_fab_tpu():

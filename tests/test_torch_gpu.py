@@ -687,3 +687,152 @@ def test_no_collection_runs_during_a_capture(card):
     assert program.graph is not None and during == []
     with torch.no_grad():
         assert torch.equal(out["x"], torch.tanh(module(x)))
+
+
+def _noise_from_the_cpu(monkeypatch, seed: int) -> dict:
+    """Serve every draw of the port's random module from a CPU generator seeded with
+    ``seed``, one per device the draws are for, moved to that device, whatever
+    generator the caller holds: runs on two devices then take the same noise. Returns
+    device type -> [(kind, shape, dtype)] of its draws, in order."""
+    from fab_tpu_torch import random as port_random
+
+    gens, drawn = {}, {}
+
+    def serve(kind, device, shape, make, dtype=None):
+        kind_of = torch.device(device).type
+        drawn.setdefault(kind_of, []).append((kind, tuple(shape), str(dtype)))
+        cpu = gens.setdefault(kind_of, torch.Generator().manual_seed(seed))
+        return make(cpu).to(device)
+
+    draws = {
+        "normal": lambda g, shape, dtype, device: serve(
+            "normal", device, shape, lambda c: torch.randn(tuple(shape), generator=c, dtype=dtype),
+            dtype),
+        "uniform": lambda g, shape, dtype, device: serve(
+            "uniform", device, shape, lambda c: torch.rand(tuple(shape), generator=c, dtype=dtype),
+            dtype),
+        "exponential": lambda g, shape, dtype, device: serve(
+            "exponential", device, shape,
+            lambda c: torch.empty(tuple(shape), dtype=dtype).exponential_(generator=c), dtype),
+        "randint": lambda g, low, high, shape, device: serve(
+            "randint", device, shape, lambda c: torch.randint(low, high, tuple(shape), generator=c)),
+    }
+    for name, draw in draws.items():
+        monkeypatch.setattr(port_random, name, draw)
+    return drawn
+
+
+def _gmm_f64_steps(devices, n_steps: int, batch: int = 128, tol: float = 1e-9) -> dict:
+    """GMM-40 at gmm.yaml's widths and settings (RealNVP 15 x 80-80, Metropolis AIS,
+    lr 1e-4, clip 100), f64, fab_no_buffer's Trainer, on each of two ``devices`` from
+    one initial flow and on the same noise, step by step in lockstep: the flow's
+    pieces on one input before any step (max abs apart), then per step the largest
+    relative difference of the flow's parameters and both steps' infos, until the
+    first step past ``tol``; and each device's draws."""
+    import pathlib
+
+    from fab_tpu_torch.experiments.setup_run import setup_model
+    from fab_tpu_torch.targets import GMM
+    from fab_tpu_torch.train import Trainer, make_optimizer
+    from fab_tpu_torch.utils.training import apply_overrides, load_config
+
+    config = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "configs" / "gmm.yaml"
+    cfg = apply_overrides(load_config(str(config)),
+                          ["fab.loss_type=fab_alpha_div", "training.use_buffer=false"])
+    f64, trainers = torch.float64, []
+    for device in devices:
+        target = GMM(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0, dtype=f64,
+                     device=device, true_expectation_estimation_n_samples=1000)
+        trainers.append(Trainer(setup_model(cfg, target, f64, device), make_optimizer(1e-4, 100.0),
+                                dtype=f64, device=device))
+    cpu = lambda t: {k: v.detach().cpu() for k, v in t.model.flow.state_dict().items()}
+    out = {"rel": [], "infos": []}
+    with pytest.MonkeyPatch.context() as mp:
+        out["drawn"] = _noise_from_the_cpu(mp, seed=0)
+        gens = [torch.Generator(device=t.device).manual_seed(0) for t in trainers]
+        # init_state draws the flow's parameters from each device's generator: the
+        # second flow then takes the first's.
+        states = [t.init_state(g) for t, g in zip(trainers, gens)]
+        trainers[1].model.flow.load_state_dict(trainers[0].model.flow.state_dict())
+        z = torch.randn((batch, 2), generator=torch.Generator().manual_seed(1), dtype=f64)
+        with torch.no_grad():
+            got = [(t.model.flow.forward_and_log_det(z.to(t.device)),
+                    t.model.target.log_prob(30 * z.to(t.device)),
+                    t.model.flow.log_prob(30 * z.to(t.device))) for t in trainers]
+        apart = lambda a, b: float((a.cpu() - b.cpu()).abs().max())
+        ((xa, lda), lpa, lqa), ((xb, ldb), lpb, lqb) = got
+        out["pieces"] = {"flow x": apart(xa, xb), "flow log det": apart(lda, ldb),
+                         "target log p": apart(lpa, lpb), "flow log q": apart(lqa, lqb)}
+        for _ in range(n_steps):
+            infos = []
+            for i, (t, g) in enumerate(zip(trainers, gens)):
+                states[i], info = t.train_step(states[i], g, batch)
+                infos.append({k: float(v) for k, v in info.items()
+                              if torch.is_tensor(v) and v.numel() == 1})
+            a, b = cpu(trainers[0]), cpu(trainers[1])
+            out["rel"].append(max(float((b[n] - v).abs().max() / v.abs().max().clamp(min=1e-300))
+                                  for n, v in a.items()))
+            out["infos"].append(infos)
+            if out["rel"][-1] > tol:
+                break
+    return out
+
+
+@pytest.mark.gpu
+def test_gmm_f64_steps_on_the_card_follow_the_cpus(card):
+    """GMM-40's fab_no_buffer steps (gmm.yaml, f64) from one initial flow on the same
+    noise, drawn on the CPU and served to both: 30 eager steps on the card stay within
+    relative 1e-9 of 30 on the CPU, with the same draws and the same step infos.
+    Rounding alone parts two f64 runs by ~5e-14 in 50 steps (``shared_noise_run`` in
+    tests/torch_parity_utils.py); an f32 path on the card would part them by ~1e-7 at
+    the first step. (The card's compiled step equals its eager one bitwise:
+    ``test_compiled_step_replays_a_cuda_graph_equal_to_eager``.)"""
+    out = _gmm_f64_steps([torch.device("cpu"), card], 30)
+    print("before any step, card against CPU, max abs apart: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out["pieces"].items()))
+    for k, (rel, (c, g)) in enumerate(zip(out["rel"], out["infos"])):
+        print(f"step {k + 1}: parameters {rel:.3e} relative apart; infos apart: "
+              + ", ".join(f"{n} {c[n]:.6g}/{g[n]:.6g}" for n in c
+                          if abs(c[n] - g[n]) > 1e-9 * max(abs(c[n]), 1e-30)))
+    assert out["drawn"]["cpu"] == out["drawn"]["cuda"], [
+        (i, a, b) for i, (a, b) in enumerate(zip(out["drawn"]["cpu"], out["drawn"]["cuda"]))
+        if a != b][:5]
+    assert len(out["rel"]) == 30 and out["rel"][-1] < 1e-9, out["rel"]
+
+
+@pytest.mark.gpu
+def test_step_keys_on_the_card_draw_independent_noise(card):
+    """The keys a run splits off its generator, one per step (``random.split``), on the
+    card as on the CPU: 4096 keys in a chain, each drawing a step's base noise (128 x 2
+    normals, f64) and its 128 accept uniforms. Per key, the mean and variance of the
+    normals sit within 6 standard errors of N(0, 1)'s over the 4096 keys; consecutive
+    keys' draws and the normals against the uniforms correlate by less than 6 / sqrt(n);
+    no two keys draw the same noise."""
+    from fab_tpu_torch import random
+
+    stats = {}
+    for device in (torch.device("cpu"), card):
+        generator = torch.Generator(device=device).manual_seed(0)
+        normals, uniforms = [], []
+        for _ in range(4096):
+            key = random.split(generator)
+            normals.append(random.normal(key, (128, 2), torch.float64, device).flatten())
+            uniforms.append(random.uniform(key, (128,), torch.float64, device))
+        e = torch.stack(normals).cpu()
+        u = torch.stack(uniforms).cpu()
+        lag = torch.corrcoef(torch.stack([e[:-1].flatten(), e[1:].flatten()]))[0, 1]
+        cross = torch.corrcoef(torch.stack([e[:, :128].flatten(), u.flatten()]))[0, 1]
+        stats[device.type] = {
+            "mean": float(e.mean()), "var": float(e.var()),
+            "key means' spread": float(e.mean(1).std() * 16), "lag-1 corr": float(lag),
+            "normal-uniform corr": float(cross), "distinct keys": len({float(r[0]) for r in e}),
+            "uniform mean": float(u.mean())}
+    print("step keys' noise: " + "; ".join(
+        f"{d}: " + ", ".join(f"{k} {v:.4g}" for k, v in s.items()) for d, s in stats.items()))
+    n = 4096 * 256
+    for s in stats.values():
+        assert abs(s["mean"]) < 6 / n ** 0.5 and abs(s["var"] - 1) < 6 * (2 / n) ** 0.5, s
+        assert abs(s["key means' spread"] - 1) < 6 / (2 * 4096) ** 0.5, s
+        assert abs(s["lag-1 corr"]) < 6 / n ** 0.5, s
+        assert abs(s["normal-uniform corr"]) < 6 / (4096 * 128) ** 0.5, s
+        assert s["distinct keys"] == 4096 and abs(s["uniform mean"] - 0.5) < 0.01, s

@@ -29,6 +29,7 @@ from fab_tpu_torch.experiments import (
     bench_lgcp_kernel,
     eval_gmm_study,
     eval_lgcp_trajectory,
+    gmm_fab_cells,
     ground_truth_marginals,
     rejection_sampling_vis,
     results_vis,
@@ -78,6 +79,7 @@ SCRIPT_MAINS = [
     (run_matmul_cells.main, []),
     (eval_gmm_study.main, []),
     (eval_lgcp_trajectory.main, ["results/torch/lgcp"]),
+    (gmm_fab_cells.main, []),
 ]
 SCRIPT_IDS = [m.__module__.rsplit(".", 1)[-1] for m, _ in SCRIPT_MAINS]
 

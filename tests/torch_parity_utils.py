@@ -5,6 +5,7 @@ JAX's random draws are regenerated by replaying fab_tpu's key splits and fed to 
 port through ``fab_tpu_torch.random``.
 """
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -440,3 +441,135 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def trained_state_steps(path: str, n_steps: int = 5, batch: int = 128, overrides=()) -> dict:
+    """The flow and transition state of a GMM-40 fab_no_buffer checkpoint (gmm.yaml,
+    f64) in both packages' ``Trainer`` with a fresh Adam state (fab_tpu resumes no
+    port optimizer state: the port keys Adam's moments by parameter name), then
+    ``n_steps`` steps of each on shared noise (step k on ``key(1000 + k)``): the
+    largest relative difference of the flow's parameters after each step, and each
+    step's ``n_valid`` and loss in both. ``overrides``: the run's gmm.yaml overrides
+    (its widths). For a state that only a long run reaches, run it by hand on that
+    run's checkpoint:
+
+        JAX_PLATFORMS=cpu python3 -c "import sys; sys.path[:0] = ['tests', '.'];
+            import torch_parity_utils as u; print(u.trained_state_steps('PATH'))"
+    """
+    from experiments.setup_run import setup_model as jax_setup_model
+    from fab_tpu.targets import GMM as JaxGMM
+    from fab_tpu.checkpoint import load_checkpoint as jax_load_checkpoint
+    from fab_tpu.train import Trainer as JaxPlainTrainer
+    from fab_tpu.train import TrainState as JaxTrainState
+    from fab_tpu_torch.experiments.setup_run import setup_model
+    from fab_tpu_torch.targets import GMM
+    from fab_tpu_torch.train import Trainer
+    from fab_tpu_torch.utils.training import apply_overrides, load_config
+
+    config = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "configs" / "gmm.yaml"
+    cfg = apply_overrides(load_config(str(config)),
+                          ["fab.loss_type=fab_alpha_div", "training.use_buffer=false",
+                           *overrides])
+    kw = dict(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0,
+              true_expectation_estimation_n_samples=1000)
+    out = {"param_rel_diff": [], "n_valid": [], "loss": []}
+    with jax.enable_x64():
+        trainer_j = JaxPlainTrainer(jax_setup_model(cfg, JaxGMM(**kw, dtype=jnp.float64)),
+                                    jax_make_optimizer(1e-4, 100.0), dtype=jnp.float64)
+        params = jax_load_checkpoint(path)["params"]
+        state_j = JaxTrainState(params, trainer_j.optimizer.init(params["flow"]),
+                                jnp.zeros((), jnp.int32))
+        step_j = jax.jit(trainer_j._train_step_fn(batch))
+    trainer = Trainer(setup_model(cfg, GMM(**kw, dtype=torch.float64, device="cpu"),
+                                  torch.float64, "cpu"),
+                      make_optimizer(1e-4, 100.0), dtype=torch.float64, device="cpu")
+    state, _ = trainer.load_state(path)
+    state = state._replace(opt_state=trainer.optimizer.init(trainer.params), step=0)
+    for k in range(n_steps):
+        key = jax.random.key(1000 + k)
+        with jax.enable_x64():
+            state_j, info_j = step_j(state_j, key)
+            noise = metropolis_ais_noise(key, 1, 1, batch, 2, jnp.float64)
+        with pytest.MonkeyPatch.context() as mp:
+            replay = NoiseReplay(mp, noise)
+            state, info = trainer.train_step(state, None, batch)
+            replay.assert_consumed()
+        want = from_jax_params(to_np(state_j.params["flow"]))
+        out["param_rel_diff"].append(max(
+            float((v - torch.as_tensor(want[n])).abs().max()
+                  / torch.as_tensor(want[n]).abs().max().clamp(min=1e-300))
+            for n, v in trainer.model.flow.state_dict().items()))
+        out["n_valid"].append((int(info["n_valid"]), int(info_j["n_valid"])))
+        out["loss"].append((float(info["loss"]), float(info_j["loss"])))
+    return out
+
+
+def shared_noise_run(n_steps: int, out_dir: str, seed: int = 0, every: int = 1000,
+                     batch: int = 128, overrides=()) -> dict:
+    """GMM-40 fab_no_buffer (gmm.yaml, f64) trained by both packages' ``Trainer`` from
+    fab_tpu's initial flow at ``key(seed)`` on shared noise: step k on
+    ``fold_in(key(seed), k)``, fab_tpu's draws replayed into the port. Every ``every``
+    steps: the step, the largest relative difference of the flow's parameters, and
+    each package's mean ``n_valid`` and loss since the last record. At the end both
+    states are checkpoints, ``out_dir/{port,fab_tpu}/model_checkpoints/iter_<n_steps>``,
+    which ``gmm_fab_cells --tails`` reads. ``overrides``: gmm.yaml overrides (widths).
+    A long run is for the command line:
+
+        JAX_PLATFORMS=cpu python3 -c "import sys; sys.path[:0] = ['tests', '.'];
+            import torch_parity_utils as u; print(u.shared_noise_run(19532, 'OUT'))"
+    """
+    from experiments.setup_run import setup_model as jax_setup_model
+    from fab_tpu.targets import GMM as JaxGMM
+    from fab_tpu.train import Trainer as JaxPlainTrainer
+    from fab_tpu_torch.experiments.setup_run import setup_model
+    from fab_tpu_torch.targets import GMM
+    from fab_tpu_torch.train import Trainer
+    from fab_tpu_torch.utils.training import apply_overrides, load_config
+
+    config = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "configs" / "gmm.yaml"
+    cfg = apply_overrides(load_config(str(config)),
+                          ["fab.loss_type=fab_alpha_div", "training.use_buffer=false",
+                           *overrides])
+    kw = dict(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0,
+              true_expectation_estimation_n_samples=1000)
+    with jax.enable_x64():
+        trainer_j = JaxPlainTrainer(jax_setup_model(cfg, JaxGMM(**kw, dtype=jnp.float64)),
+                                    jax_make_optimizer(1e-4, 100.0), dtype=jnp.float64,
+                                    save_path=str(pathlib.Path(out_dir) / "fab_tpu"))
+        state_j = trainer_j.init_state(jax.random.key(seed))
+        step_j = jax.jit(trainer_j._train_step_fn(batch))
+    trainer = Trainer(setup_model(cfg, GMM(**kw, dtype=torch.float64, device="cpu"),
+                                  torch.float64, "cpu"),
+                      make_optimizer(1e-4, 100.0), dtype=torch.float64, device="cpu",
+                      save_path=str(pathlib.Path(out_dir) / "port"))
+    flow = trainer.model.flow
+    flow.load_state_dict(from_jax_params(to_np(state_j.params["flow"]), flow=flow))
+    state = trainer.state_type(
+        transition_state={k: torch.tensor(np.array(v)) for k, v in
+                          to_np(state_j.params["transition"]).items()},
+        opt_state=trainer.optimizer.init(trainer.params), step=0)
+    records, since = [], {"n_valid": [], "n_valid_j": [], "loss": [], "loss_j": []}
+    for k in range(n_steps):
+        key = jax.random.fold_in(jax.random.key(seed), k)
+        with jax.enable_x64():
+            state_j, info_j = step_j(state_j, key)
+            noise = metropolis_ais_noise(key, 1, 1, batch, 2, jnp.float64)
+        with pytest.MonkeyPatch.context() as mp:
+            replay = NoiseReplay(mp, noise)
+            state, info = trainer.train_step(state, None, batch)
+            replay.assert_consumed()
+        for name, value in (("n_valid", info["n_valid"]), ("n_valid_j", info_j["n_valid"]),
+                            ("loss", info["loss"]), ("loss_j", info_j["loss"])):
+            since[name].append(float(value))
+        if (k + 1) % every == 0 or k + 1 == n_steps:
+            want = from_jax_params(to_np(state_j.params["flow"]))
+            diff = max(float((v - torch.as_tensor(want[n])).abs().max()
+                             / torch.as_tensor(want[n]).abs().max().clamp(min=1e-300))
+                       for n, v in flow.state_dict().items())
+            records.append(dict({n: float(np.mean(v)) for n, v in since.items()},
+                                step=k + 1, param_rel_diff=diff))
+            since = {n: [] for n in since}
+    trainer.save_checkpoint(state, n_steps)
+    with jax.enable_x64():
+        trainer_j.save_checkpoint(state_j, n_steps)
+    return {"records": records}
