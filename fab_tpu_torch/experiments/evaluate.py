@@ -78,11 +78,12 @@ def build_target(cfg, dtype=torch.float32, device="cuda"):
 
 
 def evaluate_checkpoint(cfg, target, path, num_samples, inner_batch, seed=0,
-                        dtype=torch.float32, device="cuda"):
+                        dtype=torch.float32, device="cuda", noise_device=None):
     """``get_eval_info`` of the checkpoint at ``path`` with the AIS target set to
-    p, on a generator seeded with ``seed``."""
+    p, on a generator seeded with ``seed`` on ``noise_device`` (default: ``device``;
+    a generator on another device draws inside ``run_gmm_served.served``)."""
     model, transition_state = load_model(cfg, target, path, dtype, device)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=noise_device or device).manual_seed(seed)
     return model.get_eval_info(transition_state, generator, outer_batch_size=num_samples,
                                inner_batch_size=inner_batch, p_target=True)
 

@@ -13,9 +13,19 @@ cell's run.
     python3 -m fab_tpu_torch.experiments.gmm_fab_cells [--only NAME ...] [--dry-run]
         [--results-root DIR] [--timeout S] [--commit REF] [key=value ...]
     python3 -m fab_tpu_torch.experiments.gmm_fab_cells --summary [--results-root DIR]
+        [--report DIR]
+    python3 -m fab_tpu_torch.experiments.gmm_fab_cells --spread [--results-root DIR]
     python3 -m fab_tpu_torch.experiments.gmm_fab_cells --trajectory NAME=RUN_DIR ...
     python3 -m fab_tpu_torch.experiments.gmm_fab_cells --tails NAME=CHECKPOINT ...
         [--device cpu] [--num-samples N]
+    python3 -m fab_tpu_torch.experiments.gmm_fab_cells --noise-report DIR
+        --noise-eval SOURCE=CSV ... --noise-tails MD ...
+
+The noise study's cells (PERF.md §6), run only when ``--only`` names them:
+``fab_no_buffer_s3`` and ``_s4``, and ``fab_no_buffer_served_s<N>`` (N in 0-2): the
+cell ``fab_no_buffer_s<N>`` run by ``run_gmm_served``, every draw made by CPU
+generators and moved to the device, into ``<root>/gmm_study/fab_no_buffer_served/seed<N>/``. ``--noise-report`` tables the
+study's fourteen runs (``noise_report``).
 
 Trailing ``key=value`` overrides go to every cell (a short probe of the step times,
 for example). ``--timeout`` is the study's backstop: a cell still running after it is
@@ -33,13 +43,14 @@ commit. ``--trajectory`` prints runs' logged trajectories side by side (``trajec
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
+import dataclasses
 import glob
 import json
 import math
 import os
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -55,6 +66,12 @@ from fab_tpu_torch.utils.training import apply_overrides, load_config, maybe_ena
 SEEDS = (0, 1, 2)
 METHODS = ("fab_no_buffer", "fab_buffer")
 CELLS = [f"{m}_s{s}" for m in METHODS for s in SEEDS]
+# The noise study's cells, run only when named by --only: fab_no_buffer at two more
+# seeds, and fab_no_buffer on CPU-drawn noise served to the device (run_gmm_served).
+NOISE_SEEDS = (3, 4)
+SERVED = "fab_no_buffer_served"
+NOISE_CELLS = ([f"fab_no_buffer_s{s}" for s in NOISE_SEEDS]
+               + [f"{SERVED}_s{s}" for s in SEEDS])
 BUFFER_OVERRIDES = ("fab.loss_type=fab_alpha_div", "training.use_buffer=true",
                     "training.prioritised_buffer=true")
 RUN_OVERRIDES = ("evaluation.n_plots=0", "evaluation.n_eval=5", "evaluation.n_checkpoints=2")
@@ -69,6 +86,11 @@ def cell(name: str) -> study.Cell:
     method, seed = split(name)
     if method == "fab_no_buffer":
         return run_gmm_method_study.cell(method, seed)
+    if method == SERVED:
+        return dataclasses.replace(run_gmm_method_study.cell("fab_no_buffer", seed),
+                                   name=name, runner="run_gmm_served",
+                                   save_path=f"gmm_study/{SERVED}/seed{seed}",
+                                   log=f"gmm_study_served_s{seed}")
     return study.Cell(name=name, runner="run_gmm", config="gmm.yaml",
                       overrides=(*BUFFER_OVERRIDES, f"training.seed={seed}", *RUN_OVERRIDES),
                       save_path=f"gmm_buffer_f64/seed{seed}", log=f"gmm_buffer_f64_s{seed}")
@@ -184,15 +206,19 @@ def summarise(root: str, name: str, trailing=()) -> dict:
     return out
 
 
-SPREAD_SEEDS = (0, 1)
+# Evaluation seeds of --spread: on the device's generator, and on CPU generators
+# whose draws are moved to the device.
+SPREAD_SEEDS = {"device": (0, 1, 2, 3, 4), "cpu": (0, 1, 2)}
 
 
 def spread(root: str, device: str, n: int = 50_000, overrides=()) -> list:
     """The evaluation's own noise: the first cell of each method that left a
     checkpoint, evaluated by ``evaluate.evaluate_checkpoint`` as ``eval_gmm_study``
-    evaluates it (``n`` samples, inner batch 500, f64, AIS target p) at evaluation
-    seeds 0 and 1; the rows go to ``<root>/reports/gmm_eval_seed_spread.csv``."""
-    from fab_tpu_torch.experiments import eval_gmm_study, evaluate
+    evaluates it (``n`` samples, inner batch 500, f64, AIS target p) at the
+    evaluation seeds SPREAD_SEEDS give each source of noise (``eval_noise``; CPU
+    generators serve the device through ``run_gmm_served.served``); the rows go to
+    ``<root>/reports/gmm_eval_seed_spread.csv``."""
+    from fab_tpu_torch.experiments import eval_gmm_study, evaluate, run_gmm_served
 
     cfg = apply_overrides(load_config(os.path.join(study.REPO, study.CONFIGS, "gmm.yaml")),
                           ["fab.loss_type=fab_alpha_div", *overrides])
@@ -204,15 +230,50 @@ def spread(root: str, device: str, n: int = 50_000, overrides=()) -> list:
         if method in seen:
             continue
         seen.add(method)
-        for seed in SPREAD_SEEDS:
-            info = evaluate.evaluate_checkpoint(cfg, target, path, n, 500, seed=seed,
-                                                dtype=dtype, device=device)
-            rows.append(dict({k: float(v) for k, v in info.items()}, model_name=name,
-                             eval_seed=seed))
-            print(name, seed, {k: round(v, 4) for k, v in info.items()}, flush=True)
+        for noise, seeds in SPREAD_SEEDS.items():
+            with run_gmm_served.served() if noise == "cpu" else contextlib.nullcontext():
+                for seed in seeds:
+                    info = evaluate.evaluate_checkpoint(
+                        cfg, target, path, n, 500, seed=seed, dtype=dtype, device=device,
+                        noise_device=device if noise == "device" else noise)
+                    rows.append(dict({k: float(v) for k, v in info.items()},
+                                     model_name=name, eval_seed=seed, eval_noise=noise))
+                    print(name, noise, seed, {k: round(v, 4) for k, v in info.items()},
+                          flush=True)
     os.makedirs(os.path.join(root, "reports"), exist_ok=True)
     _write_csv(os.path.join(root, "reports", SPREAD_CSV), rows)
     return rows
+
+
+TEST_SET = ("flow_kl_forward", "flow_test_set_mean_log_prob", "flow_test_set_n_nonfinite")
+OVERFLOW_LOG_Q = -1e6
+
+
+def overflows(row) -> bool:
+    """Whether an evaluation row's flow overflows on the test set: rows left
+    non-finite, or a mean log q below OVERFLOW_LOG_Q (a row that does not report
+    them, as fab_tpu's fab_buffer rows, does not overflow)."""
+    n, log_q = row.get("flow_test_set_n_nonfinite", ""), row["flow_test_set_mean_log_prob"]
+    return (n != "" and float(n) > 0) or (log_q != "" and float(log_q) < OVERFLOW_LOG_Q)
+
+
+def seed_spread(rows) -> dict:
+    """The cross-evaluation's yardstick from ``--spread``'s rows: per method and
+    metric, the widest max - min over one checkpoint's evaluations, among the
+    checkpoints none of whose evaluations overflows (such a flow's test-set metrics
+    spread without bound)."""
+    by_checkpoint = {}
+    for r in rows:
+        by_checkpoint.setdefault(r["model_name"], []).append(r)
+    out = {}
+    for name, same in by_checkpoint.items():
+        if any(overflows(r) for r in same):
+            continue
+        widest = out.setdefault(name.rsplit("_seed", 1)[0], {})
+        for k in (k for k in same[0] if k not in ("model_name", "eval_seed", "eval_noise")):
+            values = [float(r[k]) for r in same]
+            widest[k] = max(widest.get(k, 0.0), max(values) - min(values))
+    return out
 
 
 def _write_csv(path: str, rows, first=("model_name",)) -> None:
@@ -236,41 +297,19 @@ def provenance(cell: dict) -> str:
             f"eval_gmm_study 50,000 samples / inner 500, f64, AIS target p, on the card")
 
 
-def report(root: str, out: str) -> None:
-    """Copy the study's rows into ``out`` with a provenance column: the port's rows
-    (``<root>/reports/gmm_study_results.csv``), their LaTeX table, the seed spread
-    and, where present, fab_tpu's scores of the same checkpoints
-    (``<root>/reports/gmm_study_results_fab_tpu_eval.csv``); and ``README.md``, one
-    line per cell from ``<root>/cells.json``."""
-    from fab_tpu_torch.experiments import latex_table
+STUDY_ROWS = [f"{m}_seed{s}" for m in METHODS for s in SEEDS]
 
-    with open(os.path.join(root, "cells.json")) as f:
-        cells = json.load(f)
-    by_row = {f"{split(n)[0]}_seed{split(n)[1]}": c for n, c in cells.items()}
-    os.makedirs(out, exist_ok=True)
-    rows = _read_csv(os.path.join(root, "reports", "gmm_study_results.csv"))
-    for r in rows:
-        r["provenance"] = provenance(by_row[r["model_name"]])
-    _write_csv(os.path.join(out, "gmm_study_results.csv"), rows)
-    with open(os.path.join(out, "gmm_study_table.tex"), "w") as f:
-        f.write(latex_table.table(rows, "gmm"))
-    shutil.copy(os.path.join(root, "reports", SPREAD_CSV), os.path.join(out, SPREAD_CSV))
-    cross = os.path.join(root, "reports", CROSS_CSV)
-    if os.path.exists(cross):
-        rows = _read_csv(cross)
-        for r in rows:
-            r["provenance"] = ("fab_tpu's experiments/evaluate.py on the CPU (JAX, f64), "
-                               "50,000 samples / inner 500, AIS target p, of the port's "
-                               f"checkpoint {by_row[r['model_name']]['last_checkpoint']}")
-        _write_csv(os.path.join(out, CROSS_CSV), rows)
-    lines = []
-    for name in CELLS:
-        c = cells.get(name)
-        if c is None:
-            lines.append(f"- `{name}`: not run.")
-            continue
-        lines.append(
-            f"- `{name}`: `{c.get('command')}`; commit "
+
+def _merged(new_rows, path: str) -> list:
+    """The study's rows of ``new_rows``, and those of the CSV at ``path`` (an earlier
+    report) that they do not replace, in the study's order."""
+    rows = {r["model_name"]: r for r in (_read_csv(path) if os.path.exists(path) else [])}
+    rows.update({r["model_name"]: r for r in new_rows})
+    return [rows[n] for n in STUDY_ROWS if n in rows]
+
+
+def _cell_line(name: str, c: dict) -> str:
+    return (f"- `{name}`: `{c.get('command')}`; commit "
             f"{c.get('commit')}; {c.get('card')}; {c['iterations']} of "
             f"{c['budget_iterations']} iterations, step "
             f"{'compiled' if c.get('compiled') else 'eager'}; process wall "
@@ -281,15 +320,69 @@ def report(root: str, out: str) -> None:
             f"{c.get('last_eval_ess_flow')} (iteration {c.get('last_eval_step')}); final "
             f"parameters finite: {c.get('finite_params')}; resumed: "
             f"{'yes' if c.get('resumed') else 'no'}; exit code {c.get('rc')}.")
-    with open(os.path.join(out, "README.md"), "w") as f:
-        f.write(README_HEAD + "\n".join(lines).replace(sys.executable, "python3") + "\n"
-                + comparison(out))
+
+
+def report(root: str, out: str) -> None:
+    """Copy the study's rows into ``out`` with a provenance column: the port's rows
+    (``<root>/reports/gmm_study_results.csv``), their LaTeX table, the seed spread
+    and, where present, fab_tpu's scores of the same checkpoints
+    (``<root>/reports/gmm_study_results_fab_tpu_eval.csv``); and ``README.md``, one
+    line per cell from ``<root>/cells.json``, the study's cells first, then any other
+    run found there (the noise study's). What ``out`` already holds of a cell that
+    ``<root>`` lacks (its rows, its scores, its line, the spread) is kept, so that a
+    cell run later joins the report."""
+    from fab_tpu_torch.experiments import latex_table
+
+    with open(os.path.join(root, "cells.json")) as f:
+        cells = json.load(f)
+    by_row = {f"{split(n)[0]}_seed{split(n)[1]}": c for n, c in cells.items()}
+    os.makedirs(out, exist_ok=True)
+    rows = [r for r in _read_csv(os.path.join(root, "reports", "gmm_study_results.csv"))
+            if r["model_name"] in STUDY_ROWS]
+    for r in rows:
+        r["provenance"] = provenance(by_row[r["model_name"]])
+    rows = _merged(rows, os.path.join(out, "gmm_study_results.csv"))
+    _write_csv(os.path.join(out, "gmm_study_results.csv"), rows)
+    with open(os.path.join(out, "gmm_study_table.tex"), "w") as f:
+        f.write(latex_table.table(rows, "gmm"))
+    if os.path.exists(os.path.join(root, "reports", SPREAD_CSV)):
+        rows = _read_csv(os.path.join(root, "reports", SPREAD_CSV))
+        kept = os.path.join(out, SPREAD_CSV)
+        new = {r["model_name"] for r in rows}
+        rows = [r for r in (_read_csv(kept) if os.path.exists(kept) else [])
+                if r["model_name"] not in new] + rows
+        _write_csv(kept, rows)
+    cross = os.path.join(root, "reports", CROSS_CSV)
+    if os.path.exists(cross):
+        rows = [r for r in _read_csv(cross) if r["model_name"] in STUDY_ROWS]
+        for r in rows:
+            r["provenance"] = ("fab_tpu's experiments/evaluate.py on the CPU (JAX, f64), "
+                               "50,000 samples / inner 500, AIS target p, of the port's "
+                               f"checkpoint {by_row[r['model_name']]['last_checkpoint']}")
+        _write_csv(os.path.join(out, CROSS_CSV), _merged(rows, os.path.join(out, CROSS_CSV)))
+    readme = os.path.join(out, "README.md")
+    earlier = {}
+    if os.path.exists(readme):
+        with open(readme) as f:
+            for ln in f.read().splitlines():
+                m = re.match(r"- `(\w+_s\d+)`: ", ln)
+                if m:
+                    earlier[m.group(1)] = ln
+    lines = {**earlier, **{name: _cell_line(name, c) for name, c in cells.items()}}
+    study_lines = [lines.get(n, f"- `{n}`: not run.") for n in CELLS]
+    others = [lines[n] for n in sorted(lines) if n not in CELLS]
+    text = README_HEAD + "\n".join(study_lines)
+    if others:
+        text += "\n\n" + NOISE_LINES_HEAD + "\n".join(others)
+    with open(readme, "w") as f:
+        f.write(text.replace(sys.executable, "python3") + "\n" + comparison(out))
 
 
 def comparison(out: str) -> str:
     """Markdown: each method's and metric's three-seed range in the port's rows and in
-    fab_tpu's (``reports/gmm_study_results.csv``), and each fab_tpu score of a port
-    flow that lies more than twice the seed spread off the port's own."""
+    fab_tpu's (``reports/gmm_study_results.csv``), an overflowing row left out of the
+    test-set metrics' ranges, and each fab_tpu score of a port flow that lies more
+    than twice the seed spread off the port's own."""
     rows = _read_csv(os.path.join(out, "gmm_study_results.csv"))
     ref = _read_csv(os.path.join(study.REPO, "reports", "gmm_study_results.csv"))
     method = lambda r: r["model_name"].rsplit("_seed", 1)[0]
@@ -298,21 +391,24 @@ def comparison(out: str) -> str:
              "|---|---|---|---|---|"]
     for m in METHODS:
         for k in [k for k in rows[0] if k not in ("model_name", "provenance")]:
-            a = [float(r[k]) for r in rows if method(r) == m]
+            a = [float(r[k]) for r in rows
+                 if method(r) == m and not (k in TEST_SET and overflows(r))]
             b = [float(r[k]) for r in ref if method(r) == m and r.get(k, "") != ""]
             if a and b:
                 lines.append(f"| {m} | `{k}` | [{min(a):.4g}, {max(a):.4g}] | "
                              f"[{min(b):.4g}, {max(b):.4g}] | "
                              f"{'yes' if min(a) <= max(b) and min(b) <= max(a) else 'no'} |")
+    over = [r for r in rows if overflows(r)]
+    if over:
+        lines += ["", "Left out of the test-set metrics' ranges, their flows overflowing: "
+                  + "; ".join(f"{r['model_name']} ({float(r['flow_test_set_n_nonfinite']):g} "
+                              "test rows non-finite, mean log q "
+                              f"{float(r['flow_test_set_mean_log_prob']):.4g})"
+                              for r in over) + "."]
     cross_path = os.path.join(out, CROSS_CSV)
     if not os.path.exists(cross_path):
         return "\n".join(lines) + "\n"
-    seeds = _read_csv(os.path.join(out, SPREAD_CSV))
-    spread = {}
-    for m in METHODS:
-        pair = [r for r in seeds if method(r) == m]
-        spread[m] = {k: abs(float(pair[0][k]) - float(pair[1][k])) for k in pair[0]
-                     if k not in ("model_name", "eval_seed")}
+    spread = seed_spread(_read_csv(os.path.join(out, SPREAD_CSV)))
     port = {r["model_name"]: r for r in rows}
     lines += ["", "## fab_tpu's scores of the port's flows, more than twice the seed "
               "spread off", "", "| Row | Metric | Port | fab_tpu | Twice the spread |",
@@ -408,7 +504,116 @@ def tails(runs, device, n: int = 50_000, overrides=()) -> str:
     return "\n".join(lines) + "\n"
 
 
+# The noise study's runs (PERF.md §6): group (K: the card's own noise, S: the
+# card on CPU-drawn noise, C: CPU runs), seed, the source of its evaluation CSV, its
+# row there, and its row in a --tails table.
+NOISE_RUNS = ([("K", s, "card", f"fab_no_buffer_seed{s}", f"port_card_s{s}")
+               for s in SEEDS + NOISE_SEEDS]
+              + [("S", s, "card", f"{SERVED}_seed{s}", f"port_served_s{s}") for s in SEEDS]
+              + [("C", s, "cpu", f"fab_no_buffer_seed{s}", f"port_cpu_s{s}") for s in SEEDS]
+              + [("C", s, "fab_tpu", f"fab_no_buffer_seed{s}", f"fab_tpu_cpu_s{s}")
+                 for s in SEEDS])
+# A run that repeats one of NOISE_RUNS (its cell and seed) at a later tree: group,
+# seed, source and row as above. It stands beside the run it repeats, outside the
+# rule, and only where its --tails row is given.
+NOISE_RERUNS = [("K re-run", 0, "card_rerun", "fab_no_buffer_seed0", "port_card_s0_rerun")]
+NOISE_METRIC = "flow_bias_no_correction"
+
+
+def _tails_rows(path: str) -> dict:
+    """name -> (rows left out, unweighted bias, share farther than FAR) of the
+    ``tails`` tables in a markdown file."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            cells = [c.strip() for c in line.strip().strip("|").split("|")]
+            if len(cells) == 6 and cells[1].isdigit():
+                out[cells[0]] = (int(cells[1]), float(cells[2]), float(cells[3]))
+    return out
+
+
+def noise_outcome(rows) -> str:
+    """The noise study's decision rule (PERF.md §6) on the runs' metric: (i) every K
+    run above every S and C run, and S's range overlapping C's; (ii) K and S both
+    above all of C; (iii) K's range overlapping that of S and C together."""
+    val = lambda g: [r[NOISE_METRIC] for r in rows if r["group"] == g]
+    k, s, c = val("K"), val("S"), val("C")
+    if min(k) > max(s + c) and min(s) <= max(c) and min(c) <= max(s):
+        return "(i) the card's noise"
+    if min(k) > max(c) and min(s) > max(c):
+        return "(ii) the card's arithmetic at length"
+    if min(k) <= max(s + c) and min(s + c) <= max(k):
+        return "(iii) chance"
+    return "none of (i)-(iii)"
+
+
+def noise_report(evals, tails_paths, out: str) -> list:
+    """The noise study's runs (NOISE_RUNS) in one table: each run's metric from its
+    evaluation CSV (``evals``: SOURCE=CSV, SOURCE one of card, cpu, fab_tpu,
+    card_rerun), or, for a run with no row there, the unweighted bias of its ``tails``
+    row; beside it the rows its flow leaves out and the share farther than FAR
+    (``tails_paths``: markdown files of ``tails`` tables); then the runs ranked, the
+    rule's outcome, and the NOISE_RERUNS whose ``tails`` row is given. Writes
+    ``<out>/gmm_fab_no_buffer_noise.csv`` and ``.md``; returns the rows."""
+    scores = {}
+    for spec in evals:
+        source, path = spec.split("=", 1)
+        for r in _read_csv(path):
+            scores[(source, r["model_name"])] = (float(r[NOISE_METRIC]), os.path.basename(path))
+    found = {}
+    for path in tails_paths:
+        found.update(_tails_rows(path))
+    rows = []
+    reruns = [r for r in NOISE_RERUNS if r[-1] in found]
+    for group, seed, source, name, tails_name in NOISE_RUNS + reruns:
+        left_out, tails_bias, far = found[tails_name]
+        metric, by = scores.get((source, name), (tails_bias, f"--tails ({tails_name})"))
+        rows.append({"group": group, "seed": seed, "run": tails_name, NOISE_METRIC: metric,
+                     "scored_by": by, "rows_left_out": left_out, "far_share": far})
+    os.makedirs(out, exist_ok=True)
+    _write_csv(os.path.join(out, NOISE_CSV), rows, first=("group", "seed", "run"))
+    ranked = sorted(rows[:len(NOISE_RUNS)], key=lambda r: -r[NOISE_METRIC])
+    lines = [NOISE_HEAD, f"| Group | Seed | Run | `{NOISE_METRIC}` | Scored by | Rows left out "
+             f"of 50000 | Share farther than {FAR:g} |", "|---|---|---|---|---|---|---|"]
+    lines += [f"| {r['group']} | {r['seed']} | {r['run']} | {r[NOISE_METRIC]:.4g} | "
+              f"{r['scored_by']} | {r['rows_left_out']} | {r['far_share']:.4g} |" for r in rows]
+    lines += ["", "Ranked, highest first: " + ", ".join(
+        f"{r['group']}{r['seed']}" + ("" if r["run"].startswith("port") else " (fab_tpu)")
+        for r in ranked) + ".", "", f"Outcome by the rule: **{noise_outcome(rows)}**."]
+    if reruns:
+        lines += ["", "Re-runs (the same cell and seed at a later tree; not in the rule): "
+                  + "; ".join(f"{r['run']} {r[NOISE_METRIC]:.4g} ({r['scored_by']}), rows "
+                              f"left out {r['rows_left_out']}, far share {r['far_share']:.4g}"
+                              for r in rows[len(NOISE_RUNS):]) + "."]
+    with open(os.path.join(out, NOISE_CSV.replace(".csv", ".md")), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return rows
+
+
+NOISE_CSV = "gmm_fab_no_buffer_noise.csv"
+NOISE_HEAD = """# GMM-40 fab_no_buffer: the card's noise, the card's arithmetic, the CPU's runs
+
+Written by `python3 -m fab_tpu_torch.experiments.gmm_fab_cells --noise-report
+fab_tpu_torch/reports --noise-eval SOURCE=CSV ... --noise-tails MD ...` (the command
+is in `README.md` here). Every run is gmm.yaml's fab_no_buffer cell at the paper's
+budget (78,125 iterations, f64). Groups: **K**, the port on the card with the card's
+own generator; **S**, the port on the card with every draw made by CPU generators and
+moved to the card (`gmm_fab_cells --only fab_no_buffer_served_s<N>`, `run_gmm_served`);
+**C**, CPU runs, of the port and of fab_tpu itself. The metric is `eval_gmm_study`'s
+(50,000 samples, inner batch 500, evaluation seed 0: the card's runs on the card, the
+port's CPU runs on the CPU, fab_tpu's by its own `experiments/evaluate.py`), or, where a run kept no
+checkpoint to score, the unweighted bias of its `--tails` row. The last two columns
+are `--tails` (50,000 flow samples, generator seed 0, on the CPU). The rule (PERF.md
+§6, the noise study): (i) the card's noise when every K run lies above every S and C
+run and S mixes with C; (ii) the card's arithmetic at length when K and S both lie
+above all of C; (iii) chance when K's range overlaps that of S and C together.
+
+"""
 SPREAD_CSV = "gmm_eval_seed_spread.csv"
+NOISE_LINES_HEAD = """The noise study's runs (`gmm_fab_no_buffer_noise.md`), one line each
+(`_cpu_`: the port on the CPU; `<root>`: the run's `--results-root`):
+
+"""
 CROSS_CSV = "gmm_study_results_fab_tpu_eval.csv"
 README_HEAD = """# GMM-40's FAB cells, trained and evaluated by the port on the card
 
@@ -422,13 +627,24 @@ this directory's commit's.
 - `gmm_study_results.csv`: the port's `eval_gmm_study` rows (50,000 samples, inner
   batch 500, f64, AIS target p, on the card), with a provenance column.
 - `gmm_study_table.tex`: their table (`fab_tpu_torch.experiments.latex_table`).
-- `gmm_eval_seed_spread.csv`: one checkpoint per method evaluated at evaluation seeds
-  0 and 1 (`--spread`), the yardstick of the cross-evaluation.
+- `gmm_eval_seed_spread.csv`: checkpoints evaluated at several evaluation seeds
+  (`--spread`: 0-4 on the card's generator and 0-2 on CPU generators, `eval_noise`;
+  a checkpoint evaluated earlier keeps its rows), and the yardstick of the
+  cross-evaluation: per method and metric, the widest spread of one checkpoint among
+  those whose test rows all stay finite (`seed_spread`).
 - `gmm_study_results_fab_tpu_eval.csv`: the same checkpoints scored by fab_tpu's
   `experiments/evaluate.py` on the CPU (JAX, f64, 50,000 / 500).
 - `gmm_fab_no_buffer_tails.md`: where the fab_no_buffer flows put the mass behind the
   unweighted bias (`--tails`), beside fab_tpu's own runs, and the runs' logged
   trajectories (`--trajectory`).
+- `gmm_fab_no_buffer_noise.md` and `.csv`: the noise study's fourteen fab_no_buffer
+  runs, the card's own noise, the card on CPU-drawn noise and the CPU's runs, and the
+  outcome of its rule (`--noise-report`); its inputs
+  `gmm_fab_no_buffer_noise_eval_card.csv` and `_cpu.csv` (the new runs'
+  `eval_gmm_study` rows, on the card and on the CPU), `_card_rerun.csv` (the card's
+  seed 0 run again at a later tree), `gmm_fab_no_buffer_noise_tails.md` (their
+  `--tails`) and `gmm_fab_no_buffer_fab_tpu_cpu_eval.csv` (fab_tpu's runs scored by its
+  own evaluator).
 
 One line per cell:
 
@@ -441,13 +657,19 @@ def main(argv=None):
     p.add_argument("--commit", default="not given")
     p.add_argument("--summary", action="store_true", help="only sum up the runs found")
     p.add_argument("--spread", action="store_true",
-                   help="evaluate one checkpoint per method at two evaluation seeds")
+                   help="evaluate one checkpoint per method at several evaluation seeds")
     p.add_argument("--num-samples", type=int, default=50_000, help="of --spread, --tails")
     p.add_argument("--report", metavar="DIR", help="write the committed files into DIR")
     p.add_argument("--trajectory", nargs="+", metavar="NAME=RUN_DIR",
                    help="print GMM-40 runs' logged trajectories side by side")
     p.add_argument("--tails", nargs="+", metavar="NAME=CHECKPOINT",
                    help="print where trained flows put the mass behind the unweighted bias")
+    p.add_argument("--noise-report", metavar="DIR",
+                   help="write the noise study's table of runs into DIR")
+    p.add_argument("--noise-eval", action="append", default=[], metavar="SOURCE=CSV",
+                   help="of --noise-report: evaluation rows (SOURCE: card, cpu, fab_tpu)")
+    p.add_argument("--noise-tails", action="append", default=[], metavar="MD",
+                   help="of --noise-report: a markdown file of --tails tables")
     args = p.parse_args(argv)
     args.trailing, args.root = args.args, os.path.join(study.REPO, args.results_root)
     if args.trajectory or args.tails:
@@ -456,9 +678,13 @@ def main(argv=None):
                            args.num_samples, args.trailing))
         print(text, end="")
         return text
+    if args.noise_report:
+        return noise_report(args.noise_eval, args.noise_tails,
+                            os.path.join(study.REPO, args.noise_report))
     if args.spread:
         return spread(args.root, resolve_device(args.device), args.num_samples, args.trailing)
-    cells = study.select([cell(n) for n in CELLS], args)
+    cells = study.select([cell(n) for n in (CELLS + NOISE_CELLS if args.only else CELLS)],
+                         args)
     if args.dry_run:
         return study.run_cells(cells, args, "gmm-fab")
     done = {}

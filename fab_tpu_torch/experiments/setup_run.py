@@ -250,6 +250,12 @@ def setup_trainer(cfg: ConfigDict, target, plotter=None, logger=None, save_path:
     return Trainer(model, optimizer, **common)
 
 
+def make_generator(seed: int, device) -> torch.Generator:
+    """The run's generator: every draw of ``init_state`` and of training comes from
+    it, on ``device``."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def setup_trainer_and_run_flow(cfg: ConfigDict, target, plotter=None, device="cuda"):
     """Build everything from ``cfg`` and run training; returns (trainer, state).
     Logs, checkpoints and evals go to ``<evaluation.save_path>/<timestamp>/``
@@ -279,7 +285,7 @@ def setup_trainer_and_run_flow(cfg: ConfigDict, target, plotter=None, device="cu
     trainer = setup_trainer(cfg, target, plotter, setup_logger(cfg, save_path), save_path,
                             device)
     model = trainer.model
-    generator = torch.Generator(device=device).manual_seed(t.seed)
+    generator = make_generator(t.seed, device)
 
     state, start_iter = None, 0
     if t.get("checkpoint_load_dir"):

@@ -42,9 +42,13 @@ def test_cells_run_as_processes_and_report(tmp_path, monkeypatch):
     assert [n for n, _ in found] == ["fab_no_buffer_seed1", "fab_buffer_seed0"]
     spread = gmm_fab_cells.main(["--device", "cpu", "--spread", "--num-samples", "500",
                                  "--results-root", str(root), *WIDTHS])
-    assert [(r["model_name"], r["eval_seed"]) for r in spread] == [
-        ("fab_no_buffer_seed1", 0), ("fab_no_buffer_seed1", 1), ("fab_buffer_seed0", 0),
-        ("fab_buffer_seed0", 1)]
+    assert [(r["model_name"], r["eval_noise"], r["eval_seed"]) for r in spread] == [
+        (name, noise, seed) for name in ("fab_no_buffer_seed1", "fab_buffer_seed0")
+        for noise, seeds in (("device", range(5)), ("cpu", range(3))) for seed in seeds]
+    # On the CPU, CPU-served evaluation noise is the device's.
+    by = {(r["model_name"], r["eval_noise"], r["eval_seed"]): r for r in spread}
+    for (name, noise, seed), r in by.items():
+        assert r == dict(by[(name, "device", seed)], eval_noise=noise)
 
     tails = gmm_fab_cells.main(["--device", "cpu", "--num-samples", "500", *WIDTHS, "--tails",
                                 *(f"{n}={root / r['last_checkpoint']}" for n, r in table.items())])
@@ -96,3 +100,59 @@ def test_trajectory_tables_runs_side_by_side(tmp_path):
     assert "| 1-20 | 0.2 | 0.2 |" in text and "| 21-40 | 0.5 | - |" in text
     assert "| 21-40 | 1 | 0 |" in text
     assert "| 20 | - | 0.125 / 0.5 / 2 |" in text and "| 40 | 0.25 / 0.5 / 2 | - |" in text
+
+
+def test_a_later_cell_joins_the_report(tmp_path):
+    """``--report`` from a root that holds one study cell and one noise-study run
+    merges them into an earlier report: the cell's rows and scores replace its own,
+    every other row, score and line stays as it was, and the noise run gets a line of
+    its own but no study row. The root's seed spread replaces the rows of the
+    checkpoint it evaluated and keeps the others."""
+    import pathlib
+    import shutil
+
+    committed = pathlib.Path(__file__).resolve().parents[1] / "fab_tpu_torch" / "reports"
+    out, root = tmp_path / "out", tmp_path / "root"
+    shutil.copytree(committed, out)
+    (root / "reports").mkdir(parents=True)
+    before = {p.name: p.read_text() for p in out.iterdir()}
+    rows = {r["model_name"]: r for r in csv.DictReader(open(out / "gmm_study_results.csv"))}
+    cross = {r["model_name"]: r for r in csv.DictReader(
+        open(out / "gmm_study_results_fab_tpu_eval.csv"))}
+    new = lambda r, **kw: dict({k: v for k, v in r.items() if k != "provenance"}, **kw)
+    gmm_fab_cells._write_csv(root / "reports" / "gmm_study_results.csv", [
+        new(rows["fab_buffer_seed2"], eval_ess_flow="0.5"),
+        new(rows["fab_buffer_seed2"], model_name="fab_no_buffer_seed3")])
+    gmm_fab_cells._write_csv(root / "reports" / "gmm_study_results_fab_tpu_eval.csv",
+                             [new(cross["fab_buffer_seed2"], eval_ess_flow="0.25")])
+    spread = list(csv.DictReader(open(out / "gmm_eval_seed_spread.csv")))
+    evaluated = [dict(r, eval_ess_flow="0.75") for r in spread
+                 if r["model_name"] == "fab_buffer_seed2"][:2]
+    assert evaluated and len(spread) > len(evaluated) + 2
+    gmm_fab_cells._write_csv(root / "reports" / "gmm_eval_seed_spread.csv", evaluated)
+    summary = dict(command="CMD", commit="REF", card="NVIDIA H100 80GB HBM3, 700.00 W",
+                   iterations=52076, budget_iterations=52076, compiled=True,
+                   nonfinite_losses=0, skipped_updates=0, logged_rows=5209, rc=0,
+                   last_checkpoint="ck.pkl")
+    (root / "cells.json").write_text(json.dumps(
+        {"fab_buffer_s2": summary, "fab_no_buffer_s3": dict(summary, command="CMD3")}))
+    gmm_fab_cells.report(str(root), str(out))
+    got = {r["model_name"]: r for r in csv.DictReader(open(out / "gmm_study_results.csv"))}
+    assert list(got) == list(rows) and got["fab_buffer_seed2"]["eval_ess_flow"] == "0.5"
+    assert all(got[n] == rows[n] for n in rows if n != "fab_buffer_seed2")
+    assert "commit REF" in got["fab_buffer_seed2"]["provenance"]
+    scores = {r["model_name"]: r for r in csv.DictReader(
+        open(out / "gmm_study_results_fab_tpu_eval.csv"))}
+    assert list(scores) == list(cross) and scores["fab_buffer_seed2"]["eval_ess_flow"] == "0.25"
+    assert all(scores[n] == cross[n] for n in cross if n != "fab_buffer_seed2")
+    merged = list(csv.DictReader(open(out / "gmm_eval_seed_spread.csv")))
+    assert merged == [r for r in spread if r["model_name"] != "fab_buffer_seed2"] + evaluated
+    old = {ln.split(":")[0]: ln for ln in before["README.md"].splitlines() if ln.startswith("- `")}
+    text = (out / "README.md").read_text()
+    lines = {ln.split(":")[0]: ln for ln in text.splitlines() if ln.startswith("- `")}
+    assert lines["- `fab_buffer_s2`"].startswith("- `fab_buffer_s2`: `CMD`; commit REF")
+    assert lines["- `fab_no_buffer_s3`"].startswith("- `fab_no_buffer_s3`: `CMD3`")
+    assert all(lines[k] == v for k, v in old.items()
+               if k not in ("- `fab_buffer_s2`", "- `fab_no_buffer_s3`"))
+    assert text.index("- `fab_buffer_s2`") < text.index("The noise study's runs") < \
+        text.index("- `fab_no_buffer_s3`")

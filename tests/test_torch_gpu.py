@@ -9,6 +9,8 @@ imports JAX):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -722,13 +724,9 @@ def _noise_from_the_cpu(monkeypatch, seed: int) -> dict:
     return drawn
 
 
-def _gmm_f64_steps(devices, n_steps: int, batch: int = 128, tol: float = 1e-9) -> dict:
-    """GMM-40 at gmm.yaml's widths and settings (RealNVP 15 x 80-80, Metropolis AIS,
-    lr 1e-4, clip 100), f64, fab_no_buffer's Trainer, on each of two ``devices`` from
-    one initial flow and on the same noise, step by step in lockstep: the flow's
-    pieces on one input before any step (max abs apart), then per step the largest
-    relative difference of the flow's parameters and both steps' infos, until the
-    first step past ``tol``; and each device's draws."""
+def _gmm_f64_trainer(device):
+    """GMM-40's fab_no_buffer ``Trainer`` at gmm.yaml's widths and settings (RealNVP
+    15 x 80-80, Metropolis AIS, lr 1e-4, clip 100), f64, on ``device``."""
     import pathlib
 
     from fab_tpu_torch.experiments.setup_run import setup_model
@@ -739,12 +737,21 @@ def _gmm_f64_steps(devices, n_steps: int, batch: int = 128, tol: float = 1e-9) -
     config = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "configs" / "gmm.yaml"
     cfg = apply_overrides(load_config(str(config)),
                           ["fab.loss_type=fab_alpha_div", "training.use_buffer=false"])
-    f64, trainers = torch.float64, []
-    for device in devices:
-        target = GMM(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0, dtype=f64,
-                     device=device, true_expectation_estimation_n_samples=1000)
-        trainers.append(Trainer(setup_model(cfg, target, f64, device), make_optimizer(1e-4, 100.0),
-                                dtype=f64, device=device))
+    f64 = torch.float64
+    target = GMM(dim=2, n_mixes=40, loc_scaling=40.0, log_var_scaling=1.0, dtype=f64,
+                 device=device, true_expectation_estimation_n_samples=1000)
+    return Trainer(setup_model(cfg, target, f64, device), make_optimizer(1e-4, 100.0),
+                   dtype=f64, device=device)
+
+
+def _gmm_f64_steps(devices, n_steps: int, batch: int = 128, tol: float = 1e-9) -> dict:
+    """GMM-40 at gmm.yaml's widths and settings (RealNVP 15 x 80-80, Metropolis AIS,
+    lr 1e-4, clip 100), f64, fab_no_buffer's Trainer, on each of two ``devices`` from
+    one initial flow and on the same noise, step by step in lockstep: the flow's
+    pieces on one input before any step (max abs apart), then per step the largest
+    relative difference of the flow's parameters and both steps' infos, until the
+    first step past ``tol``; and each device's draws."""
+    f64, trainers = torch.float64, [_gmm_f64_trainer(device) for device in devices]
     cpu = lambda t: {k: v.detach().cpu() for k, v in t.model.flow.state_dict().items()}
     out = {"rel": [], "infos": []}
     with pytest.MonkeyPatch.context() as mp:
@@ -836,3 +843,137 @@ def test_step_keys_on_the_card_draw_independent_noise(card):
         assert abs(s["lag-1 corr"]) < 6 / n ** 0.5, s
         assert abs(s["normal-uniform corr"]) < 6 / (4096 * 128) ** 0.5, s
         assert s["distinct keys"] == 4096 and abs(s["uniform mean"] - 0.5) < 0.01, s
+
+
+@pytest.mark.gpu
+def test_a_served_card_run_draws_the_cpu_runs_noise(card, monkeypatch):
+    """``run_gmm_served``'s run on the card: ``init_state`` and 5 compiled steps of
+    GMM-40's fab_no_buffer trainer (f64) inside ``served()``, on its CPU generator, take
+    exactly the noise of ``init_state`` and 5 eager steps on the CPU from the plain
+    run's generator at that seed (``make_generator``): the initial flows (drawn by
+    ``mlp_init`` and the LU layers) bitwise equal, then the steps' 15 draws value by
+    value, in order; after the steps the flows stay within relative 1e-9 (f64
+    rounding alone between the devices)."""
+    from fab_tpu_torch import random
+    from fab_tpu_torch.experiments import run_gmm_served, setup_run
+
+    cpu, drawn, flows = torch.device("cpu"), {"cpu": [], "cuda": []}, {}
+    trainers = {"cpu": _gmm_f64_trainer(cpu), "cuda": _gmm_f64_trainer(card)}
+    running = []
+
+    def recording(kind, draw):
+        def recorded(generator, *args):
+            out = draw(generator, *args)
+            drawn[running[-1]].append((kind, out.detach().cpu().clone()))
+            return out
+        return recorded
+
+    for kind in ("normal", "exponential", "uniform", "randint"):
+        monkeypatch.setattr(random, kind, recording(kind, getattr(random, kind)))
+    generators = {"cpu": setup_run.make_generator(0, cpu)}
+    for name, trainer in trainers.items():
+        running.append(name)
+        with run_gmm_served.served() if name == "cuda" else contextlib.nullcontext():
+            if name == "cuda":
+                generators[name] = setup_run.make_generator(0, card)
+                assert generators[name].device.type == "cpu"
+            state = trainer.init_state(generators[name])
+            flows[name] = [{k: v.detach().cpu().clone()
+                            for k, v in trainer.model.flow.state_dict().items()}]
+            step = (lambda s, g, t=trainer: t.train_step(s, g, 128)) if name == "cpu" else \
+                trainer.make_train_step(128)
+            for _ in range(5):
+                state, _ = step(state, generators[name])
+        flows[name].append({k: v.detach().cpu().clone()
+                            for k, v in trainer.model.flow.state_dict().items()})
+    print(f"draws: CPU {len(drawn['cpu'])}, card served {len(drawn['cuda'])}; kinds "
+          f"{sorted({k for k, _ in drawn['cpu']})}")
+    assert len(drawn["cpu"]) == len(drawn["cuda"]) == 15  # three a step
+    for i, ((ka, a), (kb, b)) in enumerate(zip(drawn["cpu"], drawn["cuda"])):
+        assert ka == kb and torch.equal(a, b), (i, ka, kb)
+    (start_cpu, end_cpu), (start_card, end_card) = flows["cpu"], flows["cuda"]
+    assert all(torch.equal(start_cpu[k], start_card[k]) for k in start_cpu)
+    rel = max(float((end_card[k] - v).abs().max() / v.abs().max().clamp(min=1e-300))
+              for k, v in end_cpu.items())
+    print(f"after 5 steps, card (served) against CPU: parameters {rel:.3e} relative apart")
+    assert rel < 1e-9
+
+
+def _sigma_tail(z: float) -> float:
+    """P(|N(0, 1)| > z)."""
+    import math
+
+    return math.erfc(z / math.sqrt(2.0))
+
+
+@pytest.mark.gpu
+def test_the_steps_own_draws_on_the_card_look_like_the_cpus(card):
+    """The draws of GMM-40's fab_no_buffer step (f64, batch 128) in the order, kinds
+    and shapes of its recorded noise tape (the flow's base normals, then Metropolis'
+    normals and its accept uniforms, all from the run's generator), for 32,768 steps
+    of noise passes, from the card's generator and from the CPU's (served to the card,
+    as run_gmm_served does). For each: the shares of normals beyond 4 and 5 sigma and
+    of uniforms below 1e-4 and above 1 - 1e-4 within 6 standard errors of their
+    expected counts (binomial); correlations at step lags 1-64 (element by element,
+    and of the steps' means), and between the draws one step makes one after another,
+    within 6 standard errors (1 / sqrt(n)); no two steps draw the same noise, and no
+    uniform value repeats more often than 3 times in all."""
+    import math
+
+    from fab_tpu_torch import random
+    from fab_tpu_torch.experiments import run_gmm_served
+
+    trainer = _gmm_f64_trainer(card)
+    state = trainer.init_state(torch.Generator(device=card).manual_seed(0))
+    program = trainer._program(128)
+    program(state, torch.Generator(device=card).manual_seed(0))
+    tape = program.tape
+    ops = [op[0] for op in tape.ops]
+    print(f"the step's tape: {tape.ops}")
+    assert ops == ["normal", "normal", "uniform"] and all(op[1] == 0 for op in tape.ops)
+    n_steps, stats = 32_768, {}
+    for name, generator in (("card", torch.Generator(device=card).manual_seed(0)),
+                            ("cpu", torch.Generator().manual_seed(0))):
+        draws = [[] for _ in tape.noise]
+        with run_gmm_served.served() if name == "cpu" else contextlib.nullcontext():
+            for _ in range(n_steps):
+                random.noise_pass(tape, generator)
+                for out, t in zip(draws, tape.noise):
+                    out.append(t.clone())
+        base, move, u = (torch.stack(d).reshape(n_steps, -1).cpu() for d in draws)
+        z = torch.cat([base, move], 1)
+        s = {}
+        for sigma in (4.0, 5.0):
+            p, n = _sigma_tail(sigma), z.numel()
+            s[f"beyond {sigma:g} sigma"] = (int((z.abs() > sigma).sum()), n * p,
+                                            math.sqrt(n * p * (1 - p)))
+        for label, mask in (("u < 1e-4", u < 1e-4), ("u > 1 - 1e-4", u > 1 - 1e-4)):
+            s[label] = (int(mask.sum()), u.numel() * 1e-4, math.sqrt(u.numel() * 1e-4))
+        corr = lambda a, b: float(torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1])
+        worst = {}
+        for label, x in (("base", base), ("move", move), ("u", u)):
+            for lag in range(1, 65):
+                worst.setdefault(f"{label} lag", []).append(
+                    abs(corr(x[:-lag], x[lag:])) * math.sqrt(x[lag:].numel()))
+                m = x.mean(1)
+                worst.setdefault(f"{label} mean lag", []).append(
+                    abs(corr(m[:-lag], m[lag:])) * math.sqrt(n_steps - lag))
+        pairs = (("base-move", base, move), ("move x-u", move[:, 0::2], u),
+                 ("move y-u", move[:, 1::2], u), ("base x-u", base[:, 0::2], u))
+        for label, a, b in pairs:
+            worst[label] = [abs(corr(a, b)) * math.sqrt(a.numel())]
+        s.update({k: max(v) for k, v in worst.items()})
+        s["distinct steps"] = min(len({tuple(r[:4].tolist()) for r in x}) for x in (base, move, u))
+        s["repeated uniforms"] = u.numel() - int(torch.unique(u).numel())
+        stats[name] = s
+    for name, s in stats.items():
+        print(f"{name}: " + "; ".join(
+            f"{k} {v[0]} (expected {v[1]:.4g} +- {v[2]:.3g})" if isinstance(v, tuple)
+            else f"{k} {v:.4g}" for k, v in s.items()))
+    for name, s in stats.items():
+        for k, v in s.items():
+            if isinstance(v, tuple):
+                assert abs(v[0] - v[1]) <= 6 * v[2] + 1, (name, k, v)
+            elif k.endswith("lag") or "-" in k:
+                assert v < 6, (name, k, v)
+        assert s["distinct steps"] == n_steps and s["repeated uniforms"] <= 3, (name, s)

@@ -38,6 +38,7 @@ from fab_tpu_torch.experiments import (
     run_gmm_method_study_r3,
     run_init_parity_ab,
     run_matmul_cells,
+    run_gmm_served,
     run_mw_method_study,
     visualise_marginal_pairs,
 )
@@ -80,6 +81,7 @@ SCRIPT_MAINS = [
     (eval_gmm_study.main, []),
     (eval_lgcp_trajectory.main, ["results/torch/lgcp"]),
     (gmm_fab_cells.main, []),
+    (run_gmm_served.main, ["--config", str(CONFIGS / "gmm.yaml")]),
 ]
 SCRIPT_IDS = [m.__module__.rsplit(".", 1)[-1] for m, _ in SCRIPT_MAINS]
 
