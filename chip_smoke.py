@@ -167,7 +167,10 @@ Phases:
      study runs through its runner's subprocess on the card, the six at once, cut
      in length only (STUDY_CUTS, printed: 2 iterations, one eval, one checkpoint):
      exit 0, its
-     checkpoint written, its CSV finite (MAY_BE_INFINITE aside); (c)
+     checkpoint written, its CSV finite (MAY_BE_INFINITE aside); mw_fab_cells' dry
+     run (its six cells) and its --summary of the ManyWell cell just run (the
+     iterations reached against the budget, compiled, TF32 off, finite parameters,
+     not stopped by the time limit; no training of its own); (c)
      eval_gmm_study on the two gmm_study runs (samples cut to GMM_STUDY_EVAL_N) and
      the table of the port's latex_table; (d) eval_lgcp_trajectory on
      the LGCP-1600 flow after phase 6's steps and after phase 7's run, with
@@ -3155,6 +3158,22 @@ def study_path(device, card, tmp) -> dict:
         print(f"[{card}] phase 17(b) {module} {cell.name}: rc 0, {seconds[module]:.1f} s, "
               f"{len(rows)} CSV rows, eval ESS of the flow {float(ess):.4g}")
     print(f"[{card}] phase 17(b) the {len(STUDIES)} cells at once: {seconds['all']:.1f} s")
+
+    from fab_tpu_torch.experiments import mw_fab_cells
+
+    t0 = time.time()
+    cells, out = _quiet(mw_fab_cells.main, [*dev, "--dry-run"])
+    assert [c.name for c, _ in cells] == mw_fab_cells.CELLS and len(out.splitlines()) == 6, out
+    table, _ = _quiet(mw_fab_cells.main, [*dev, "--summary", *STUDY_CUTS])
+    (name, row), = table.items()
+    assert name == "fab_no_buffer_s0" and row["iterations"] == row["budget_iterations"] == 2, row
+    assert row["compiled"] and row["tf32"] == "off" and row["finite_params"], row
+    assert not row["tlimit_reached"] and not row["resumed"], row
+    seconds["mw_fab_cells"] = time.time() - t0
+    print(f"[{card}] phase 17(b) mw_fab_cells: dry run {len(cells)} cells; --summary of "
+          f"{name} ({' '.join(STUDY_CUTS)}): {row['iterations']} of "
+          f"{row['budget_iterations']} iterations, compiled, TF32 {row['tf32']}, "
+          f"{seconds['mw_fab_cells']:.1f} s")
 
     from fab_tpu_torch.experiments import eval_gmm_study
 

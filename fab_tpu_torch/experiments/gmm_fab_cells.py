@@ -20,12 +20,16 @@ cell's run.
         [--device cpu] [--num-samples N]
     python3 -m fab_tpu_torch.experiments.gmm_fab_cells --noise-report DIR
         --noise-eval SOURCE=CSV ... --noise-tails MD ...
+    python3 -m fab_tpu_torch.experiments.gmm_fab_cells --fab-tpu-report DIR
+        --fab-tpu-eval CSV ... --fab-tpu-run NAME=RUN_DIR ... [--commit REF]
 
 The noise study's cells (PERF.md §6), run only when ``--only`` names them:
 ``fab_no_buffer_s3`` and ``_s4``, and ``fab_no_buffer_served_s<N>`` (N in 0-2): the
 cell ``fab_no_buffer_s<N>`` run by ``run_gmm_served``, every draw made by CPU
 generators and moved to the device, into ``<root>/gmm_study/fab_no_buffer_served/seed<N>/``. ``--noise-report`` tables the
-study's fourteen runs (``noise_report``).
+study's fourteen runs (``noise_report``). ``--fab-tpu-report`` writes fab_tpu's own
+fab_buffer runs on the CPU, as fab_tpu's evaluator scored them, with their provenance
+(``fab_tpu_cpu_report``).
 
 Trailing ``key=value`` overrides go to every cell (a short probe of the step times,
 for example). ``--timeout`` is the study's backstop: a cell still running after it is
@@ -42,25 +46,19 @@ commit. ``--trajectory`` prints runs' logged trajectories side by side (``trajec
 """
 from __future__ import annotations
 
-import argparse
 import contextlib
-import csv
 import dataclasses
+import datetime
+import functools
 import glob
-import json
 import math
 import os
-import re
-import subprocess
-import sys
-import time
 
 import numpy as np
 
-from fab_tpu_torch.checkpoint import load_checkpoint
 from fab_tpu_torch.device import resolve_device
 from fab_tpu_torch.experiments import run_gmm_method_study, study
-from fab_tpu_torch.experiments.setup_run import get_n_iterations
+from fab_tpu_torch.experiments.study import read_csv, to_float, write_csv
 from fab_tpu_torch.utils.training import apply_overrides, load_config, maybe_enable_x64
 
 SEEDS = (0, 1, 2)
@@ -96,114 +94,9 @@ def cell(name: str) -> study.Cell:
                       save_path=f"gmm_buffer_f64/seed{seed}", log=f"gmm_buffer_f64_s{seed}")
 
 
-def save_dir(root: str, name: str) -> str:
-    return os.path.join(root, cell(name).save_path)
-
-
-def log_path(root: str, name: str) -> str:
-    return os.path.join(root, "logs", f"{cell(name).log}.log")
-
-
 def budget(name: str, trailing=()) -> int:
-    """The cell's iteration count from its configuration (``get_n_iterations``)."""
-    cfg = apply_overrides(load_config(os.path.join(study.REPO, study.CONFIGS, "gmm.yaml")),
-                          [*cell(name).overrides, *trailing])
-    t, to = cfg.training, cfg.fab.transition_operator
-    return get_n_iterations(t.n_iterations, t.n_flow_forward_pass, t.batch_size,
-                            cfg.fab.loss_type, to.n_inner_steps,
-                            cfg.fab.n_intermediate_distributions, to.type, t.use_buffer,
-                            t.get("min_buffer_length"))
-
-
-def card() -> str:
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60)
-        return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not read"
-    except (OSError, subprocess.TimeoutExpired, IndexError):
-        return "not read"
-
-
-def run_cells(cells, args) -> dict:
-    """Each cell through ``study.run_cells`` in turn; name -> (exit code, wall s)."""
-    one = argparse.Namespace(**{**vars(args), "only": None})
-    done = {}
-    for c in cells:
-        t0 = time.time()
-        ((_, rc),) = study.run_cells([c], one, "gmm-fab", guard=None, timeout_s=args.timeout,
-                                     failed_file="gmm_fab_cells_FAILED")
-        done[c.name] = (rc, time.time() - t0)
-    return done
-
-
-def _float(v: str) -> float:
-    try:
-        return float(v)
-    except ValueError:
-        return math.nan
-
-
-def summarise(root: str, name: str, trailing=()) -> dict:
-    """What the cell's run left under ``root`` (see the module's docstring)."""
-    runs = [d for d in glob.glob(os.path.join(save_dir(root, name), "*", ""))
-            if os.path.isdir(d)]
-    out = {"cell": name, "budget_iterations": budget(name, trailing)}
-    if not runs:
-        return dict(out, run_dir=None)
-    run = max(runs, key=os.path.getmtime).rstrip(os.sep)
-    out["run_dir"] = os.path.relpath(run, root)
-    rows = []
-    hist = os.path.join(run, "logging_hist.csv")
-    if os.path.exists(hist):
-        with open(hist) as f:
-            rows = list(csv.DictReader(f))
-    train = [r for r in rows if r.get("loss", "") != ""]
-    # Trainer logs its evals' keys bare, the buffer trainers with "_p_target".
-    ess_key = "eval_ess_flow_p_target" if rows and "eval_ess_flow_p_target" in rows[0] \
-        else "eval_ess_flow"
-    evals = [r for r in rows if r.get(ess_key, "") != ""]
-    out.update(
-        iterations=int(_float(train[-1]["step"])) if train else 0,
-        logged_rows=len(train),
-        nonfinite_losses=sum(not math.isfinite(_float(r["loss"])) for r in train),
-        skipped_updates=sum(_float(r.get("update_applied", "1")) == 0 for r in train),
-        last_eval_ess_flow=_float(evals[-1][ess_key]) if evals else None,
-        last_eval_step=int(_float(evals[-1]["step"])) if evals else None,
-    )
-    ckpts = glob.glob(os.path.join(run, "model_checkpoints", "iter_*", "state.pkl"))
-    if ckpts:
-        last = max(ckpts, key=lambda p: int(p.split("iter_")[-1].split(os.sep)[0]))
-        leaves = []
-
-        def walk(node):
-            if isinstance(node, dict):
-                for v in node.values():
-                    walk(v)
-            elif isinstance(node, (list, tuple)):
-                for v in node:
-                    walk(v)
-            elif isinstance(node, np.ndarray):
-                leaves.append(node)
-
-        walk(load_checkpoint(last)["params"]["flow"])
-        finite = bool(leaves) and all(bool(np.isfinite(a).all()) for a in leaves)
-        out.update(last_checkpoint=os.path.relpath(last, root), finite_params=finite)
-    log = log_path(root, name)
-    text = ""
-    if os.path.exists(log):
-        with open(log, errors="replace") as f:
-            text = f.read()
-    timing = re.findall(r"run timing: iterations \d+-\d+ in ([\d.]+) s; median step over "
-                        r"the last 10 chunks ([\d.]+ ms|not measured)", text)
-    out.update(
-        compiled="train step: compiled" in text,
-        resumed="Resuming from" in text,
-        run_wall_s=float(timing[-1][0]) if timing else None,
-        median_step_ms=(float(timing[-1][1].split()[0])
-                        if timing and timing[-1][1] != "not measured" else None),
-    )
-    return out
+    """The cell's iteration count (``study.budget``)."""
+    return study.budget(cell(name), trailing)
 
 
 # Evaluation seeds of --spread: on the device's generator, and on CPU generators
@@ -241,185 +134,46 @@ def spread(root: str, device: str, n: int = 50_000, overrides=()) -> list:
                     print(name, noise, seed, {k: round(v, 4) for k, v in info.items()},
                           flush=True)
     os.makedirs(os.path.join(root, "reports"), exist_ok=True)
-    _write_csv(os.path.join(root, "reports", SPREAD_CSV), rows)
+    write_csv(os.path.join(root, "reports", SPREAD_CSV), rows)
     return rows
 
 
 TEST_SET = ("flow_kl_forward", "flow_test_set_mean_log_prob", "flow_test_set_n_nonfinite")
-OVERFLOW_LOG_Q = -1e6
-
-
-def overflows(row) -> bool:
-    """Whether an evaluation row's flow overflows on the test set: rows left
-    non-finite, or a mean log q below OVERFLOW_LOG_Q (a row that does not report
-    them, as fab_tpu's fab_buffer rows, does not overflow)."""
-    n, log_q = row.get("flow_test_set_n_nonfinite", ""), row["flow_test_set_mean_log_prob"]
-    return (n != "" and float(n) > 0) or (log_q != "" and float(log_q) < OVERFLOW_LOG_Q)
-
-
-def seed_spread(rows) -> dict:
-    """The cross-evaluation's yardstick from ``--spread``'s rows: per method and
-    metric, the widest max - min over one checkpoint's evaluations, among the
-    checkpoints none of whose evaluations overflows (such a flow's test-set metrics
-    spread without bound)."""
-    by_checkpoint = {}
-    for r in rows:
-        by_checkpoint.setdefault(r["model_name"], []).append(r)
-    out = {}
-    for name, same in by_checkpoint.items():
-        if any(overflows(r) for r in same):
-            continue
-        widest = out.setdefault(name.rsplit("_seed", 1)[0], {})
-        for k in (k for k in same[0] if k not in ("model_name", "eval_seed", "eval_noise")):
-            values = [float(r[k]) for r in same]
-            widest[k] = max(widest.get(k, 0.0), max(values) - min(values))
-    return out
-
-
-def _write_csv(path: str, rows, first=("model_name",)) -> None:
-    cols = list(first) + sorted({k for r in rows for k in r} - set(first))
-    with open(path, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=cols, restval="")
-        writer.writeheader()
-        writer.writerows(rows)
-
-
-def _read_csv(path: str) -> list:
-    with open(path) as f:
-        return list(csv.DictReader(f))
-
-
-def provenance(cell: dict) -> str:
-    """A port row's provenance: where and how far its flow was trained."""
-    return (f"port on the card ({cell.get('card')}); commit {cell.get('commit')}; "
-            f"iterations={cell['iterations']} of {cell['budget_iterations']}; "
-            f"resumed={'yes' if cell.get('resumed') else 'no'}; "
-            f"eval_gmm_study 50,000 samples / inner 500, f64, AIS target p, on the card")
+# Whether an evaluation row's flow overflows on the test set (``study.overflows``): rows
+# left non-finite, or a mean log q below -1e6 (a row that does not report them, as
+# fab_tpu's fab_buffer rows, does not overflow).
+overflows = functools.partial(study.overflows, log_q_columns=("flow_test_set_mean_log_prob",))
+# The cross-evaluation's yardstick from ``--spread``'s rows (``study.seed_spread``).
+seed_spread = functools.partial(study.seed_spread, overflow=overflows)
+EVALUATION = "eval_gmm_study 50,000 samples / inner 500, f64, AIS target p, on the card"
 
 
 STUDY_ROWS = [f"{m}_seed{s}" for m in METHODS for s in SEEDS]
 
 
-def _merged(new_rows, path: str) -> list:
-    """The study's rows of ``new_rows``, and those of the CSV at ``path`` (an earlier
-    report) that they do not replace, in the study's order."""
-    rows = {r["model_name"]: r for r in (_read_csv(path) if os.path.exists(path) else [])}
-    rows.update({r["model_name"]: r for r in new_rows})
-    return [rows[n] for n in STUDY_ROWS if n in rows]
-
-
-def _cell_line(name: str, c: dict) -> str:
-    return (f"- `{name}`: `{c.get('command')}`; commit "
-            f"{c.get('commit')}; {c.get('card')}; {c['iterations']} of "
-            f"{c['budget_iterations']} iterations, step "
-            f"{'compiled' if c.get('compiled') else 'eager'}; process wall "
-            f"{c.get('process_wall_s')} s, run loop {c.get('run_wall_s')} s, median step "
-            f"{c.get('median_step_ms')} ms (last 10 chunks of 10); non-finite losses "
-            f"{c['nonfinite_losses']} and skipped updates {c['skipped_updates']} of "
-            f"{c['logged_rows']} logged rows; last in-run eval_ess_flow "
-            f"{c.get('last_eval_ess_flow')} (iteration {c.get('last_eval_step')}); final "
-            f"parameters finite: {c.get('finite_params')}; resumed: "
-            f"{'yes' if c.get('resumed') else 'no'}; exit code {c.get('rc')}.")
-
-
 def report(root: str, out: str) -> None:
-    """Copy the study's rows into ``out`` with a provenance column: the port's rows
-    (``<root>/reports/gmm_study_results.csv``), their LaTeX table, the seed spread
-    and, where present, fab_tpu's scores of the same checkpoints
-    (``<root>/reports/gmm_study_results_fab_tpu_eval.csv``); and ``README.md``, one
-    line per cell from ``<root>/cells.json``, the study's cells first, then any other
-    run found there (the noise study's). What ``out`` already holds of a cell that
-    ``<root>`` lacks (its rows, its scores, its line, the spread) is kept, so that a
-    cell run later joins the report."""
-    from fab_tpu_torch.experiments import latex_table
-
-    with open(os.path.join(root, "cells.json")) as f:
-        cells = json.load(f)
-    by_row = {f"{split(n)[0]}_seed{split(n)[1]}": c for n, c in cells.items()}
-    os.makedirs(out, exist_ok=True)
-    rows = [r for r in _read_csv(os.path.join(root, "reports", "gmm_study_results.csv"))
-            if r["model_name"] in STUDY_ROWS]
-    for r in rows:
-        r["provenance"] = provenance(by_row[r["model_name"]])
-    rows = _merged(rows, os.path.join(out, "gmm_study_results.csv"))
-    _write_csv(os.path.join(out, "gmm_study_results.csv"), rows)
-    with open(os.path.join(out, "gmm_study_table.tex"), "w") as f:
-        f.write(latex_table.table(rows, "gmm"))
-    if os.path.exists(os.path.join(root, "reports", SPREAD_CSV)):
-        rows = _read_csv(os.path.join(root, "reports", SPREAD_CSV))
-        kept = os.path.join(out, SPREAD_CSV)
-        new = {r["model_name"] for r in rows}
-        rows = [r for r in (_read_csv(kept) if os.path.exists(kept) else [])
-                if r["model_name"] not in new] + rows
-        _write_csv(kept, rows)
-    cross = os.path.join(root, "reports", CROSS_CSV)
-    if os.path.exists(cross):
-        rows = [r for r in _read_csv(cross) if r["model_name"] in STUDY_ROWS]
-        for r in rows:
-            r["provenance"] = ("fab_tpu's experiments/evaluate.py on the CPU (JAX, f64), "
-                               "50,000 samples / inner 500, AIS target p, of the port's "
-                               f"checkpoint {by_row[r['model_name']]['last_checkpoint']}")
-        _write_csv(os.path.join(out, CROSS_CSV), _merged(rows, os.path.join(out, CROSS_CSV)))
-    readme = os.path.join(out, "README.md")
-    earlier = {}
-    if os.path.exists(readme):
-        with open(readme) as f:
-            for ln in f.read().splitlines():
-                m = re.match(r"- `(\w+_s\d+)`: ", ln)
-                if m:
-                    earlier[m.group(1)] = ln
-    lines = {**earlier, **{name: _cell_line(name, c) for name, c in cells.items()}}
-    study_lines = [lines.get(n, f"- `{n}`: not run.") for n in CELLS]
-    others = [lines[n] for n in sorted(lines) if n not in CELLS]
-    text = README_HEAD + "\n".join(study_lines)
-    if others:
-        text += "\n\n" + NOISE_LINES_HEAD + "\n".join(others)
-    with open(readme, "w") as f:
-        f.write(text.replace(sys.executable, "python3") + "\n" + comparison(out))
+    """The study's committed files in ``out`` from the runs under ``root``
+    (``study.report`` of REPORT): the port's rows, their table, the seed spread,
+    fab_tpu's scores, and README.md's GMM-40 section, the study's cells first, then
+    any other run found there (the noise study's)."""
+    study.report(root, out, REPORT)
 
 
 def comparison(out: str) -> str:
-    """Markdown: each method's and metric's three-seed range in the port's rows and in
-    fab_tpu's (``reports/gmm_study_results.csv``), an overflowing row left out of the
-    test-set metrics' ranges, and each fab_tpu score of a port flow that lies more
-    than twice the seed spread off the port's own."""
-    rows = _read_csv(os.path.join(out, "gmm_study_results.csv"))
-    ref = _read_csv(os.path.join(study.REPO, "reports", "gmm_study_results.csv"))
-    method = lambda r: r["model_name"].rsplit("_seed", 1)[0]
-    lines = ["", "## The port's three-seed ranges against fab_tpu's", "",
-             "| Method | Metric | Port [min, max] | fab_tpu [min, max] | Overlap |",
-             "|---|---|---|---|---|"]
-    for m in METHODS:
-        for k in [k for k in rows[0] if k not in ("model_name", "provenance")]:
-            a = [float(r[k]) for r in rows
-                 if method(r) == m and not (k in TEST_SET and overflows(r))]
-            b = [float(r[k]) for r in ref if method(r) == m and r.get(k, "") != ""]
-            if a and b:
-                lines.append(f"| {m} | `{k}` | [{min(a):.4g}, {max(a):.4g}] | "
-                             f"[{min(b):.4g}, {max(b):.4g}] | "
-                             f"{'yes' if min(a) <= max(b) and min(b) <= max(a) else 'no'} |")
-    over = [r for r in rows if overflows(r)]
-    if over:
-        lines += ["", "Left out of the test-set metrics' ranges, their flows overflowing: "
-                  + "; ".join(f"{r['model_name']} ({float(r['flow_test_set_n_nonfinite']):g} "
-                              "test rows non-finite, mean log q "
-                              f"{float(r['flow_test_set_mean_log_prob']):.4g})"
-                              for r in over) + "."]
+    """Markdown (``study.comparison``): each method's and metric's three-seed range in
+    the port's rows and in fab_tpu's (``reports/gmm_study_results.csv``), an
+    overflowing row left out of the test-set metrics' ranges, and each fab_tpu score
+    of a port flow that lies more than twice the seed spread off the port's own."""
     cross_path = os.path.join(out, CROSS_CSV)
-    if not os.path.exists(cross_path):
-        return "\n".join(lines) + "\n"
-    spread = seed_spread(_read_csv(os.path.join(out, SPREAD_CSV)))
-    port = {r["model_name"]: r for r in rows}
-    lines += ["", "## fab_tpu's scores of the port's flows, more than twice the seed "
-              "spread off", "", "| Row | Metric | Port | fab_tpu | Twice the spread |",
-              "|---|---|---|---|---|"]
-    scores = [(r, k, 2 * v) for r in _read_csv(cross_path) for k, v in spread[method(r)].items()]
-    off = [(r, k, two) for r, k, two in scores
-           if not abs(float(r[k]) - float(port[r["model_name"]][k])) <= two]
-    lines += [f"| {r['model_name']} | `{k}` | {float(port[r['model_name']][k]):.4g} | "
-              f"{float(r[k]):.4g} | {two:.4g} |" for r, k, two in off]
-    lines.append(f"\n{len(off)} of {len(scores)} scores lie more than twice the spread off.")
-    return "\n".join(lines) + "\n"
+    has_cross = os.path.exists(cross_path)
+    return study.comparison(
+        read_csv(os.path.join(out, "gmm_study_results.csv")),
+        read_csv(os.path.join(study.REPO, "reports", "gmm_study_results.csv")), METHODS,
+        TEST_SET, overflows,
+        lambda r: (f"{float(r['flow_test_set_n_nonfinite']):g} test rows non-finite, mean "
+                   f"log q {float(r['flow_test_set_mean_log_prob']):.4g}"),
+        read_csv(cross_path) if has_cross else None,
+        seed_spread(read_csv(os.path.join(out, SPREAD_CSV))) if has_cross else None)
 
 
 TRAJECTORY_KEYS = ("ess_base", "ess_ais", "loss")
@@ -432,8 +186,8 @@ def trajectory(runs, n_windows: int = 10) -> str:
     the file with the same columns). For each of TRAJECTORY_KEYS, the median of the
     finite logged values in each of ``n_windows`` equal spans of iterations, and the
     skipped updates in each span; then each in-run eval's TRAJECTORY_EVAL_KEYS."""
-    hists = {name: _read_csv(os.path.join(path, "logging_hist.csv")) for name, path in runs}
-    last = max(_float(r["step"]) for rows in hists.values() for r in rows)
+    hists = {name: read_csv(os.path.join(path, "logging_hist.csv")) for name, path in runs}
+    last = max(to_float(r["step"]) for rows in hists.values() for r in rows)
     edges = np.linspace(0.0, last, n_windows + 1)
     spans = [f"{int(a) + 1}-{int(b)}" for a, b in zip(edges[:-1], edges[1:])]
     head = "| Iterations | " + " | ".join(hists) + " |"
@@ -446,19 +200,19 @@ def trajectory(runs, n_windows: int = 10) -> str:
             cells = []
             for rows in hists.values():
                 inside = [r for r in rows if r.get("loss", "") != ""
-                          and edges[i] < _float(r["step"]) <= edges[i + 1]]
+                          and edges[i] < to_float(r["step"]) <= edges[i + 1]]
                 if key.startswith("skipped"):
-                    cells.append(str(sum(_float(r["update_applied"]) == 0 for r in inside)))
+                    cells.append(str(sum(to_float(r["update_applied"]) == 0 for r in inside)))
                     continue
-                vals = [_float(r[key]) for r in inside if math.isfinite(_float(r[key]))]
+                vals = [to_float(r[key]) for r in inside if math.isfinite(to_float(r[key]))]
                 cells.append(f"{np.median(vals):.4g}" if vals else "-")
             lines.append(f"| {span} | " + " | ".join(cells) + " |")
-    evals = {name: {int(_float(r["step"])): r for r in rows if r.get("eval_ess_flow", "") != ""}
+    evals = {name: {int(to_float(r["step"])): r for r in rows if r.get("eval_ess_flow", "") != ""}
              for name, rows in hists.items()}
     lines += ["", "In-run evals, " + " / ".join(f"`{k}`" for k in TRAJECTORY_EVAL_KEYS) + ":",
               "", head.replace("Iterations", "Iteration"), rule]
     for step in sorted({s for by_step in evals.values() for s in by_step}):
-        cells = [" / ".join(f"{_float(by_step[step][k]):.4g}" for k in TRAJECTORY_EVAL_KEYS)
+        cells = [" / ".join(f"{to_float(by_step[step][k]):.4g}" for k in TRAJECTORY_EVAL_KEYS)
                  if step in by_step else "-" for by_step in evals.values()]
         lines.append(f"| {step} | " + " | ".join(cells) + " |")
     return "\n".join(lines) + "\n"
@@ -558,7 +312,7 @@ def noise_report(evals, tails_paths, out: str) -> list:
     scores = {}
     for spec in evals:
         source, path = spec.split("=", 1)
-        for r in _read_csv(path):
+        for r in read_csv(path):
             scores[(source, r["model_name"])] = (float(r[NOISE_METRIC]), os.path.basename(path))
     found = {}
     for path in tails_paths:
@@ -571,7 +325,7 @@ def noise_report(evals, tails_paths, out: str) -> list:
         rows.append({"group": group, "seed": seed, "run": tails_name, NOISE_METRIC: metric,
                      "scored_by": by, "rows_left_out": left_out, "far_share": far})
     os.makedirs(out, exist_ok=True)
-    _write_csv(os.path.join(out, NOISE_CSV), rows, first=("group", "seed", "run"))
+    write_csv(os.path.join(out, NOISE_CSV), rows, first=("group", "seed", "run"))
     ranked = sorted(rows[:len(NOISE_RUNS)], key=lambda r: -r[NOISE_METRIC])
     lines = [NOISE_HEAD, f"| Group | Seed | Run | `{NOISE_METRIC}` | Scored by | Rows left out "
              f"of 50000 | Share farther than {FAR:g} |", "|---|---|---|---|---|---|---|"]
@@ -645,10 +399,54 @@ this directory's commit's.
   seed 0 run again at a later tree), `gmm_fab_no_buffer_noise_tails.md` (their
   `--tails`) and `gmm_fab_no_buffer_fab_tpu_cpu_eval.csv` (fab_tpu's runs scored by its
   own evaluator).
+- `gmm_fab_buffer_fab_tpu_cpu_eval.csv`: fab_tpu's own fab_buffer cells, seeds 0-2, run
+  and scored by fab_tpu on the CPU (50,000 / 500, with the non-finite test rows), with
+  their provenance (`--fab-tpu-report`).
 
 One line per cell:
 
 """
+
+
+FAB_TPU_CPU_CSV = "gmm_fab_buffer_fab_tpu_cpu_eval.csv"
+
+
+def fab_tpu_cpu_report(eval_csvs, runs, commit: str, out: str) -> list:
+    """fab_tpu's own fab_buffer cells on the CPU (``experiments/run_gmm.py`` on gmm.yaml
+    with BUFFER_OVERRIDES and RUN_OVERRIDES; ``runs``: (row name, run directory)
+    pairs), their scores by fab_tpu's ``experiments/evaluate.py`` (``eval_csvs``), into
+    ``<out>/gmm_fab_buffer_fab_tpu_cpu_eval.csv`` with a provenance column: the tree
+    (``commit``), the iterations each run logged last against the budget, and its wall
+    time from its directory's time stamp (the run's start) to its last checkpoint."""
+    scores = {r["model_name"]: r for path in eval_csvs for r in read_csv(path)}
+    rows = []
+    for name, run in runs:
+        run = run.rstrip(os.sep)
+        reached = max(int(to_float(r["step"])) for r in
+                      read_csv(os.path.join(run, "logging_hist.csv")) if r.get("loss", ""))
+        last = max(glob.glob(os.path.join(run, "model_checkpoints", "iter_*")),
+                   key=lambda p: int(p.rsplit("iter_", 1)[1]))
+        start = datetime.datetime.strptime(os.path.basename(run), "%Y-%m-%d_%H-%M-%S")
+        wall = os.path.getmtime(last) - start.timestamp()
+        rows.append(dict(scores[name], provenance=(
+            f"fab_tpu's experiments/run_gmm.py on the CPU (JAX, f64), "
+            f"{' '.join((*BUFFER_OVERRIDES, *RUN_OVERRIDES))}, {commit}; "
+            f"iterations={reached} of {budget('fab_buffer_s0')}; wall {wall:.0f} s (the run "
+            "directory's time stamp to its last checkpoint); scored by fab_tpu's "
+            "experiments/evaluate.py on the CPU, 50,000 samples / inner 500, f64, AIS "
+            "target p, evaluation seed 0")))
+    os.makedirs(out, exist_ok=True)
+    write_csv(os.path.join(out, FAB_TPU_CPU_CSV), rows)
+    return rows
+
+
+REPORT = study.Report(
+    rows_csv="gmm_study_results.csv", cross_csv=CROSS_CSV, spread_csv=SPREAD_CSV,
+    table_tex="gmm_study_table.tex", problem="gmm", rows=STUDY_ROWS, cells=CELLS,
+    evaluation=EVALUATION,
+    cross_evaluation=("fab_tpu's experiments/evaluate.py on the CPU (JAX, f64), 50,000 "
+                      "samples / inner 500, AIS target p"),
+    head=README_HEAD, others_head=NOISE_LINES_HEAD, comparison=comparison)
 
 
 def main(argv=None):
@@ -670,6 +468,12 @@ def main(argv=None):
                    help="of --noise-report: evaluation rows (SOURCE: card, cpu, fab_tpu)")
     p.add_argument("--noise-tails", action="append", default=[], metavar="MD",
                    help="of --noise-report: a markdown file of --tails tables")
+    p.add_argument("--fab-tpu-report", metavar="DIR",
+                   help="write fab_tpu's own fab_buffer runs' scores into DIR")
+    p.add_argument("--fab-tpu-eval", action="append", default=[], metavar="CSV",
+                   help="of --fab-tpu-report: scores (repeatable)")
+    p.add_argument("--fab-tpu-run", action="append", default=[], metavar="NAME=RUN_DIR",
+                   help="of --fab-tpu-report: a run of fab_tpu's (repeatable)")
     args = p.parse_args(argv)
     args.trailing, args.root = args.args, os.path.join(study.REPO, args.results_root)
     if args.trajectory or args.tails:
@@ -678,6 +482,9 @@ def main(argv=None):
                            args.num_samples, args.trailing))
         print(text, end="")
         return text
+    if args.fab_tpu_report:
+        return fab_tpu_cpu_report(args.fab_tpu_eval, [a.split("=", 1) for a in args.fab_tpu_run],
+                                  args.commit, os.path.join(study.REPO, args.fab_tpu_report))
     if args.noise_report:
         return noise_report(args.noise_eval, args.noise_tails,
                             os.path.join(study.REPO, args.noise_report))
@@ -690,26 +497,8 @@ def main(argv=None):
     done = {}
     if not args.summary and not args.report:
         resolve_device(args.device)
-        done = run_cells(cells, args)
-    path = os.path.join(args.root, "cells.json")
-    table = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            table = json.load(f)
-    for c in cells:
-        if not os.path.isdir(save_dir(args.root, c.name)):
-            continue
-        row = dict(table.get(c.name, {}), **summarise(args.root, c.name, args.trailing))
-        if c.name in done:
-            command = " ".join(study.command(c, args)).replace(sys.executable, "python3")
-            row.update(rc=done[c.name][0], process_wall_s=round(done[c.name][1], 1),
-                       overrides=list(args.trailing),
-                       command=command.replace(study.REPO + os.sep, ""),
-                       card=card() if args.device == "cuda" else "cpu", commit=args.commit)
-        table[c.name] = row
-        print(json.dumps(row), flush=True)
-    with open(path, "w") as f:
-        json.dump(table, f, indent=1)
+        done = study.run_in_turn(cells, args, "gmm-fab", "gmm_fab_cells_FAILED")
+    table = study.write_summaries(cells, args, done)
     if args.report:
         report(args.root, os.path.join(study.REPO, args.report))
     return table

@@ -262,6 +262,9 @@ def setup_trainer_and_run_flow(cfg: ConfigDict, target, plotter=None, device="cu
     (rank 0's time stamp on every rank, and only rank 0 writes)."""
     device = resolve_device(device)
     setup_precision(cfg)
+    if distributed.is_primary():
+        print(f"f32 matmul precision {torch.get_float32_matmul_precision()}, TF32 "
+              f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}", flush=True)
     mesh = setup_mesh(cfg, device)
     t = cfg.training
     if mesh is not None:

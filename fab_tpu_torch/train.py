@@ -759,8 +759,11 @@ def _fill_buffer(trainer, generator: torch.Generator, batch_size: int, add) -> B
                             if compiled else None)
     take = trainer.fill_program or fill_pass
     state = (transition_state, buffer_state)
+    t0 = time()
     while int(state[1].n_added) < buffer.min_sample_length:
         state, _ = take(state, generator)
+    if is_primary():
+        print(f"buffer fill: {int(state[1].n_added)} rows in {time() - t0:.1f} s", flush=True)
     return BufferTrainState(
         transition_state=state[0],
         opt_state=trainer.optimizer.init(trainer.params),

@@ -6,7 +6,7 @@ writes from them."""
 import csv
 import json
 
-from fab_tpu_torch.experiments import eval_gmm_study, gmm_fab_cells
+from fab_tpu_torch.experiments import eval_gmm_study, gmm_fab_cells, study
 from torch_parity_utils import one_torch_thread  # noqa: F401
 
 WIDTHS = ["flow.n_layers=2", "flow.layer_nodes_per_dim=4",
@@ -120,16 +120,16 @@ def test_a_later_cell_joins_the_report(tmp_path):
     cross = {r["model_name"]: r for r in csv.DictReader(
         open(out / "gmm_study_results_fab_tpu_eval.csv"))}
     new = lambda r, **kw: dict({k: v for k, v in r.items() if k != "provenance"}, **kw)
-    gmm_fab_cells._write_csv(root / "reports" / "gmm_study_results.csv", [
+    study.write_csv(root / "reports" / "gmm_study_results.csv", [
         new(rows["fab_buffer_seed2"], eval_ess_flow="0.5"),
         new(rows["fab_buffer_seed2"], model_name="fab_no_buffer_seed3")])
-    gmm_fab_cells._write_csv(root / "reports" / "gmm_study_results_fab_tpu_eval.csv",
+    study.write_csv(root / "reports" / "gmm_study_results_fab_tpu_eval.csv",
                              [new(cross["fab_buffer_seed2"], eval_ess_flow="0.25")])
     spread = list(csv.DictReader(open(out / "gmm_eval_seed_spread.csv")))
     evaluated = [dict(r, eval_ess_flow="0.75") for r in spread
                  if r["model_name"] == "fab_buffer_seed2"][:2]
     assert evaluated and len(spread) > len(evaluated) + 2
-    gmm_fab_cells._write_csv(root / "reports" / "gmm_eval_seed_spread.csv", evaluated)
+    study.write_csv(root / "reports" / "gmm_eval_seed_spread.csv", evaluated)
     summary = dict(command="CMD", commit="REF", card="NVIDIA H100 80GB HBM3, 700.00 W",
                    iterations=52076, budget_iterations=52076, compiled=True,
                    nonfinite_losses=0, skipped_updates=0, logged_rows=5209, rc=0,
@@ -156,3 +156,45 @@ def test_a_later_cell_joins_the_report(tmp_path):
                if k not in ("- `fab_buffer_s2`", "- `fab_no_buffer_s3`"))
     assert text.index("- `fab_buffer_s2`") < text.index("The noise study's runs") < \
         text.index("- `fab_no_buffer_s3`")
+
+
+def test_fab_tpus_own_runs_get_their_provenance(tmp_path):
+    """``--fab-tpu-report``: each scored row of fab_tpu's runs with the iterations its
+    run logged last and its wall time, from the run directory's time stamp to its
+    last checkpoint."""
+    import os
+    import time
+
+    run = tmp_path / "seed1" / "2026-01-02_03-04-05"
+    _hist(run, [dict(step=10, loss=1.0), dict(step=20, loss=2.0),
+                dict(step=20, eval_ess_flow=0.5)])
+    ckpt = run / "model_checkpoints" / "iter_20"
+    ckpt.mkdir(parents=True)
+    start = time.mktime(time.strptime("2026-01-02_03-04-05", "%Y-%m-%d_%H-%M-%S"))
+    os.utime(ckpt, (start + 75, start + 75))
+    scores = tmp_path / "scores.csv"
+    study.write_csv(scores, [dict(model_name="fab_buffer_seed1", flow_kl_forward=0.5)])
+    rows = gmm_fab_cells.main(["--fab-tpu-report", str(tmp_path / "out"), "--fab-tpu-eval",
+                               str(scores), "--fab-tpu-run", f"fab_buffer_seed1={run}",
+                               "--commit", "TREE"])
+    (row,) = rows
+    assert row["flow_kl_forward"] == "0.5" and "TREE" in row["provenance"]
+    assert "iterations=20 of 52076; wall 75 s" in row["provenance"], row["provenance"]
+    assert [r["model_name"] for r in csv.DictReader(
+        open(tmp_path / "out" / gmm_fab_cells.FAB_TPU_CPU_CSV))] == ["fab_buffer_seed1"]
+
+
+def test_the_committed_gmm_report_is_what_the_driver_makes_of_its_rows():
+    """The committed table and the README section's comparison are what
+    ``gmm_fab_cells`` writes from the committed rows (no drift since they were made)."""
+    import pathlib
+
+    from fab_tpu_torch.experiments import latex_table
+
+    port = pathlib.Path(__file__).resolve().parents[1] / "fab_tpu_torch" / "reports"
+    rows = study.read_csv(port / "gmm_study_results.csv")
+    assert (port / "gmm_study_table.tex").read_text() == latex_table.table(rows, "gmm")
+    section = study.read_section(str(port / "README.md"),
+                                 gmm_fab_cells.README_HEAD.split("\n", 1)[0])
+    assert section.startswith(gmm_fab_cells.README_HEAD)
+    assert section.rstrip("\n").endswith(gmm_fab_cells.comparison(str(port)).rstrip("\n"))

@@ -14,6 +14,13 @@
   port's three-seed range [min, max] overlaps fab_tpu's; an overflowing row is left
   out of the test-set metrics' ranges.
 - The paper's ordering: fab_buffer's mean ``eval_ess_flow`` above fab_no_buffer's.
+- fab_tpu's own fab_buffer runs at the code the port matches
+  (``gmm_fab_buffer_fab_tpu_cpu_eval.csv``: seeds 0-2 on the CPU at the full count,
+  scored with their non-finite test rows) and what they say of two gaps below, by a
+  rule fixed before they were read: the forward KL gap is "the record's" when the
+  port's two finite fab_buffer flows lie within those runs' range widened on each side
+  by twice the yardstick, and "stands" when both lie below it; the overflow is "the
+  method's" when one of those runs overflows too, else "still open".
 
 A metric that breaks a rule is a gap, listed below with its ROADMAP Queue 3 entry and
 held strictly: a listed gap that closes fails, and so does one that is not listed.
@@ -41,12 +48,13 @@ BOTH_FILL = [("fab_no_buffer", m) for m in METRICS] + [
                                 "flow_bias_normed", "flow_kl_forward",
                                 "flow_test_set_mean_log_prob")]
 # Port rows whose flow overflows on the test set -> its ROADMAP Queue 3 entry.
-Q3_OVERFLOW = "ROADMAP Queue 3: fab_buffer seed 2's flow overflows"
+Q3_OVERFLOW = "ROADMAP Queue 3: fab_buffer seed 2's flow overflows (still open)"
 OVERFLOWS = {"fab_buffer_seed2": Q3_OVERFLOW}
 # (method, metric) whose ranges do not overlap -> its ROADMAP Queue 3 entry.
 Q3_TAILS = "ROADMAP Queue 3: fab_no_buffer's unweighted biases"
 Q3_ESS = "ROADMAP Queue 3: fab_buffer's eval_ess_flow at evaluation seed 0"
-Q3_KL = "ROADMAP Queue 3: fab_buffer's forward KL, below fab_tpu's three seeds"
+Q3_KL = ("ROADMAP Queue 3: fab_buffer's forward KL, below fab_tpu's three seeds "
+         "(the record's: today's fab_tpu runs span the port's)")
 GAPS = {
     ("fab_no_buffer", "ais_bias_no_correction"): Q3_TAILS,
     ("fab_no_buffer", "flow_bias_no_correction"): Q3_TAILS,
@@ -196,3 +204,28 @@ def test_both_fill_lists_every_shared_metric(tables):
 def test_the_buffer_beats_no_buffer_in_flow_ess(tables):
     mean = {m: statistics.mean(_values(tables["port"], m, "eval_ess_flow")) for m in METHODS}
     assert mean["fab_buffer"] > mean["fab_no_buffer"], mean
+
+
+# What fab_tpu's own fab_buffer runs say of Q3_KL and Q3_OVERFLOW, by the rule above.
+KL_OUTCOME = "the record's"
+OVERFLOW_OUTCOME = "still open"
+
+
+def test_fab_tpus_own_fab_buffer_runs_give_the_recorded_outcomes(tables):
+    runs = _rows(PORT / "gmm_fab_buffer_fab_tpu_cpu_eval.csv")
+    assert set(runs) == {f"fab_buffer_seed{s}" for s in range(3)}, sorted(runs)
+    for name, row in runs.items():
+        assert f"iterations={BUDGET['fab_buffer']} of {BUDGET['fab_buffer']}" in \
+            row["provenance"], (name, row["provenance"])
+        assert row["flow_test_set_n_nonfinite"] != "", name
+    two = 2 * _spread()["fab_buffer"]["flow_kl_forward"]
+    today = [float(r["flow_kl_forward"]) for r in runs.values()]
+    low, high = min(today) - two, max(today) + two
+    port = [float(r["flow_kl_forward"]) for n, r in tables["port"].items()
+            if _method(n) == "fab_buffer" and not overflows(r)]
+    assert len(port) == 2, port
+    kl = ("the record's" if all(low <= v <= high for v in port)
+          else "stands" if all(v < low for v in port) else "neither")
+    assert kl == KL_OUTCOME, (port, low, high)
+    overflow = "the method's" if any(overflows(r) for r in runs.values()) else "still open"
+    assert overflow == OVERFLOW_OUTCOME, runs

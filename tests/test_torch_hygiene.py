@@ -31,6 +31,7 @@ from fab_tpu_torch.experiments import (
     eval_lgcp_trajectory,
     gmm_fab_cells,
     ground_truth_marginals,
+    mw_fab_cells,
     rejection_sampling_vis,
     results_vis,
     run_gmm_ess_ablation,
@@ -81,6 +82,7 @@ SCRIPT_MAINS = [
     (eval_gmm_study.main, []),
     (eval_lgcp_trajectory.main, ["results/torch/lgcp"]),
     (gmm_fab_cells.main, []),
+    (mw_fab_cells.main, []),
     (run_gmm_served.main, ["--config", str(CONFIGS / "gmm.yaml")]),
 ]
 SCRIPT_IDS = [m.__module__.rsplit(".", 1)[-1] for m, _ in SCRIPT_MAINS]

@@ -13,7 +13,7 @@ import torch
 
 from fab_tpu_torch import random
 from fab_tpu_torch.checkpoint import load_checkpoint
-from fab_tpu_torch.experiments import gmm_fab_cells, run_gmm, run_gmm_served, setup_run
+from fab_tpu_torch.experiments import gmm_fab_cells, run_gmm, run_gmm_served, setup_run, study
 from fab_tpu_torch.flows import coupling
 from torch_parity_utils import one_torch_thread  # noqa: F401
 
@@ -155,7 +155,7 @@ def test_the_noise_report_takes_each_runs_score_or_its_tails_bias(tmp_path, with
                                                  "flow_bias_no_correction": 10 + i})
     specs = []
     for source, rows in evals.items():
-        gmm_fab_cells._write_csv(tmp_path / f"{source}.csv", rows)
+        study.write_csv(tmp_path / f"{source}.csv", rows)
         specs.append(f"{source}={tmp_path / f'{source}.csv'}")
     out = tmp_path / "out"
     rows = gmm_fab_cells.main(["--noise-report", str(out), *sum(
